@@ -7,6 +7,14 @@ numpy arrays: ``*_from_numpy`` builds the port's tensors on a device and
 ``repro.core.engine.StoreState(**state_to_numpy(s))`` rebuilds a reference
 state (after ``jnp.asarray`` of each field).  A run can so switch between
 the two implementations at a window boundary.
+
+A model's parameter tree (the reference's ``unbox``ed tree as numpy
+arrays: nested dicts of arrays) travels the same way: ``params_from_numpy``
+builds the port's tensors with the same keys, shapes and dtypes, and
+``params_to_numpy`` returns numpy arrays, bf16 ones as exact float32.  bf16
+arrays come in as their bits: the reference's numpy bf16 dtype
+(``ml_dtypes``) is recognised by its name and reinterpreted through int16,
+so the port never imports it.
 """
 from __future__ import annotations
 
@@ -17,10 +25,10 @@ import torch
 
 from repro_torch.core.credits import CreditState
 from repro_torch.core.engine import StoreState
-from repro_torch.core.types import as_i32, to_numpy
+from repro_torch.core.types import as_device, as_i32, to_numpy
 
 __all__ = ["state_from_numpy", "state_to_numpy", "credits_from_numpy",
-           "credits_to_numpy"]
+           "credits_to_numpy", "params_from_numpy", "params_to_numpy"]
 
 
 def state_from_numpy(ptr, meta, epoch, heap, heap_top,
@@ -44,3 +52,28 @@ def credits_from_numpy(credit, retry_record,
 def credits_to_numpy(credits: CreditState) -> dict[str, np.ndarray]:
     return {f.name: to_numpy(getattr(credits, f.name))
             for f in dataclasses.fields(CreditState)}
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """A nested dict of numpy arrays (bf16 included) -> the same dict of
+    tensors on ``device``, dtypes kept."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    arr = np.array(tree)                 # a writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(as_device(device))
+
+
+def params_to_numpy(tree):
+    """A nested dict of tensors -> the same dict of numpy arrays.  bf16
+    tensors become float32 arrays (exact: a cast back to bf16 gives the
+    same bits)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()

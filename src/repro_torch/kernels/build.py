@@ -2,8 +2,9 @@
 plain C interface -> ``ctypes``.
 
 Every source in ``csrc/`` compiles to its own library, named by a hash of
-the source, under ``build/kernels/`` at the repository root (listed in
-``.gitignore``); a library that exists is reused.  ``build()`` starts one
+the source and the shared headers (``csrc/*.cuh``), under ``build/kernels/``
+at the repository root (listed in ``.gitignore``); a library that exists is
+reused.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them.  Each C entry
 point takes the device ordinal, raw pointers and the caller's stream, and
 returns ``cudaGetLastError()`` after its launches; ``check`` raises on any
@@ -21,11 +22,12 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "LaunchCounter", "build", "library", "check",
-           "stream_of", "require_cuda"]
+           "stream_of", "require_cuda", "require_cuda_views"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("wc_combine", "scan_probe")
+SOURCES = ("wc_combine", "scan_probe", "paged_attention",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,8 +51,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source and of every
+    header in ``csrc/`` (a header change rebuilds every library)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:
@@ -126,3 +132,35 @@ def require_cuda(what: str, *tensors: torch.Tensor, dtypes=()) -> None:
                              f"{dtypes[i]}")
     if n >= 2**31:
         raise ValueError(f"{what}: N={n} exceeds the kernel's int32 indexing")
+
+
+def require_cuda_views(what: str, named: dict, dtypes, ndims: dict,
+                       rows16=()) -> None:
+    """Check the N-D inputs of a kernel that reads strided views: every
+    tensor of ``named`` (``{name: tensor}``) is on one CUDA device, has the
+    rank ``ndims[name]`` and a contiguous last axis, and its dtype is in
+    ``dtypes[name]``; the rows of each tensor named in ``rows16`` start on
+    16-byte boundaries (base pointer and every stride but the last), as the
+    kernel loads them 16 bytes at a time.  Raise ``ValueError`` otherwise."""
+    dev = None
+    for name, t in named.items():
+        if t.device.type != "cuda" or (dev is not None and t.device != dev):
+            raise ValueError(f"{what}: {name} is on {t.device}, expected one "
+                             f"CUDA device{f' ({dev})' if dev else ''}")
+        dev = t.device
+        if t.dim() != ndims[name]:
+            raise ValueError(f"{what}: {name} must have {ndims[name]} axes, "
+                             f"got shape {tuple(t.shape)}")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last axis, "
+                             f"got strides {t.stride()}")
+        if t.dtype not in dtypes[name]:
+            raise ValueError(f"{what}: {name} is {t.dtype}, expected one of "
+                             f"{dtypes[name]}")
+        if name in rows16 and (
+                t.data_ptr() % 16
+                or any(st * t.element_size() % 16 for st in t.stride()[:-1])):
+            raise ValueError(f"{what}: the rows of {name} must start on "
+                             f"16-byte boundaries, got strides {t.stride()} "
+                             f"at address {t.data_ptr():#x}")
+

@@ -34,9 +34,19 @@ def test_port_sources_exist():
                 "stores/smart_art.py", "workloads/zipf.py",
                 "workloads/ycsb.py", "interop.py",
                 "kernels/wc_combine/ops.py", "kernels/wc_combine/ref.py",
-                "kernels/scan_probe/ops.py", "kernels/scan_probe/ref.py"):
+                "kernels/scan_probe/ops.py", "kernels/scan_probe/ref.py",
+                "kernels/paged_attention/ops.py",
+                "kernels/paged_attention/ref.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py", "models/config.py",
+                "models/common.py", "models/mlp.py", "models/attention.py",
+                "models/transformer.py", "models/model.py",
+                "configs/__init__.py", "configs/qwen3_0_6b.py",
+                "serving/pagetable.py", "serving/scheduler.py",
+                "launch/serve.py"):
         assert rel in mods, rel
-    for cu in ("wc_combine.cu", "scan_probe.cu"):
+    for cu in ("wc_combine.cu", "scan_probe.cu", "paged_attention.cu",
+               "flash_attention.cu"):
         assert (PORT / "kernels" / "csrc" / cu).is_file(), cu
 
 
@@ -67,6 +77,24 @@ def test_importing_every_port_module_loads_no_jax():
         "assert len(names) >= 20, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_importing_serving_subpackages_loads_no_jax():
+    """The subpackages of the serving slice, with every module in them,
+    import without ``jax`` or the reference package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for sub in ('models', 'configs', 'serving', 'launch'):\n"
+        "    pkg = importlib.import_module('repro_torch.' + sub)\n"
+        "    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "        importlib.import_module(m.name)\n"
+        "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "    assert not bad, (sub, bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
