@@ -6,12 +6,18 @@
 Phases (any mismatch raises, and the script exits non-zero):
 
 0. device and build — the card's name and power limit (``nvidia-smi``), then
-   ``nvcc`` builds all four kernels of ``src/repro_torch/kernels/csrc``.
+   ``nvcc`` builds all four kernels of ``src/repro_torch/kernels/csrc``; each
+   kernel's registers and spills (``ptxas -v``), the attention kernels'
+   shared memory per block, and a check that
+   ``cuobjdump -sass`` of the flash library holds ``HGMMA`` (bf16 runs on
+   the tensor cores).
 1. each kernel against its plain PyTorch version on the card: the two sort
    sweeps bit for bit over N in {1, 1000, 4096, 34816, 69632, 2^20} and four
    key layouts; the integer helpers (``_backoff_polls``, ``credit_slot``);
-   ``paged_attention`` at the serve shape (every length 1-40) and at
-   decode_32k, and ``flash_attention`` at the prefill shape (B 2, S 4096),
+   ``paged_attention`` at the serve shape (every length 1-40), at
+   decode_32k and at its table shape with lengths 4,096, 32,768 and on the
+   split boundaries (0, 1, SPLIT - 1, SPLIT, SPLIT + 1, ...), and
+   ``flash_attention`` at the prefill shape (B 2, S 4096),
    a ragged S, no mask and a 1024-token window, each in bf16 and f32 within
    the tolerances of ``tests/test_kernels.py`` (bf16 also within two ulps);
    kernel, plain, library and bound times.
@@ -42,6 +48,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,6 +111,54 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
         check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+_ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_f32|paged_split_kernel|"
+                    r"paged_merge_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
+
+
+def ptxas_report(name: str, log: str) -> None:
+    """Registers, spills and static shared memory of each entry function
+    of library ``name``, from ``nvcc -Xptxas -v``'s log."""
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _ENTRY.search(line)
+            dtype = {"13__nv_bfloat16": "bf16, ", "f": "f32, "}.get(
+                m.group(2), "") if m else ""
+            entry = (f"{m.group(1)}<{dtype}D={m.group(3)}>" if m
+                     else line.split("'")[1][:72])
+        elif entry and any(w in line for w in ("registers", "spill",
+                                               "smem")):
+            say(f"  {name}: {entry}: {line.split(':', 1)[-1].strip()}")
+
+
+def attention_smem() -> None:
+    """Dynamic shared memory per block of the attention kernels, as their
+    launchers request it (``*_smem_bytes`` of each library)."""
+    import ctypes
+    from repro_torch.kernels import build
+    fns = {}
+    for name, n_args in (("flash_attention", 2), ("paged_attention", 3)):
+        # a handle of its own: the launchers' cached handle keeps their
+        # signatures
+        lib = ctypes.CDLL(str(build.library_path(name)))
+        fn = getattr(lib, f"{name}_smem_bytes")
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * n_args
+        fns[name] = fn
+    for dtype, label in ((1, "bf16"), (0, "f32")):
+        flash = {d: fns["flash_attention"](dtype, d) for d in (32, 64, 128)}
+        paged = {d: fns["paged_attention"](dtype, d, 2) for d in (32, 64, 128)}
+        say(f"  dynamic shared memory per block, {label}, by D: "
+            f"flash_attention {flash} B; paged_attention (g = 2) {paged} B")
+
+
+def hgmma_count(path) -> int:
+    """``HGMMA`` instructions in the SASS of the library at ``path``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300, check=True)
+    return out.stdout.count("HGMMA")
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -315,19 +371,29 @@ def phase1_attention(dev, card: str) -> dict:
         return err
 
     # paged: the serve shape (one 40-row page per sequence, the identity
-    # block table, lengths 1-40), and decode_32k (B 8, lengths up to 32,768, 16-row pages,
-    # a permuted block table into a larger pool)
+    # block table, lengths 1-40), and decode_32k (B 8, lengths up to 32,768,
+    # 16-row pages, a permuted block table into a larger pool: 64 splits),
+    # also with every length 4,096, every length 32,768, and lengths on the
+    # split boundaries
     rng = np.random.default_rng(32)
-    for label, b, page, np_, extra in (("serve", 1, 40, 1, 0),
-                                       ("decode_32k", 8, 16, 2048, 64)):
+    sp = pa.SPLIT
+    for label, b, page, np_, extra in (
+            ("serve", 1, 40, 1, 0), ("decode_32k", 8, 16, 2048, 64),
+            ("len_4096", 8, 16, 2048, 64), ("len_32768", 8, 16, 2048, 64),
+            ("split_edges", 8, 16, 2048, 64)):
         h, kh, d = 16, 8, 128
         npool = b * np_ + extra
         bt_np = rng.permutation(npool)[: b * np_].reshape(b, np_)
         if label == "serve":
             lens_np = np.array([40], np.int32)
-        else:
+        elif label == "decode_32k":
             lens_np = rng.integers(1, np_ * page + 1, b).astype(np.int32)
             lens_np[0] = np_ * page
+        elif label == "split_edges":
+            lens_np = np.array([0, 1, sp - 1, sp, sp + 1, 2 * sp - 1,
+                                2 * sp, 2 * sp + 1], np.int32)
+        else:
+            lens_np = np.full(b, int(label[4:]), np.int32)
         bt = torch.as_tensor(bt_np.astype(np.int32), device=dev)
         lens = torch.as_tensor(lens_np, device=dev)
         for dtype in (torch.bfloat16, torch.float32):
@@ -372,7 +438,8 @@ def phase1_attention(dev, card: str) -> dict:
                     and dtype == torch.bfloat16:
                 out["paged_attention"].update(row)
             say(f"  paged_attention {label} B{b} H{h} KH{kh} D{d} page "
-                f"{page} x {np_}, {n_rows} rows, {dtype}: max |diff| {err:.3g};"
+                f"{page} x {np_} (splits {pa.split_plan(np_ * page)}), "
+                f"{n_rows} rows, {dtype}: max |diff| {err:.3g};"
                 f" device: kernel {ms:.5f} ms, plain {plain:.5f} ms, SDPA "
                 f"(dense, masked) {lib:.5f} ms; per call: {call:.5f} / "
                 f"{plain_call:.5f} / {lib_call:.5f} ms; bound "
@@ -949,9 +1016,13 @@ def main() -> int:
     say(f"  built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+        ptxas_report(name, log)
+    attention_smem()
+    n_hgmma = hgmma_count(build.library_path("flash_attention"))
+    say(f"  cuobjdump -sass: {n_hgmma} HGMMA instructions in "
+        f"{build.library_path('flash_attention').name}")
+    check(n_hgmma > 0, "flash_attention's SASS holds no HGMMA: its bf16 "
+                       "path does not run on the tensor cores")
     counters = {"wc_combine": wcc.counter, "scan_probe": sp.counter,
                 "paged_attention": pa.counter, "flash_attention": fa.counter}
 

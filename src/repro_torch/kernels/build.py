@@ -21,8 +21,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "LaunchCounter", "build", "library", "check",
-           "stream_of", "require_cuda", "require_cuda_views"]
+__all__ = ["SOURCES", "LaunchCounter", "build", "library", "library_path",
+           "check", "stream_of", "require_cuda", "require_cuda_views"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -50,7 +50,7 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
     """The library's path, named by a hash of its source and of every
     header in ``csrc/`` (a header change rebuilds every library)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
@@ -65,7 +65,7 @@ def build(names=SOURCES) -> dict[str, str]:
     libraries built by this call (ptxas register/spill report included)."""
     jobs = {}
     for name in names:
-        out = _target(name)
+        out = library_path(name)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -93,7 +93,7 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         lib.kernel_error_string.restype = ctypes.c_char_p
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         for sym, (restype, argtypes) in signatures.items():

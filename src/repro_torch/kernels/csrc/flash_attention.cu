@@ -13,65 +13,92 @@
 // (D contiguous), so both the model's (B, S, H, D) and the reference
 // kernel's (B, H, S, D) are passed without a copy.
 //
-// Design (a simple kernel, right first): one block of 128 threads per
-// (64-query tile, head, batch).  The Q tile (pre-scaled) and each 64-key
-// K/V tile are staged in shared memory as f32; a thread owns 8 query rows
-// x 4 key columns of the score tile and 8 rows x D/16 columns of the
-// output, so every product is an f32 FMA on the CUDA cores (no tensor
-// cores yet).  The 16 threads of a row group sit in one half-warp, so the
-// row max and row sum are shuffle reductions.  On Hopper the blocks run in
-// no order, so there is no carry between blocks: the TPU kernel's kv grid
-// axis becomes the loop over key tiles inside the block.
-//
-// Masks: like the reference, a masked score is the finite -1e30 and m
-// starts at -1e30, so a row that has seen only masked scores adds exp(0)
-// terms that the first valid score wipes (alpha = exp(-1e30 - m) = 0);
-// -INFINITY would give exp(-inf + inf) = NaN there.  Key tiles that the
-// causal or window mask covers wholly are skipped (they change nothing),
-// and padded keys past S score -INFINITY so that they never count.  S need
-// not be a multiple of the tile: rows and keys past S are zero-filled and
-// never stored.
-//
 // Bound on an H100 SXM: 4 * B * H * D * (unmasked (q, k) pairs) operations
-// over 989 TFLOP/s (bf16) or 67 TFLOP/s (f32, CUDA cores), against the
-// bytes of q, k, v and out over 3.35 TB/s.  At the prefill shape (B 2,
-// S 4096, H 16, KH 8, D 128, causal) that is about 137 GFLOP, 0.14 ms in
-// bf16; this kernel runs its products at the f32 CUDA-core rate, far below
-// it.  Tensor cores (mma / wgmma) and TMA are later work.
+// over 989 TFLOP/s (bf16, tensor cores) or 67 TFLOP/s (f32, CUDA cores),
+// against the bytes of q, k, v and out over 3.35 TB/s.  At the prefill shape
+// (B 2, S 4096, H 16, KH 8, D 128, causal) that is about 137 GFLOP,
+// 0.14 ms in bf16: operations bound.
+//
+// bf16 design (tensor cores).  One block of 288 threads per (128-query
+// tile, head, batch): two consumer warpgroups of 64 query rows each and one
+// producer warp.  Blocks are numbered so that the q tiles with the most
+// keys (the last ones under the causal mask) start first.
+//  * Loads: the producer's first lane loads the Q tile once and the K/V
+//    tiles (64 keys) into a ring of kStages stages with TMA
+//    (cp.async.bulk.tensor, 4-D maps over (D, S, heads, B) encoded on the
+//    host), each stage signalled by a "full" mbarrier that counts the
+//    bytes and released by an "empty" mbarrier that every consumer thread
+//    arrives on.  Rows past S come in as zeros (TMA's out-of-bounds fill).
+//    Tiles use the 128-byte swizzle (64 columns a box; a D-128 row is two
+//    boxes), 64-byte for D 32, matching the wgmma descriptors below.
+//  * S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory,
+//    f32 accumulators in registers; the scale (times log2 e) is applied to
+//    the f32 scores.
+//  * Masks: only the tiles that cross the causal diagonal, the window's edge
+//    or S are masked element by element; tiles wholly outside a warpgroup's
+//    masks are skipped.  As in the reference, a masked score is the finite
+//    -1e30 and m starts at -1e30, so a row that has seen only masked scores
+//    adds exp(0) terms that the first valid score wipes; keys past S score
+//    -INFINITY and never count.
+//  * Online softmax in registers; a row's 4 threads reduce by shuffles.
+//  * O += P V: wgmma m64nDk16 with P from registers (the accumulator layout
+//    of S is the A-fragment layout) and V (N-major) from shared memory.  P
+//    is split into bf16 hi = bf16(p) and lo = bf16(p - hi) and both are
+//    multiplied into the same f32 accumulator: a single bf16 P puts about
+//    5 % of the outputs more than two bf16 ulps from the f32 reference, the
+//    split none (tests/test_torch_kernel_designs.py).  The lo product costs
+//    half again the useful operations, still at the tensor-core rate.
+//
+// f32 design (CUDA cores; TF32 would miss the 2e-5 tolerance).  One block
+// of 128 threads per (64-query tile, head, batch); Q and each 64-key K/V
+// tile staged in shared memory; a thread owns 8 query rows x 4 key columns
+// of the score tile and 8 rows x D/16 columns of the output; every product
+// an f32 FMA.  Same masks and tile skipping.
+//
+// On Hopper the blocks run in no order, so there is no carry between
+// blocks: the TPU kernel's kv grid axis is the loop over key tiles inside
+// the block.
 
+#include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 128;  // 8 row groups x 16 column lanes
 constexpr float kNegInf = -1e30f;
+constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 
-using attn::from_f32;
 using attn::load_chunk;
 
 struct Strides {  // element strides of a (B, S, heads, D) view
   long long b, s, h;
 };
 
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kBK = 64;        // keys per tile
+constexpr int kThreads = 128;  // 8 row groups x 16 column lanes
+
 template <int D>
 constexpr int smem_floats() {
   return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KH,
-                 int S, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int window, float scale) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int H,
+              int KH, int S, Strides qs, Strides ks, Strides vs, Strides os,
+              int causal, int window, float scale) {
   constexpr int LQ = D + 1, LK = D + 1, LV = D, LP = kBK + 1;
-  constexpr int V = 16 / sizeof(T), C = D / V, NJ = D / 16;
+  constexpr int V = 4, C = D / V, NJ = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;            // [kBQ][LQ], pre-scaled
   float* Ks = Qs + kBQ * LQ;   // [kBK][LK]
@@ -81,9 +108,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / KH);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
 
   for (int idx = tid; idx < kBQ * C; idx += kThreads) {
     const int r = idx / C, c = idx % C, pos = q0 + r;
@@ -201,7 +228,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qpos = q0 + ty * 8 + i;
@@ -209,47 +236,513 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        ob[qpos * os.s + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+        ob[qpos * os.s + tx + 16 * j] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KH, int S, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale,
-           cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;                     // query rows per block
+constexpr int kBK = 64;                      // keys per K/V tile
+constexpr int kStages = 3;                   // K/V ring
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kThreads = kConsumers + 32;    // and one producer warp
+
+template <int D>
+struct Geom {
+  static constexpr int SW = D == 32 ? 64 : 128;   // swizzle = box row bytes
+  static constexpr int AC = SW / 2;               // columns per box
+  static constexpr int NB = D / AC;               // boxes per row
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;  // descriptor swizzle
+  static constexpr int Q_BYTES = kBQ * D * 2;
+  static constexpr int KV_BYTES = kBK * D * 2;    // one of K, V
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * kStages);
+  // the tiles start on a 1024-byte boundary (the swizzle pattern's period)
+  static constexpr int SMEM = 1024 + Q_BYTES + kStages * STAGE_BYTES +
+                              BAR_BYTES;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads of wgmma accumulators above the wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[0..32) += A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[0..16) += A (64 x 16, registers) * B (16 x 32, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..32) += A (64 x 16, registers) * B (16 x 64, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..64) += A (64 x 16, registers) * B (16 x 128, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the key tiles [lo, hi) that hold an unmasked key for some row of
+// [r_lo, r_hi) (r_lo < r_hi <= S)
+__device__ __forceinline__ void key_tiles(int r_lo, int r_hi, int S,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  hi = (S + kBK - 1) / kBK;
+  if (causal) hi = min(hi, (r_hi + kBK - 1) / kBK);
+  lo = window > 0 ? max(0, r_lo - window + 1) / kBK : 0;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               __nv_bfloat16* __restrict__ o, int H, int KH, int B, int S,
+               Strides os, int causal, int window, float scale_log2) {
+  using G = Geom<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + G::Q_BYTES;  // stage s: K, then V
+  const uint32_t bar_q = sKV + kStages * G::STAGE_BYTES;
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + kStages + s); };
+
+  // longest q tiles first: the q tile is the slowest-varying block index
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / (H * B);
+  const int hb = static_cast<int>(blockIdx.x) % (H * B);
+  const int h = hb % H, b = hb / H, hk = h / (H / KH);
+  const int q0 = qt * kBQ;
+  int lo, hi;
+  key_tiles(q0, min(q0 + kBQ, S), S, causal, window, lo, hi);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // producer warp: one lane issues every load
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, G::Q_BYTES);
+      for (int c = 0; c < G::NB; ++c)
+        tma_load(sQ + c * kBQ * G::SW, &tq, bar_q, c * G::AC, q0, h, b);
+      for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
+        const int s = i % kStages;
+        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), G::STAGE_BYTES);
+        const uint32_t sk = sKV + s * G::STAGE_BYTES, sv = sk + G::KV_BYTES;
+        for (int c = 0; c < G::NB; ++c) {
+          tma_load(sk + c * kBK * G::SW, &tk, full(s), c * G::AC, kt * kBK,
+                   hk, b);
+          tma_load(sv + c * kBK * G::SW, &tv, full(s), c * G::AC, kt * kBK,
+                   hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [wr_lo, wr_lo + 64) of the tile; in
+  // the accumulator layout a thread holds rows r0 and r0 + 8, columns
+  // 8 j + c0 and 8 j + c0 + 1 of each 8-column group j
+  const int wg = tid / 128, t = tid % 128, lane = t % 32;
+  const int wr_lo = q0 + 64 * wg, wr_hi = min(wr_lo + 64, S);
+  const int r0 = wr_lo + 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
+  int wlo = 0, whi = 0;  // this warpgroup's key tiles (none past S)
+  if (wr_lo < S) key_tiles(wr_lo, wr_hi, S, causal, window, wlo, whi);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint32_t qa = sQ + wg * 64 * G::SW;  // this warpgroup's rows
+  mbar_wait(bar_q, 0);
+
+  for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
+    const int s = i % kStages;
+    mbar_wait(full(s), (i / kStages) & 1);
+    if (kt >= wlo && kt < whi) {
+      const uint32_t sk = sKV + s * G::STAGE_BYTES, sv = sk + G::KV_BYTES;
+      float sc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // columns 16 kk .. 16 kk + 15 of D: 32-byte steps inside a box
+        const int box = kk / (G::AC / 16);
+        const uint32_t off = (kk % (G::AC / 16)) * 32;
+        wgmma_ss_n64(sc,
+                     desc(qa + box * kBQ * G::SW + off, 16, 8 * G::SW,
+                          G::LAYOUT),
+                     desc(sk + box * kBK * G::SW + off, 16, 8 * G::SW,
+                          G::LAYOUT));
+      }
+      wg_commit();
+      wg_wait_all();
+      reg_fence(sc);
+
+      const int k0 = kt * kBK;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] *= scale_log2;
+      const bool edge = (causal && k0 + kBK - 1 > wr_lo) ||
+                        (window > 0 && k0 <= wr_hi - 1 - window) ||
+                        k0 + kBK > S;
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int kpos = k0 + 8 * (j / 4) + c0 + (j & 1);
+          const int qpos = r0 + 8 * ((j >> 1) & 1);
+          bool ok = true;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          sc[j] = kpos >= S ? -INFINITY : (ok ? sc[j] : kNegInf);
+        }
+      }
+
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+      // P in the A-fragment layout: pair j / 2 holds columns (j, j + 1)
+      uint32_t phi[16], plo[16];
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int r = (j >> 1) & 1;
+        const float p0 = exp2f(sc[j] - m[r]), p1 = exp2f(sc[j + 1] - m[r]);
+        rs[r] += p0 + p1;
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+        phi[j / 2] = *reinterpret_cast<const uint32_t*>(&h2);
+        plo[j / 2] = pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // keys 16 kk .. 16 kk + 15: 16 rows of every box; boxes are the
+        // 64-column atoms along N (LBO), 8-row groups along K (SBO)
+        const uint64_t dv = desc(sv + kk * 16 * G::SW, kBK * G::SW,
+                                 8 * G::SW, G::LAYOUT);
+        wgmma_pv<D>(acc, phi + 4 * kk, dv);
+        wgmma_pv<D>(acc, plo + 4 * kk, dv);
+      }
+      wg_commit();
+      wg_wait_all();
+      reg_fence(acc);
+    }
+    mbar_arrive(empty(s));
+  }
+
+  if (wr_lo >= S) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int r = (j >> 1) & 1, row = r0 + 8 * r;
+    if (row < S) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(acc[j] / l[r], acc[j + 1] / l[r]);
+      *reinterpret_cast<__nv_bfloat162*>(ob + row * os.s + 8 * (j / 4) +
+                                         c0) = v;
+    }
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int KH, int S, Strides qs, Strides ks, Strides vs,
+               Strides os, int causal, int window, float scale,
+               cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KH, S, qs, ks, vs, os,
-      causal, window, scale);
+  flash_fwd_f32<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, KH, S, qs, ks,
+      vs, os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int KH, int S, Strides qs, Strides ks, Strides vs,
-             Strides os, int causal, int window, float scale,
-             cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
-                           window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
-                           window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
-                            window, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime, so that
+// the library links without -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// a 4-D map over the (D, S, heads, B) view at `ptr`, read in boxes of
+// (AC columns, `rows` rows) with the kernel's swizzle; rows past S read as
+// zeros
+template <int D>
+bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
+            Strides st, int rows) {
+  using G = tc::Geom<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  // the stride of an axis of length 1 is never stepped (PyTorch may give
+  // it as 0); TMA wants a nonzero one
+  auto stride = [](long long s, int n) {
+    return static_cast<cuuint64_t>(n == 1 && s == 0 ? 16 : 2 * s);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {stride(st.s, S), stride(st.h, heads),
+                                 stride(st.b, B)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::AC),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int KH, int S, Strides qs, Strides ks, Strides vs,
+                Strides os, int causal, int window, float scale,
+                cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode<D>(&tq, q, S, H, B, qs, tc::kBQ) ||
+      !encode<D>(&tk, k, S, KH, B, ks, tc::kBK) ||
+      !encode<D>(&tv, v, S, KH, B, vs, tc::kBK))
+    return kErrTensorMap;
+  const long long blocks =
+      static_cast<long long>((S + tc::kBQ - 1) / tc::kBQ) * H * B;
+  if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = tc::Geom<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc::flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tc::flash_fwd_bf16<D><<<static_cast<unsigned>(blocks), tc::kThreads, bytes,
+                          stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, B, S, os, causal,
+      window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           int B, int H, int KH, int S, Strides qs, Strides ks, Strides vs,
+           Strides os, int causal, int window, float scale,
+           cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
+                         window, scale, stream);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
+                          window, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -268,15 +761,36 @@ extern "C" int flash_attention_launch(
   if (B == 0 || S == 0 || H == 0) return 0;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
-                           window, scale, stream);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KH, S, qs, ks, vs, os,
-                                   causal, window, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32:
+      return launch<32>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os,
+                        causal, window, scale, stream);
+    case 64:
+      return launch<64>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os,
+                        causal, window, scale, stream);
+    case 128:
+      return launch<128>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os,
+                         causal, window, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dynamic shared memory of one block (dtype as above), 0 for an unknown D
+extern "C" int flash_attention_smem_bytes(int dtype, int D) {
+  switch (D) {
+    case 32:
+      return dtype ? tc::Geom<32>::SMEM : smem_floats<32>() * 4;
+    case 64:
+      return dtype ? tc::Geom<64>::SMEM : smem_floats<64>() * 4;
+    case 128:
+      return dtype ? tc::Geom<128>::SMEM : smem_floats<128>() * 4;
+    default:
+      return 0;
+  }
 }
 
 extern "C" const char* kernel_error_string(int err) {
+  if (err == kErrTensorMap) return "cuTensorMapEncodeTiled refused a map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -14,140 +14,231 @@
 // in f32; output in q's type.  The pools are strided views of
 // (NPOOL, page, KH, D) with D contiguous.
 //
-// Design (a simple kernel, right first): one block of 128 threads per
-// (kv head, sequence), serving the g query heads of that kv head, so each
-// K/V row is read once from device memory.  The block walks the sequence in
-// tiles of 64 positions, whatever the page size: each row's page id comes
-// from the block table as it is loaded, and a page may end inside a tile.
-// Per tile: K/V rows are staged in shared memory as f32, one thread per
-// (head, position) takes the dot product, one warp per head does the
-// online-softmax update, and one thread per (head, d) accumulates P.V.
-// Only the block-table entries of pages below ceil(length / page) are read;
-// entries past that may hold any id.  The TPU kernel carries (m, l, acc)
-// across its page grid axis; here that axis is the loop inside the block.
-//
-// Masks follow the reference: a position at or past the length scores the
-// finite -1e30 (a sequence of length <= 0 therefore averages every row of
-// its pages, as the reference does), and the padding of the last tile past
-// the block table's span scores -INFINITY and never counts.
-//
 // Bound on an H100 SXM: the K and V rows of the valid positions
 // (2 * sum(length) * KH * D * sizeof(T) bytes) over 3.35 TB/s; the
 // 4 * sum(length) * H * D operations are far below the line.  At decode_32k
 // (B 8, KH 8, D 128, bf16, lengths up to 32768) that is up to 1.07 GB,
-// 0.32 ms.  With one block per (kv head, sequence) only B * KH blocks load;
-// splitting the sequence across blocks (flash decoding) is later work.
+// 0.32 ms.
+//
+// Design (flash decoding).  The sequence is split across blocks:
+// grid (KH, B, n_split), one block of 128 threads per (kv head, sequence,
+// split of `split` positions), serving the g query heads of that kv head so
+// that each K/V row is read once.  n_split comes from the block table's
+// span (NP * page), never from the lengths, which stay on the device; a
+// block whose split starts at or past the sequence's positions returns at
+// once.  Inside a block:
+//  * Loads: tiles of 32 positions, double-buffered with cp.async (16 bytes
+//    a thread) into shared memory in the input's type; each row's page id
+//    comes from the block table as it is loaded, so a page may end inside a
+//    tile, and entries past ceil(length / page) are never read.  Rows past
+//    the sequence are zero-filled (cp.async with no source bytes).
+//  * Scores: the g dot products of a position split D over 4 lanes of a
+//    warp (16-byte reads of every 4th chunk; K rows padded so that the reads
+//    fall in distinct banks), finished by two shuffles; 8 positions a warp.
+//  * Softmax: a warp per query head, a lane per position; P.V by threads
+//    that own (head, column pair).
+// With one split the block writes the output; with more, each writes its
+// partial (acc[g][D], m, l) in f32 to scratch and paged_merge_kernel (a
+// second launch) combines them by their log-sum-exp weights.
+//
+// Masks follow the reference: a position at or past the length scores the
+// finite -1e30 (a sequence of length <= 0 therefore averages every row of
+// its pages, as the reference does, and every split of it runs), and rows
+// past the positions a block reads score -INFINITY and never count.  The
+// TPU kernel carries (m, l, acc) across its page grid axis; here that axis
+// is the loop inside a block plus the merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int kTP = 64;        // positions per tile (two per lane)
+constexpr int kTP = 32;        // positions per tile (one per lane)
 constexpr int kThreads = 128;  // four warps
+constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 
 using attn::from_f32;
-using attn::load_chunk;
+using attn::to_f32;
 
 struct Pool {  // element strides of a (NPOOL, page, KH, D) view
   long long p, o, h;
 };
 
-template <int D>
+// positions a sequence's blocks read: its length, clipped to the block
+// table's span; a sequence of length <= 0 reads (and averages) the span
+__device__ __forceinline__ int positions(int length, int span) {
+  return length >= 1 ? min(length, span) : span;
+}
+
+// a K tile row is padded to 64 bytes past a multiple of 128, so that the
+// 16-byte reads of the 8 lanes of a quarter-warp (2 rows x 4 chunks 16
+// bytes apart) fall in distinct banks
+template <typename T, int D>
+__host__ __device__ constexpr int k_stride() {
+  return D + ((64 - int(D * sizeof(T)) % 128 + 128) % 128) / int(sizeof(T));
+}
+
+template <typename T, int D>
 size_t smem_bytes(int g) {
-  // Qs[g][D], Ks[kTP][D+1], Vs[kTP][D], Ss[g][kTP], Acc[g][D], m/l/alpha[g]
-  return sizeof(float) *
-         (size_t(g) * D + kTP * (D + 1) + kTP * D + size_t(g) * kTP +
-          size_t(g) * D + 3 * size_t(g));
+  // K tiles [2][kTP][k_stride], V tiles [2][kTP][D] in T; then f32
+  // Qs[g][D], Ss[g][kTP], Acc[g][D], m/l/alpha[g]
+  return sizeof(T) * 2 * kTP * (k_stride<T, D>() + D) +
+         sizeof(float) * (size_t(g) * (2 * D + kTP) + 3 * size_t(g));
+}
+
+// 16 bytes of T in shared memory as f32
+template <typename T>
+__device__ __forceinline__ void chunk_f32(const T* src, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < int(16 / sizeof(T)); ++i) out[i] = to_f32(e[i]);
+}
+
+// two neighbouring elements of T in shared memory as f32
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ bt,
-                    const int* __restrict__ lengths, T* __restrict__ o,
-                    int H, int KH, int page, int NP, long long qsb,
-                    long long qsh, Pool ks, Pool vs, long long btsb,
-                    long long osb, long long osh, float scale) {
-  constexpr int LK = D + 1;
-  constexpr int V = 16 / sizeof(T), C = D / V;
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp, const int* __restrict__ bt,
+                   const int* __restrict__ lengths, T* __restrict__ o,
+                   float* __restrict__ part, int H, int KH, int page, int NP,
+                   int split, int n_split, long long qsb, long long qsh,
+                   Pool ks, Pool vs, long long btsb, long long osb,
+                   long long osh, float scale) {
+  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int RC = D / CH;          // chunks per row
+  constexpr int LK = k_stride<T, D>();
   const int g = H / KH;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [g][D], pre-scaled
-  float* Ks = Qs + g * D;       // [kTP][LK]
-  float* Vs = Ks + kTP * LK;    // [kTP][D]
-  float* Ss = Vs + kTP * D;     // [g][kTP]: scores, then probabilities
-  float* Acc = Ss + g * kTP;    // [g][D]
-  float* Ms = Acc + g * D;      // [g] running max
-  float* Ls = Ms + g;           // [g] running sum
-  float* As = Ls + g;           // [g] this tile's rescale
-
-  const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int length = lengths[b];
   const int span = NP * page;
-  const int n_valid = min(length, span);           // unmasked positions
-  const int n_pos = length >= 1 ? n_valid : span;  // positions read
+  const int n_valid = min(length, span);  // unmasked positions
+  const int n_pos = positions(length, span);
+  const int p0 = sp * split;
+  if (p0 >= n_pos) return;
+  const int p1 = min(p0 + split, n_pos);
+  const int n_tiles = (p1 - p0 + kTP - 1) / kTP;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* Kt = reinterpret_cast<T*>(smem);  // [2][kTP][LK]
+  T* Vt = Kt + 2 * kTP * LK;           // [2][kTP][D]
+  float* Qs = reinterpret_cast<float*>(Vt + 2 * kTP * D);  // [g][D], scaled
+  float* Ss = Qs + g * D;    // [g][kTP]: scores, then probabilities
+  float* Acc = Ss + g * kTP;  // [g][D]
+  float* Ms = Acc + g * D;    // [g] running max
+  float* Ls = Ms + g;         // [g] running sum
+  float* As = Ls + g;         // [g] this tile's rescale
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int* btb = bt + b * btsb;
 
-  for (int idx = tid; idx < g * C; idx += kThreads) {
-    const int gi = idx / C, c = idx % C;
-    float e[V];
-    load_chunk(q + b * qsb + (hk * g + gi) * qsh + c * V, e);
-#pragma unroll
-    for (int i = 0; i < V; ++i) Qs[gi * D + c * V + i] = e[i] * scale;
+  auto load_tile = [&](int tile, int buf) {
+    const int t0 = p0 + tile * kTP;
+    for (int idx = tid; idx < kTP * RC; idx += kThreads) {
+      const int r = idx / RC, c = idx % RC, t = t0 + r;
+      const T* ksrc = kp;
+      const T* vsrc = vp;
+      if (t < p1) {
+        const long long pid = btb[t / page];
+        const int off = t % page;
+        ksrc = kp + pid * ks.p + off * ks.o + hk * ks.h + c * CH;
+        vsrc = vp + pid * vs.p + off * vs.o + hk * vs.h + c * CH;
+      }
+      cp_async16(Kt + (buf * kTP + r) * LK + c * CH, ksrc, t < p1);
+      cp_async16(Vt + (buf * kTP + r) * D + c * CH, vsrc, t < p1);
+    }
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  for (int idx = tid; idx < g * D; idx += kThreads) {
+    const int gi = idx / D, d = idx % D;
+    Qs[idx] = to_f32(q[b * qsb + (hk * g + gi) * qsh + d]) * scale;
+    Acc[idx] = 0.f;
   }
-  for (int idx = tid; idx < g * D; idx += kThreads) Acc[idx] = 0.f;
   for (int gi = tid; gi < g; gi += kThreads) {
     Ms[gi] = kNegInf;
     Ls[gi] = 0.f;
   }
 
-  for (int t0 = 0; t0 < n_pos; t0 += kTP) {
-    __syncthreads();  // Q/init written; the previous tile is no longer read
-    for (int idx = tid; idx < kTP * C; idx += kThreads) {
-      const int r = idx / C, c = idx % C, t = t0 + r;
-      float ek[V], ev[V];
-      if (t < n_pos) {
-        const long long pid = btb[t / page];
-        const int off = t % page;
-        load_chunk(kp + pid * ks.p + off * ks.o + hk * ks.h + c * V, ek);
-        load_chunk(vp + pid * vs.p + off * vs.o + hk * vs.h + c * V, ev);
-      } else {
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1, t0 = p0 + tile * kTP;
+    if (tile + 1 < n_tiles) {
+      load_tile(tile + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and, at first, Qs/Acc/Ms/Ls) in place
+
+    // scores: 4 lanes per position, each taking every 4th 16-byte chunk of
+    // D, two shuffles to finish a dot product; 8 positions a warp
+    {
+      const int r = warp * (kTP / kWarps) + lane / 4, qd = lane % 4;
+      const T* krow = Kt + (buf * kTP + r) * LK;
+      float kf[RC / 4][CH];
 #pragma unroll
-        for (int i = 0; i < V; ++i) ek[i] = ev[i] = 0.f;
-      }
+      for (int j = 0; j < RC / 4; ++j)
+        chunk_f32(krow + (4 * j + qd) * CH, kf[j]);
+      const int t = t0 + r;
+      for (int gi = 0; gi < g; ++gi) {
+        const float* qrow = Qs + gi * D;
+        float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        Ks[r * LK + c * V + i] = ek[i];
-        Vs[r * D + c * V + i] = ev[i];
+        for (int j = 0; j < RC / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < CH; e += 2) {
+            s0 = fmaf(qrow[(4 * j + qd) * CH + e], kf[j][e], s0);
+            s1 = fmaf(qrow[(4 * j + qd) * CH + e + 1], kf[j][e + 1], s1);
+          }
+        float s = s0 + s1;
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (qd == 0)
+          Ss[gi * kTP + r] = t >= p1 ? -INFINITY : (t < n_valid ? s : kNegInf);
       }
     }
     __syncthreads();
-    for (int idx = tid; idx < g * kTP; idx += kThreads) {
-      const int gi = idx / kTP, r = idx % kTP, t = t0 + r;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(Qs[gi * D + d], Ks[r * LK + d], s);
-      Ss[idx] = t >= n_pos ? -INFINITY : (t < n_valid ? s : kNegInf);
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += kThreads / 32) {
-      const float s0 = Ss[gi * kTP + lane], s1 = Ss[gi * kTP + lane + 32];
-      float mx = fmaxf(s0, s1);
+
+    // online softmax: a warp per query head, a lane per position
+    for (int gi = warp; gi < g; gi += kWarps) {
+      const float s = Ss[gi * kTP + lane];
+      float mx = s;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_old = Ms[gi];
       const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      Ss[gi * kTP + lane] = p0;
-      Ss[gi * kTP + lane + 32] = p1;
-      float sum = p0 + p1;
+      const float p = expf(s - m_new);
+      Ss[gi * kTP + lane] = p;
+      float sum = p;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -159,57 +250,120 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
     }
     __syncthreads();
+
+    // acc = acc * alpha + P V: a thread per (head, column pair)
+    for (int idx = tid; idx < g * (D / 2); idx += kThreads) {
+      const int gi = idx / (D / 2), d = 2 * (idx % (D / 2));
+      const float alpha = As[gi];
+      float a0 = Acc[gi * D + d] * alpha, a1 = Acc[gi * D + d + 1] * alpha;
+      const T* vcol = Vt + buf * kTP * D + d;
+      const float* prow = Ss + gi * kTP;
+#pragma unroll 8
+      for (int r = 0; r < kTP; ++r) {
+        const float p = prow[r];
+        const float2 v = pair_f32(vcol + r * D);
+        a0 = fmaf(p, v.x, a0);
+        a1 = fmaf(p, v.y, a1);
+      }
+      Acc[gi * D + d] = a0;
+      Acc[gi * D + d + 1] = a1;
+    }
+    __syncthreads();  // the buffer and Ss are rewritten next
+  }
+
+  if (part == nullptr) {  // one split: the output itself
     for (int idx = tid; idx < g * D; idx += kThreads) {
       const int gi = idx / D, d = idx % D;
-      float a = Acc[idx] * As[gi];
-#pragma unroll 8
-      for (int r = 0; r < kTP; ++r) a = fmaf(Ss[gi * kTP + r], Vs[r * D + d], a);
-      Acc[idx] = a;
+      o[b * osb + (hk * g + gi) * osh + d] =
+          from_f32<T>(Acc[idx] / fmaxf(Ls[gi], 1e-30f));
     }
+    return;
   }
-  __syncthreads();
-  for (int idx = tid; idx < g * D; idx += kThreads) {
+  // partial of split sp: part[b][hk][sp][gi] = (acc[0..D), m, l)
+  float* pb = part + ((static_cast<long long>(b) * KH + hk) * n_split + sp) *
+                         g * (D + 2);
+  for (int idx = tid; idx < g * D; idx += kThreads)
+    pb[(idx / D) * (D + 2) + idx % D] = Acc[idx];
+  for (int gi = tid; gi < g; gi += kThreads) {
+    pb[gi * (D + 2) + D] = Ms[gi];
+    pb[gi * (D + 2) + D + 1] = Ls[gi];
+  }
+}
+
+// out[b, h] from the partials of the splits that ran, weighted by
+// exp(m_split - max m): one block per (kv head, sequence)
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_merge_kernel(const float* __restrict__ part,
+                   const int* __restrict__ lengths, T* __restrict__ o, int H,
+                   int KH, int page, int NP, int split, int n_split,
+                   long long osb, long long osh) {
+  const int g = H / KH;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int n_pos = positions(lengths[b], NP * page);
+  const int ran = (n_pos + split - 1) / split;
+  const float* pb =
+      part + (static_cast<long long>(b) * KH + hk) * n_split * g * (D + 2);
+  for (int idx = threadIdx.x; idx < g * D; idx += kThreads) {
     const int gi = idx / D, d = idx % D;
-    o[b * osb + (hk * g + gi) * osh + d] =
-        from_f32<T>(Acc[idx] / fmaxf(Ls[gi], 1e-30f));
+    float mx = -INFINITY;
+    for (int s = 0; s < ran; ++s)
+      mx = fmaxf(mx, pb[(s * g + gi) * (D + 2) + D]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < ran; ++s) {
+      const float* ps = pb + (s * g + gi) * (D + 2);
+      const float w = expf(ps[D] - mx);
+      num = fmaf(ps[d], w, num);
+      den = fmaf(ps[D + 1], w, den);
+    }
+    o[b * osb + (hk * g + gi) * osh + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
-           const int* lengths, void* o, int B, int H, int KH, int page,
-           int NP, long long qsb, long long qsh, Pool ks, Pool vs,
-           long long btsb, long long osb, long long osh, float scale,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>(H / KH);
+           const int* lengths, void* o, float* part, int B, int H, int KH,
+           int page, int NP, int split, int n_split, long long qsb,
+           long long qsh, Pool ks, Pool vs, long long btsb, long long osb,
+           long long osh, float scale, cudaStream_t stream) {
+  if (split % kTP || n_split < 1 || (n_split > 1) != (part != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_bytes<T, D>(H / KH);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(KH, B);
-  paged_decode_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  paged_split_kernel<T, D><<<dim3(KH, B, n_split), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, lengths, static_cast<T*>(o), H, KH, page,
-      NP, qsb, qsh, ks, vs, btsb, osb, osh, scale);
+      static_cast<const T*>(vp), bt, lengths, static_cast<T*>(o), part, H, KH,
+      page, NP, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  paged_merge_kernel<T, D><<<dim3(KH, B), kThreads, 0, stream>>>(
+      part, lengths, static_cast<T*>(o), H, KH, page, NP, split, n_split, osb,
+      osh);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* kp, const void* vp,
-             const int* bt, const int* lengths, void* o, int B, int H, int KH,
-             int page, int NP, long long qsb, long long qsh, Pool ks, Pool vs,
-             long long btsb, long long osb, long long osh, float scale,
-             cudaStream_t stream) {
+             const int* bt, const int* lengths, void* o, float* part, int B,
+             int H, int KH, int page, int NP, int split, int n_split,
+             long long qsb, long long qsh, Pool ks, Pool vs, long long btsb,
+             long long osb, long long osh, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, kp, vp, bt, lengths, o, B, H, KH, page, NP, qsb,
-                           qsh, ks, vs, btsb, osb, osh, scale, stream);
+      return launch<T, 32>(q, kp, vp, bt, lengths, o, part, B, H, KH, page,
+                           NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
+                           osh, scale, stream);
     case 64:
-      return launch<T, 64>(q, kp, vp, bt, lengths, o, B, H, KH, page, NP, qsb,
-                           qsh, ks, vs, btsb, osb, osh, scale, stream);
+      return launch<T, 64>(q, kp, vp, bt, lengths, o, part, B, H, KH, page,
+                           NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
+                           osh, scale, stream);
     case 128:
-      return launch<T, 128>(q, kp, vp, bt, lengths, o, B, H, KH, page, NP,
-                            qsb, qsh, ks, vs, btsb, osb, osh, scale, stream);
+      return launch<T, 128>(q, kp, vp, bt, lengths, o, part, B, H, KH, page,
+                            NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
+                            osh, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -220,26 +374,47 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
 // dtype: 0 = float32, 1 = bfloat16 (q, the pools and out share it).
 // Strides are in elements; the D axis is contiguous and every row starts on
 // a 16-byte boundary; block_table's page axis is contiguous; block_table
-// and lengths are int32.
+// and lengths are int32.  `split` (a multiple of 32) positions per block,
+// n_split blocks per (kv head, sequence); with n_split > 1, `part` is f32
+// scratch of B * KH * n_split * (H / KH) * (D + 2) elements, else null.
 extern "C" int paged_attention_launch(
     int device, int dtype, const void* q, const void* kp, const void* vp,
-    const int* bt, const int* lengths, void* o, int B, int H, int KH,
-    int page, int NP, int D, long long qsb, long long qsh, long long ksp,
-    long long kso, long long ksh, long long vsp, long long vso,
-    long long vsh, long long btsb, long long osb, long long osh, float scale,
-    cudaStream_t stream) {
+    const int* bt, const int* lengths, void* o, float* part, int B, int H,
+    int KH, int page, int NP, int D, int split, int n_split, long long qsb,
+    long long qsh, long long ksp, long long kso, long long ksh,
+    long long vsp, long long vso, long long vsh, long long btsb,
+    long long osb, long long osh, float scale, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || H == 0) return 0;
   const Pool ks{ksp, kso, ksh}, vs{vsp, vso, vsh};
   if (dtype == 0)
-    return launch_d<float>(D, q, kp, vp, bt, lengths, o, B, H, KH, page, NP,
-                           qsb, qsh, ks, vs, btsb, osb, osh, scale, stream);
+    return launch_d<float>(D, q, kp, vp, bt, lengths, o, part, B, H, KH, page,
+                           NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
+                           osh, scale, stream);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, kp, vp, bt, lengths, o, B, H, KH,
-                                   page, NP, qsb, qsh, ks, vs, btsb, osb, osh,
-                                   scale, stream);
+    return launch_d<__nv_bfloat16>(D, q, kp, vp, bt, lengths, o, part, B, H,
+                                   KH, page, NP, split, n_split, qsb, qsh, ks,
+                                   vs, btsb, osb, osh, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dynamic shared memory of one split block (dtype as above) for g query
+// heads per kv head, 0 for an unknown D
+extern "C" int paged_attention_smem_bytes(int dtype, int D, int g) {
+  switch (D) {
+    case 32:
+      return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 32>(g)
+                                    : smem_bytes<float, 32>(g));
+    case 64:
+      return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 64>(g)
+                                    : smem_bytes<float, 64>(g));
+    case 128:
+      return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 128>(g)
+                                    : smem_bytes<float, 128>(g));
+    default:
+      return 0;
+  }
 }
 
 extern "C" const char* kernel_error_string(int err) {

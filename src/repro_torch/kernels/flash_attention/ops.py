@@ -8,11 +8,17 @@ Replaces the Pallas TPU kernel
 H100 SXM: 4 * B * H * D * (unmasked query-key pairs) operations over 989
 TFLOP/s in bf16 (67 TFLOP/s in f32), or the bytes of q, k, v and out over
 3.35 TB/s, whichever is larger; at the prefill shape (B 2, S 4096, H 16,
-KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design: one block per
-(64-query tile, head, batch) walks the key tiles its masks leave, with the
-Q and K/V tiles in shared memory and the products as f32 FMAs on the CUDA
-cores (tensor cores are later work); any S (the last tile is masked), any
-strides with a contiguous, 16-byte aligned D axis, D in {32, 64, 128}, f32 or bf16.
+KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design in bf16: one block
+per (128-query tile, head, batch), longest tiles first; a producer warp
+streams the Q tile and a ring of 64-key K/V tiles into shared memory with
+TMA (tensor maps encoded in the C launcher, 128-byte swizzle); two
+consumer warpgroups run S = Q K^T and O += P V as ``wgmma`` on the tensor
+cores, the online softmax in registers, with P split into bf16 hi + lo so
+that the output stays within two bf16 ulps of the f32 reference.  In f32:
+one block per (64-query tile, head, batch), products as f32 FMAs on the
+CUDA cores.  Both skip key tiles their masks cover wholly; any S (rows past
+S read as zeros and are masked), any strides with a contiguous, 16-byte
+aligned D axis, D in {32, 64, 128}.
 
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.gqa_attention`` sends CPU tensors
@@ -62,7 +68,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"multiple of {kh} kv heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if h > 65535 or b > 65535 or s >= 2**31 - 64:
+    if h > 65535 or b > 65535 or s >= 2**31 - 128 \
+            or -(-s // 128) * h * b >= 2**31:
         raise ValueError(f"flash_attention: grid too large for {q.shape}")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")

@@ -8,16 +8,23 @@ Replaces the Pallas TPU kernel
 one page per sequence under the identity block table).  Bound on an H100
 SXM: the K and V rows of the valid positions over 3.35 TB/s (up to
 1.07 GB, 0.32 ms, at decode_32k: B 8, KH 8, D 128, bf16, lengths up to
-32,768).  Design: one block per (kv head, sequence) serves that kv head's
-g query heads, walking the sequence in 64-position tiles through the block
-table (any page size; a page may end inside a tile; entries past
-ceil(length / page) are never read), with an online softmax in f32.
+32,768).  Design (flash decoding): the sequence is split across blocks,
+one per (kv head, sequence, split of ``split`` positions), each serving
+that kv head's g query heads; a block double-buffers 32-position tiles of
+K/V rows with ``cp.async`` through the block table (any page size; a page
+may end inside a tile; entries past ceil(length / page) are never read)
+and runs an online softmax in f32.  ``split_plan`` sizes the split from
+the block table's span, never from ``lengths`` (which stay on the device):
+with one split (any span up to ``SPLIT``, the serve's 40-row slots) the
+block writes the output in one launch; with more, the blocks write f32
+partials to scratch and a second launch merges them by their log-sum-exp
+weights.
 
 ``paged_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.decode_attention`` sends CPU
 tensors to the dense plain version instead.  A sequence of length <= 0
 averages every row of its pages, as the reference does.
-``counter.count`` grows by one per launch.
+``counter.count`` grows by one per call that launches the kernel.
 """
 from __future__ import annotations
 
@@ -29,17 +36,30 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 __all__ = ["paged_attention_cuda", "paged_attention_ref", "counter",
-           "HEAD_DIMS"]
+           "split_plan", "HEAD_DIMS", "SPLIT", "TILE"]
 
 counter = build.LaunchCounter("paged_attention")
 HEAD_DIMS = (32, 64, 128)
+TILE = 32           # positions per tile of the kernel
+SPLIT = 512         # positions per block, unless the span needs more
+_MAX_SPLITS = 65535  # the grid's z extent
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"paged_attention_launch": (
     ctypes.c_int,
-    [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 11
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_L] * 11
     + [ctypes.c_float, _P])}
+
+
+def split_plan(span: int) -> tuple[int, int]:
+    """``(split, n_split)`` for a block table that spans ``span`` rows:
+    ``split`` positions per block (``SPLIT``, or more, in whole tiles, when
+    the span would need more than 65,535 blocks), ``n_split`` blocks per
+    (kv head, sequence).  The merge launches only when ``n_split > 1``."""
+    split = max(SPLIT, -(-span // _MAX_SPLITS))
+    split = -(-split // TILE) * TILE
+    return split, -(-span // split)
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -77,13 +97,19 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention: head dim {d} not in {HEAD_DIMS}")
     if kh > 65535 or b > 65535:
         raise ValueError(f"paged_attention: grid too large for {q.shape}")
+    split, n_split = split_plan(np_ * page)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    part = None
+    if n_split > 1:     # (B, KH, n_split, g, D + 2): acc, m, l per split
+        part = torch.empty((b, kh, n_split, h // kh, d + 2),
+                           dtype=torch.float32, device=q.device)
     dev = q.device
     lib = build.library("paged_attention", _SIGNATURES)
     err = lib.paged_attention_launch(
         dev.index, _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, kh, page, np_, d,
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        b, h, kh, page, np_, d, split, n_split,
         q.stride(0), q.stride(1),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),

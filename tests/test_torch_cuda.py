@@ -178,6 +178,32 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, dt, b, h,
     _assert_close(got_t, want, tol)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 127, 128, 129, 1000, 4096])
+def test_flash_attention_bf16_tensor_cores_sweep(cuda_device, s, d):
+    """The bf16 (wgmma + TMA) path at every tile edge of S (64-key tiles,
+    128-query tiles) and every swizzle (D 32: 64 bytes, D 64: one 128-byte
+    box, D 128: two), for g = 1, 2, 4 query heads per kv head, causal,
+    non-causal and a causal 100-key window (which ends inside a tile),
+    each also through (B, S, H, D) storage."""
+    h = 4
+    for kh in (4, 2, 1):
+        q = _randn((1, h, s, d), torch.bfloat16, cuda_device, s + d + kh)
+        k = _randn((1, kh, s, d), torch.bfloat16, cuda_device, s + d + 1)
+        v = _randn((1, kh, s, d), torch.bfloat16, cuda_device, s + d + 2)
+        for causal, window in ((True, 0), (False, 0), (True, 100)):
+            want = fa.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window)
+            torch.cuda.synchronize()
+            _assert_close(got, want, 2e-2)
+            tr = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v)]
+            _assert_close(fa.flash_attention_cuda(*tr, causal=causal,
+                                                  window=window), want, 2e-2)
+
+
 def _pages(b, h, kh, d, page, np_, extra, dtype, dev, seed):
     rng = np.random.default_rng(seed)
     npool = b * np_ + extra
@@ -249,6 +275,63 @@ def test_paged_attention_serve_shape_every_length(cuda_device, dt):
     ln = torch.tensor([1, 17, 33, 40], dtype=torch.int32, device=cuda_device)
     _assert_close(pa.paged_attention_cuda(q, kp, vp, ident, ln),
                   pa.paged_attention_ref(q, kp, vp, ident, ln), tol)
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("page,np_", [(16, 80), (40, 32), (64, 20)])
+def test_paged_attention_split_boundaries(cuda_device, dt, page, np_):
+    """A 1280-row span (three splits of ``pa.SPLIT`` positions, so the
+    merge runs) at lengths 0, 1, SPLIT - 1, SPLIT, SPLIT + 1 and the full
+    span, through a permuted block table whose entries past
+    ceil(length / page) hold 2^30 for the kernel (the plain version, which
+    reads every entry, gets the valid table)."""
+    dtype, tol = ATT_DTYPES[dt]
+    tol = 3e-2 if dt == "bf16" else tol
+    split = pa.SPLIT
+    assert pa.split_plan(np_ * page) == (split, 3)
+    lengths = np.array([0, 1, split - 1, split, split + 1, np_ * page],
+                       np.int32)
+    b = len(lengths)
+    q, kp, vp, bt, _ = _pages(b, 16, 8, 128, page, np_, 5, dtype,
+                              cuda_device, page)
+    junk = bt.copy()
+    for i, n in enumerate(lengths):
+        if n > 0:
+            junk[i, -(-int(n) // page):] = 2**30
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    c0 = pa.counter.count
+    got = pa.paged_attention_cuda(q, kp, vp,
+                                  torch.from_numpy(junk).to(cuda_device), ln)
+    want = pa.paged_attention_ref(q, kp, vp,
+                                  torch.from_numpy(bt).to(cuda_device), ln)
+    torch.cuda.synchronize()
+    assert pa.counter.count == c0 + 1
+    _assert_close(got, want, tol)
+
+
+def test_paged_attention_launches_per_split_plan(cuda_device):
+    """One kernel per call when the span fits one split (the serve's
+    40-row slots), the split kernel and the merge when it does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(*args):
+        pa.paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pa.paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+        return sorted(e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    for page, np_, want in ((40, 1, ["paged_split_kernel"]),
+                            (16, 64, ["paged_merge_kernel",
+                                      "paged_split_kernel"])):
+        q, kp, vp, bt, ln = _pages(2, 16, 8, 128, page, np_, 0,
+                                   torch.bfloat16, cuda_device, 3)
+        names = kernels(q, kp, vp, torch.from_numpy(bt).to(cuda_device),
+                        torch.from_numpy(ln).to(cuda_device))
+        assert len(names) == len(want)
+        assert all(w in n for n, w in zip(names, want)), names
 
 
 def test_attention_wrappers_check_their_inputs_on_card(cuda_device):

@@ -147,4 +147,4 @@ def test_build_sources_and_flags():
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f"{name}_launch" in src and "cudaGetLastError" in src
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build._target("wc_combine").name.startswith("libwc_combine-")
+    assert build.library_path("wc_combine").name.startswith("libwc_combine-")
