@@ -7,13 +7,17 @@ Phases (any mismatch raises, and the script exits non-zero):
 
 0. device and build — the card's name and power limit (``nvidia-smi``), then
    ``nvcc`` builds all four kernels of ``src/repro_torch/kernels/csrc``; each
-   kernel's registers and spills (``ptxas -v``), the attention kernels'
-   shared memory per block, and a check that
+   kernel's registers and spills (``ptxas -v``; the sort sweeps must not
+   spill), the attention kernels' shared memory per block, and a check that
    ``cuobjdump -sass`` of the flash library holds ``HGMMA`` (bf16 runs on
    the tensor cores).
 1. each kernel against its plain PyTorch version on the card: the two sort
-   sweeps bit for bit over N in {1, 1000, 4096, 34816, 69632, 2^20} and four
-   key layouts; the integer helpers (``_backoff_polls``, ``credit_slot``);
+   sweeps bit for bit over N in ``SWEEP_SIZES`` (1, 2, every tile edge of
+   either kernel, ragged last tiles, the main path's sizes, 2^20) and four
+   key layouts, each
+   one kernel launch per call; their times at the main path's N and 2^20
+   beside their single-launch floor (N = 1) and ``torch.cumsum``;
+   the integer helpers (``_backoff_polls``, ``credit_slot``);
    ``paged_attention`` at the serve shape (every length 1-40), at
    decode_32k and at its table shape with lengths 4,096, 32,768 and on the
    split boundaries (0, 1, SPLIT - 1, SPLIT, SPLIT + 1, ...), and
@@ -74,13 +78,22 @@ MODES = ("OSYNC", "SPIN", "MCS", "CIDER")
 # tests/test_torch_serving.py from the JAX scheduler
 SERVE_STATS = {"prefix_hits": 15, "prefix_misses": 17, "admitted": 16,
                "completed": 16}
+# the sort sweeps' checked sizes: N = 1 and 2, edges of their 512-key tiles,
+# ragged sizes (514 and 4098 leave the last thread two keys), the main
+# path's sizes and 2^20
+SWEEP_SIZES = (1, 2, 511, 512, 513, 514, 1000, 1023, 1024, 1025, 2047, 2048,
+               2049, 4095, 4096, 4097, 4098, 8192, 9692, 34816, 69632,
+               1 << 20)
+SWEEP_TIMED = (1, 4096, 34816, 69632, 1 << 20)
 KERNEL_META = {
     "wc_combine": dict(source="src/repro_torch/kernels/csrc/wc_combine.cu",
                        replaces="src/repro/kernels/wc_combine/wc_combine.py:57",
-                       bytes_per_elem=10, ops_per_elem=5, main_n=4096),
+                       bytes_per_elem=10, ops_per_elem=5, main_n=4096,
+                       entry="wc_combine_kernel"),
     "scan_probe": dict(source="src/repro_torch/kernels/csrc/scan_probe.cu",
                        replaces="src/repro/kernels/scan_probe/scan_probe.py:74",
-                       bytes_per_elem=15, ops_per_elem=8, main_n=69632),
+                       bytes_per_elem=15, ops_per_elem=8, main_n=69632,
+                       entry="scan_probe_kernel"),
 }
 
 
@@ -115,22 +128,31 @@ def card_line() -> str:
 
 _ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_f32|paged_split_kernel|"
                     r"paged_merge_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
+_SWEEP_ENTRY = re.compile(r"(wc_combine_kernel|scan_probe_kernel)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
-def ptxas_report(name: str, log: str) -> None:
+def ptxas_report(name: str, log: str) -> int:
     """Registers, spills and static shared memory of each entry function
-    of library ``name``, from ``nvcc -Xptxas -v``'s log."""
-    entry = None
+    of library ``name``, from ``nvcc -Xptxas -v``'s log.  Returns the bytes
+    of spill stores and loads over all its entries."""
+    entry, spilled = None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = _ENTRY.search(line)
+            sweep = _SWEEP_ENTRY.search(line)
             dtype = {"13__nv_bfloat16": "bf16, ", "f": "f32, "}.get(
                 m.group(2), "") if m else ""
             entry = (f"{m.group(1)}<{dtype}D={m.group(3)}>" if m
+                     else sweep.group(1) if sweep
                      else line.split("'")[1][:72])
         elif entry and any(w in line for w in ("registers", "spill",
                                                "smem")):
+            spill = _SPILLS.search(line)
+            if spill:
+                spilled += int(spill.group(1)) + int(spill.group(2))
             say(f"  {name}: {entry}: {line.split(':', 1)[-1].strip()}")
+    return spilled
 
 
 def attention_smem() -> None:
@@ -205,11 +227,16 @@ def profile_device(fn, iters: int = 20):
 
 def timed(fn, iters: int):
     """``(device ms, call ms)`` per call of ``fn``: the profiler's summed
-    device time (CUDA events where it records no GPU events), and the
-    CUDA-event time of back-to-back calls, which includes host overhead."""
+    device time (a session that records no GPU events is run again, up to
+    three times; then CUDA events), and the CUDA-event time of back-to-back
+    calls, which includes host overhead."""
     call = cuda_ms(fn, iters=iters, warmup=1)
-    dev = profile_device(fn, iters=iters)[0]
-    return (call if dev is None else dev), call
+    for _ in range(3):
+        dev = profile_device(fn, iters=iters)[0]
+        if dev is not None:
+            return dev, call
+    say("  (the profiler recorded no GPU events: device time by CUDA events)")
+    return call, call
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +258,27 @@ def key_layouts(n: int, rng):
     }
 
 
-def phase1_kernels(dev, sizes) -> dict:
+def kernel_device_ms(fn, entry: str, iters: int = 50) -> float:
+    """Device ms per call of ``fn`` by the profiler, which must show one
+    kernel named ``entry`` per call and no other kernel or memset; a
+    session that records no GPU events, or fewer ``entry`` events than
+    calls and nothing else (the profiler dropped some), is run again, up to
+    three times."""
+    for _ in range(3):
+        ms, _, top = profile_device(fn, iters=iters)
+        dropped = (ms is not None and len(top) == 1 and entry in top[0][0]
+                   and top[0][2] < iters)
+        if ms is not None and not dropped:
+            break
+    check(ms is not None, f"{entry}: the profiler recorded no GPU events in "
+                          f"three sessions")
+    check(len(top) == 1 and entry in top[0][0] and top[0][2] == iters,
+          f"expected one {entry} per call, the profiler saw {top} over "
+          f"{iters} calls")
+    return ms
+
+
+def phase1_kernels(dev, card: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels.scan_probe import ops as sp
@@ -239,7 +286,7 @@ def phase1_kernels(dev, sizes) -> dict:
 
     rng = np.random.default_rng(2024)
     stats = {name: {"max_abs_err": 0, "times": {}} for name in KERNEL_META}
-    for n in sizes:
+    for n in SWEEP_SIZES:
         for layout, keys_np in key_layouts(n, rng).items():
             keys = torch.as_tensor(keys_np.astype(np.int32), device=dev)
             setcode = torch.as_tensor(rng.integers(-1, 2, n).astype(np.int32),
@@ -263,23 +310,32 @@ def phase1_kernels(dev, sizes) -> dict:
                         stats[name]["max_abs_err"], err)
                     check(err == 0, f"{name} N={n} {layout}: kernel differs "
                                     f"from its plain version (max |diff| {err})")
-                if layout == "dup_heavy":
-                    dev_k, call_k = timed(lambda: kern(*args), 50)
-                    dev_p, call_p = timed(lambda: plain(*args), 50)
-                    meta = KERNEL_META[name]
-                    bytes_ms = meta["bytes_per_elem"] * n / HBM_BYTES_PER_S * 1e3
-                    ops_ms = meta["ops_per_elem"] * n / INT32_OPS_PER_S * 1e3
-                    t = dict(ms=dev_k, plain_ms=dev_p, call_ms=call_k,
-                             plain_call_ms=call_p,
-                             bound_ms=max(bytes_ms, ops_ms),
-                             bound_by="bytes" if bytes_ms >= ops_ms
-                             else "operations")
-                    stats[name]["times"][n] = t
-                    say(f"  {name:10s} N={n:8d} device: kernel {dev_k} ms, "
-                        f"plain {dev_p} ms; per call (host-bound): kernel "
-                        f"{call_k:.5f} ms, plain {call_p:.5f} ms; bound "
-                        f"{t['bound_ms']:.6f} ms ({t['bound_by']}); library: "
-                        f"none (no single PyTorch call computes it)")
+                if layout != "dup_heavy" or n not in SWEEP_TIMED:
+                    continue
+                meta = KERNEL_META[name]
+                dev_k = kernel_device_ms(lambda: kern(*args), meta["entry"])
+                call_k = cuda_ms(lambda: kern(*args), iters=50, warmup=1)
+                dev_p, call_p = timed(lambda: plain(*args), 50)
+                dev_c = timed(lambda: torch.cumsum(keys, 0, dtype=torch.int32),
+                              50)[0]
+                bytes_ms = meta["bytes_per_elem"] * n / HBM_BYTES_PER_S * 1e3
+                ops_ms = meta["ops_per_elem"] * n / INT32_OPS_PER_S * 1e3
+                t = dict(ms=dev_k, plain_ms=dev_p, call_ms=call_k,
+                         plain_call_ms=call_p, cumsum_ms=dev_c,
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms
+                         else "operations")
+                stats[name]["times"][n] = t
+                floor = stats[name]["times"][SWEEP_TIMED[0]]["ms"]
+                say(f"  {name:10s} N={n:8d} device: kernel {dev_k} ms "
+                    f"(single-launch floor, N=1: {floor} ms), plain {dev_p} "
+                    f"ms, torch.cumsum int32 (the card's own device-wide "
+                    f"scan, for comparison; not a library equivalent) {dev_c}"
+                    f" ms; per call (host-bound): kernel {call_k:.5f} ms, "
+                    f"plain {call_p:.5f} ms; bound {t['bound_ms']:.6f} ms "
+                    f"({t['bound_by']}); one {meta['entry']} per call; "
+                    f"library: none (no single PyTorch call computes it) "
+                    f"[{card}]")
         say(f"  N={n}: both kernels bit-equal to their plain versions on 4 "
             f"key layouts")
     return stats
@@ -1016,7 +1072,12 @@ def main() -> int:
     say(f"  built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        ptxas_report(name, log)
+        spilled = ptxas_report(name, log)
+        check(name not in KERNEL_META or spilled == 0,
+              f"{name} spills {spilled} bytes (ptxas -v)")
+    for name in KERNEL_META:
+        if name not in logs:
+            say(f"  {name}: library cached, no ptxas report in this run")
     attention_smem()
     n_hgmma = hgmma_count(build.library_path("flash_attention"))
     say(f"  cuobjdump -sass: {n_hgmma} HGMMA instructions in "
@@ -1031,13 +1092,13 @@ def main() -> int:
             f"(t = {time.perf_counter() - t_start:.1f} s)")
 
     phase(1, "kernels vs plain versions on the card")
-    stats = phase1_kernels(dev, (1, 1000, 4096, 34816, 69632, 1 << 20))
+    stats = phase1_kernels(dev, card)
     phase1_helpers(dev)
     say(f"  (t = {time.perf_counter() - t_start:.1f} s)")
     att = phase1_attention(dev, card)
 
     for c in counters.values():
-        c.count = 0            # the main paths' runs start here
+        c.reset()              # the main paths' runs start here
     per_phase = {}
 
     def mark(phase):
@@ -1064,6 +1125,9 @@ def main() -> int:
         f"{per_phase}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    for name in KERNEL_META:
+        by_n = dict(sorted(counters[name].by_size.items()))
+        say(f"  {name} main-path launches by N: {by_n}")
     before = {2: {n: 0 for n in counters}, 3: per_phase[2], 4: per_phase[3],
               5: per_phase[4], 6: per_phase[5]}
     for phase, names in ((2, ("wc_combine",)), (3, ("wc_combine",
@@ -1084,7 +1148,13 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": None, "call_ms": t["call_ms"],
-                     "plain_call_ms": t["plain_call_ms"]})
+                     "plain_call_ms": t["plain_call_ms"],
+                     "floor_ms": stats[name]["times"][1]["ms"],
+                     "cumsum_ms": t["cumsum_ms"],
+                     "launches_by_n": dict(sorted(
+                         counters[name].by_size.items())),
+                     "ms_by_n": {n: v["ms"] for n, v in
+                                 stats[name]["times"].items()}})
     for name, meta in ATTN_META.items():
         t = att[name]
         rows.append({"name": name, "route": "cuda", "source": meta["source"],

@@ -35,11 +35,23 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Launches of one kernel: its wrapper adds one per launch, nowhere else."""
+    """Launches of one kernel: its wrapper adds one per launch, nowhere else;
+    ``by_size`` tallies them by problem size where the wrapper calls
+    ``add``."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.by_size: dict[int, int] = {}
+
+    def add(self, size: int) -> None:
+        """One launch at problem size ``size``."""
+        self.count += 1
+        self.by_size[size] = self.by_size.get(size, 0) + 1
+
+    def reset(self) -> None:
+        self.count = 0
+        self.by_size.clear()
 
 
 def _nvcc() -> str:
@@ -111,8 +123,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on CUDA tensor ``t``'s device,
+    read without building a ``torch.cuda.Stream`` (the raw handle that
+    ``torch.cuda.current_stream(...).cuda_stream`` holds)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(what: str, *tensors: torch.Tensor, dtypes=()) -> None:

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["scan_probe_ref"]
+__all__ = ["scan_probe_ref", "pack_status", "unpack_status", "FLAG_AGGREGATE",
+           "FLAG_PREFIX", "EPOCH_SHIFT", "EPOCH_BITS", "EPOCH_MAX", "W_MAX"]
 
 
 def scan_probe_ref(keys_sorted, setcode, writer, e_init):
@@ -35,3 +36,34 @@ def scan_probe_ref(keys_sorted, setcode, writer, e_init):
     cex = torch.cumsum(w_i, 0, dtype=torch.int32) - w_i
     base = torch.cummax(torch.where(first, cex, 0), 0).values
     return e_before, cex - base
+
+
+# The kernel's 64-bit status word (``csrc/scan_probe.cu``), one per tile:
+# flag (bits 0-1: 0 not written, 1 aggregate, 2 inclusive prefix), head
+# (bit 2), c + 1 (bits 3-4, c in {-1, 0, 1}), w (bits 5-35), and the call's
+# epoch (bits 36-63).  A word whose epoch is not the reader's reads as not
+# ready.  These twins of the kernel's pack and unpack serve the tests.
+FLAG_AGGREGATE, FLAG_PREFIX = 1, 2
+EPOCH_SHIFT = 36
+EPOCH_BITS = 64 - EPOCH_SHIFT
+EPOCH_MAX = 2**EPOCH_BITS - 1
+W_MAX = 2**31 - 1
+
+
+def pack_status(flag: int, head: int, w: int, c: int, epoch: int) -> int:
+    """The status word (an unsigned 64-bit value) of a tile."""
+    if not (flag in (FLAG_AGGREGATE, FLAG_PREFIX) and head in (0, 1)
+            and 0 <= w <= W_MAX and c in (-1, 0, 1)
+            and 0 < epoch <= EPOCH_MAX):
+        raise ValueError(f"status word out of range: flag={flag} head={head} "
+                         f"w={w} c={c} epoch={epoch}")
+    return (flag | head << 2 | (c + 1) << 3 | w << 5
+            | epoch << EPOCH_SHIFT)
+
+
+def unpack_status(word: int) -> tuple[int, int, int, int, int]:
+    """``(flag, head, w, c, epoch)`` of a status word (an int64 read back
+    from the scratch is taken as its unsigned 64-bit value)."""
+    word &= 2**64 - 1
+    return (word & 3, word >> 2 & 1, word >> 5 & W_MAX,
+            (word >> 3 & 3) - 1, word >> EPOCH_SHIFT)

@@ -13,7 +13,7 @@ def wc_combine_ref(keys_sorted: torch.Tensor):
     run head, run tail and 0-based position within the run."""
     k = keys_sorted
     n = k.shape[0]
-    one = torch.ones((1,), dtype=torch.bool, device=k.device)
+    one = torch.ones((min(n, 1),), dtype=torch.bool, device=k.device)
     neq = k[1:] != k[:-1]
     first = torch.cat([one, neq])
     last = torch.cat([neq, one])

@@ -76,6 +76,121 @@ def test_kernels_bit_equal_plain_on_card(cuda_device, layout, n):
     assert (wcc.counter.count, sp.counter.count) == (c0 + 1, c1 + 1)
 
 
+# N = 2, TILE + 2 and 8 * TILE + 2 leave the last thread two keys (its
+# scalar path at two), as the main path's N = 2 does
+SWEEP_EDGES = [0, 1, 2, sp.TILE - 1, sp.TILE, sp.TILE + 1, sp.TILE + 2,
+               wcc.TILE - 1, wcc.TILE, wcc.TILE + 1, 2 * wcc.TILE,
+               2 * wcc.TILE + 1500, 8 * wcc.TILE + 2, 1 << 20]
+
+
+def _probe_args(layout, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(sorted_keys(layout, n, seed=seed), device=dev),
+            torch.as_tensor(rng.integers(-1, 2, n).astype(np.int32),
+                            device=dev),
+            torch.as_tensor(rng.random(n) < 0.3, device=dev),
+            torch.as_tensor(rng.random(n) < 0.5, device=dev))
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n", SWEEP_EDGES)
+def test_sweeps_bit_equal_plain_at_tile_edges(cuda_device, layout, n):
+    """Both kernels at N = 0, 1, 2, every tile edge of either kernel, a
+    last thread with two keys, and 2^20; one launch per call (none at
+    N = 0)."""
+    args = _probe_args(layout, n, n + 5, cuda_device)
+    c0, c1 = wcc.counter.count, sp.counter.count
+    _same(wcc.wc_combine_cuda(args[0]), wcc.wc_combine_ref(args[0]))
+    _same(sp.scan_probe_cuda(*args), sp.scan_probe_ref(*args))
+    torch.cuda.synchronize()
+    assert (wcc.counter.count - c0, sp.counter.count - c1) == ((n > 0,) * 2)
+
+
+@pytest.mark.parametrize("n", [sp.TILE * 3 + 7, wcc.TILE * 3 + 7])
+def test_sweeps_on_inputs_off_16_byte_boundaries(cuda_device, n):
+    """Views that start one element in take the kernels' scalar path."""
+    args = _probe_args("dup_heavy", n + 1, 9, cuda_device)
+    views = tuple(a[1:] for a in args)
+    assert views[0].data_ptr() % 16
+    _same(wcc.wc_combine_cuda(views[0]), wcc.wc_combine_ref(views[0]))
+    _same(sp.scan_probe_cuda(*views), sp.scan_probe_ref(*views))
+
+
+def test_scan_probe_back_to_back_calls_share_one_scratch(cuda_device):
+    """200 calls in a row with no sync between them, N alternating small
+    and large, one run over every tile: a stale status word or a ticket
+    counter not back at 0 would show as a wrong prefix (or a trap)."""
+    sizes = [1, 5000, sp.TILE + 1, 69632, 3, 1 << 20, 2 * sp.TILE, 34816]
+    cases = [_probe_args(("giant_run", "dup_heavy")[j % 2],
+                         sizes[j % len(sizes)], j, cuda_device)
+             for j in range(16)]
+    sp.scan_probe_cuda(*cases[5])       # the scratch at its largest
+    torch.cuda.synchronize()
+    s = sp.scratch_of(cuda_device, torch.cuda.current_stream().cuda_stream, 1)
+    tiles = s.tiles
+    assert int(s.buf[0]) == 0
+    outs = [sp.scan_probe_cuda(*cases[j % 16]) for j in range(200)]
+    torch.cuda.synchronize()
+    assert s.tiles == tiles and int(s.buf[0]) == 0
+    for j, got in enumerate(outs):
+        _same(got, sp.scan_probe_ref(*cases[j % 16]))
+
+
+def test_scan_probe_grows_its_scratch_and_wraps_its_epoch(cuda_device):
+    stream = torch.cuda.current_stream().cuda_stream
+    sp._SCRATCH.pop((cuda_device.index, stream), None)
+    small = _probe_args("giant_run", 3000, 1, cuda_device)
+    large = _probe_args("giant_run", 1 << 20, 2, cuda_device)
+    _same(sp.scan_probe_cuda(*small), sp.scan_probe_ref(*small))
+    first = sp.scratch_of(cuda_device, stream, 1)
+    assert first.tiles == sp.MIN_TILES
+    got = sp.scan_probe_cuda(*large)   # more tiles: a new, zeroed scratch
+    grown = sp.scratch_of(cuda_device, stream, 1)
+    assert grown is not first and grown.tiles == (1 << 20) // sp.TILE
+    _same(got, sp.scan_probe_ref(*large))
+    grown.epoch = sp.EPOCH_MAX - 2    # the next calls cross the wrap
+    outs = [sp.scan_probe_cuda(*(small, large)[j % 2]) for j in range(5)]
+    assert grown.epoch == 3
+    for j, got in enumerate(outs):
+        _same(got, sp.scan_probe_ref(*(small, large)[j % 2]))
+
+
+def test_scan_probe_refuses_graph_capture(cuda_device):
+    """The epoch is kept on the host: a captured launch would replay with
+    one frozen epoch, so the wrapper raises before it launches."""
+    args = _probe_args("dup_heavy", 5000, 6, cuda_device)
+    sp.scan_probe_cuda(*args)
+    torch.cuda.synchronize()
+    c0 = sp.counter.count
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="graph capture"):
+        with torch.cuda.graph(graph):
+            sp.scan_probe_cuda(*args)
+    torch.cuda.synchronize()
+    assert sp.counter.count == c0
+    _same(sp.scan_probe_cuda(*args), sp.scan_probe_ref(*args))
+
+
+def test_scan_probe_on_a_side_stream(cuda_device):
+    """Each stream keeps a scratch of its own."""
+    args = _probe_args("giant_run", 69632, 4, cuda_device)
+    want = sp.scan_probe_ref(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [sp.scan_probe_cuda(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert (cuda_device.index, side.cuda_stream) in sp._SCRATCH
+    for g in got:
+        _same(g, want)
+
+
 def test_wrappers_check_their_inputs_on_card(cuda_device):
     k = torch.zeros(16, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
@@ -317,11 +432,15 @@ def test_paged_attention_launches_per_split_plan(cuda_device):
     def kernels(*args):
         pa.paged_attention_cuda(*args)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            pa.paged_attention_cuda(*args)
-            torch.cuda.synchronize()
-        return sorted(e.key for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        for _ in range(3):   # a session that records no GPU event runs again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pa.paged_attention_cuda(*args)
+                torch.cuda.synchronize()
+            names = sorted(e.key for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+            if names:
+                return names
+        return names
 
     for page, np_, want in ((40, 1, ["paged_split_kernel"]),
                             (16, 64, ["paged_merge_kernel",
@@ -413,3 +532,29 @@ def test_model_attention_on_card_matches_cpu(cuda_device):
     got = tatt.decode_attention(q[:, :1], k, k, 37)
     want = tatt.decode_attention(q[:, :1].cpu(), k.cpu(), k.cpu(), 37)
     _assert_close(got.cpu(), want, 2e-2)
+
+
+def test_sweeps_launch_one_kernel_per_call(cuda_device):
+    """One kernel and nothing else (no memset, no second pass) per call,
+    read from the profiler (CPU and CUDA activities, as chip_smoke.py
+    profiles)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _probe_args("giant_run", 69632, 6, cuda_device)
+    for fn, call_args, name in ((wcc.wc_combine_cuda, args[:1],
+                                 "wc_combine_kernel"),
+                                (sp.scan_probe_cuda, args,
+                                 "scan_probe_kernel")):
+        fn(*call_args)
+        torch.cuda.synchronize()
+        for _ in range(3):   # a session that records no GPU event runs again
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(*call_args)
+                torch.cuda.synchronize()
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            if events:
+                break
+        assert len(events) == 1 and name in events[0].name, [
+            e.name for e in events]

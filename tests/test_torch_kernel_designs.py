@@ -15,10 +15,23 @@ JAX reference, so that it is held to the reference before it runs on a card.
   lengths on and around the split boundaries.
 * the launcher's split plan: ``split_plan`` sizes the split from the block
   table's span, and one split (the serve's shape) means one launch.
+* ``wc_combine`` (one launch, tiled single pass): an emulation of the
+  kernel's tiles -- neighbour flags, the thread-serial, warp and block
+  max-scans of head indices, and one warp's 32-way search for the start of
+  a run that enters the tile -- equals the JAX reference and the Pallas
+  kernel in interpret mode at every tile edge, with the kernel's tile and a
+  small one that puts a run across dozens of tiles.
+* ``scan_probe`` (one launch, decoupled look-back): an emulation of the
+  kernel's tiles, status words and look-back, with the blocks interleaved
+  at random over stale words of an earlier call, equals the same
+  references; the look-back stops at the first inclusive prefix or run
+  head; the 64-bit status word round-trips, and its epoch wraps through a
+  zeroed scratch.
 """
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -38,6 +51,16 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref, paged_attention_split_ref)
+from repro.kernels.scan_probe.ops import scan_probe_op  # noqa: E402
+from repro.kernels.scan_probe.ref import (  # noqa: E402
+    scan_probe_ref as j_scan_probe_ref)
+from repro.kernels.wc_combine.ops import wc_combine_op  # noqa: E402
+from repro.kernels.wc_combine.ref import (  # noqa: E402
+    wc_combine_ref as j_wc_combine_ref)
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.scan_probe import ops as sp  # noqa: E402
+from repro_torch.kernels.scan_probe import ref as spr  # noqa: E402
+from repro_torch.kernels.wc_combine import ops as wcc  # noqa: E402
 
 j_flash_ref = jax.jit(j_flash_ref, static_argnames=("causal", "window"))
 j_paged_ref = jax.jit(j_paged_ref)
@@ -208,3 +231,526 @@ def test_paged_split_plan_of_the_serve_and_decode_32k_shapes():
     runs 64 splits and the merge."""
     assert pa.split_plan(1 * 40)[1] == 1
     assert pa.split_plan(2048 * 16) == (pa.SPLIT, 64)
+
+
+# ---------------------------------------------------------------------------
+# the sort sweeps: wc_combine and scan_probe, one launch each
+# ---------------------------------------------------------------------------
+
+BIG = 2**31 - 1
+SWEEP_LAYOUTS = ["one_run", "distinct", "sentinel_tail", "dup_heavy"]
+
+
+def sweep_keys(layout: str, n: int, seed: int) -> np.ndarray:
+    """Sorted int32 keys: one run over every tile, all distinct, a +inf
+    sentinel tail (invalid lanes), random duplicate-heavy runs."""
+    rng = np.random.default_rng(seed)
+    if layout == "one_run":
+        return np.full(n, 42, np.int32)
+    if layout == "distinct":
+        return np.arange(n, dtype=np.int32) * 3 - 7
+    if layout == "sentinel_tail":
+        k = np.sort(rng.integers(-50, 50, n)).astype(np.int32)
+        k[n - n // 3:] = BIG
+        return k
+    return np.sort(rng.integers(0, max(n // 8, 1), n)).astype(np.int32)
+
+
+def tile_edges(tile: int) -> list[int]:
+    """N = 2, N at every tile edge, and ragged last tiles whose last thread
+    holds two keys and three."""
+    return [2, tile - 1, tile, tile + 1, 2 * tile, 2 * tile + 2,
+            2 * tile + tile // 3 + 5]
+
+
+def _tiles(x: torch.Tensor, n_tiles: int, threads: int, per_thread: int,
+           fill: int) -> torch.Tensor:
+    """``x`` padded with ``fill`` to whole tiles, as (tile, thread, lane)."""
+    out = torch.full((n_tiles * threads * per_thread,), fill, dtype=x.dtype)
+    out[:x.shape[0]] = x
+    return out.view(n_tiles, threads, per_thread)
+
+
+def warp_run_start(keys: np.ndarray, hi: int, key: int):
+    """The kernel's one-warp search: the first index of [0, hi] whose key is
+    >= ``key``, given ``keys[hi] == key``; each round 32 lanes probe 32
+    evenly spaced keys and ballot.  Returns ``(start, rounds)``."""
+    lanes = np.arange(32, dtype=np.int64)
+    lo, rounds = 0, 0
+    while lo < hi:
+        p = lo + ((hi - lo) * (lanes + 1) >> 5)
+        ge = keys[p] >= key
+        assert ge[31]                              # lane 31 probes hi
+        c = int(np.argmax(ge))
+        lo, hi = (int(p[c - 1]) + 1 if c > 0 else lo), int(p[c])
+        rounds += 1
+    return lo, rounds
+
+
+def _warp_scan(v: torch.Tensor, op, fill) -> torch.Tensor:
+    """The kernel's inclusive scan over the last axis (32 lanes) by
+    ``__shfl_up_sync`` steps 1, 2, 4, 8, 16; ``op(older, newer)``."""
+    lane = torch.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        o = torch.cat([torch.full_like(v[..., :off], fill), v[..., :-off]],
+                      -1)
+        v = torch.where(lane >= off, op(o, v), v)
+    return v
+
+
+def run_start_from_window(keys: np.ndarray, tile_start: int, key: int):
+    """The kernel's run start for a tile whose first key ``key`` continues
+    the run of the tile before: from the 32 keys before the tile (one
+    ballot) when the run starts there, else by the warp search over
+    ``[0, tile_start - 32]``.  Returns ``(start, search rounds)``."""
+    window = keys[tile_start - 32:tile_start]
+    in_run = window == key
+    if not in_run[0]:
+        return tile_start - 32 + int(np.argmax(in_run)), 0
+    return warp_run_start(keys, tile_start - 32, key)
+
+
+def wc_combine_tiled_emulation(keys: np.ndarray, threads: int,
+                               per_thread: int):
+    """``csrc/wc_combine.cu`` in plain PyTorch, every tile at once.
+    Returns ``(is_first, is_last, rank, search_rounds)``; the rounds are
+    those of each tile whose first key continues a run of the tile before
+    (0 when the run starts in the 32 keys before the tile)."""
+    n = keys.shape[0]
+    tile = threads * per_thread
+    n_tiles = -(-n // tile)
+    k = _tiles(torch.from_numpy(keys.astype(np.int64)), n_tiles, threads,
+               per_thread, 0)
+    i = torch.arange(n_tiles * tile).view(k.shape)
+    valid = i < n
+    cnt = valid.sum(-1)
+    head_key = k[..., 0]
+    tail_key = k.gather(-1, (cnt - 1).clamp(min=0)[..., None])[..., 0]
+    flat = k.reshape(-1)
+    starts = torch.arange(n_tiles) * tile
+    halo_prev = torch.where(starts > 0, flat[(starts - 1).clamp(min=0)], 0)
+    halo_next = torch.where(starts + tile < n,
+                            flat[(starts + tile).clamp(max=flat.numel() - 1)],
+                            0)
+    prev = torch.cat([halo_prev[:, None], tail_key[:, :-1]], 1)
+    nxt = torch.cat([head_key[:, 1:], halo_next[:, None]], 1)
+    kp = torch.cat([prev[..., None], k[..., :-1]], -1)
+    kn = torch.cat([k[..., 1:], nxt[..., None]], -1)
+    first = (i == 0) | (kp != k)
+    last = (i == n - 1) | (kn != k)
+    # thread-serial max-scan of head indices, then warp and block
+    hm = torch.cummax(torch.where(first & valid, i, -1), -1).values
+    run = hm[..., -1].reshape(n_tiles, threads // 32, 32)
+    incl = _warp_scan(run, torch.maximum, -1)
+    excl = torch.cat([torch.full_like(incl[..., :1], -1), incl[..., :-1]], -1)
+    warp_tot = incl[..., 31]
+    warp_before = torch.cat([torch.full_like(warp_tot[:, :1], -1),
+                             torch.cummax(warp_tot, 1).values[:, :-1]], 1)
+    carry = torch.full((n_tiles,), -1, dtype=torch.int64)
+    rounds = []
+    for t in range(1, n_tiles):
+        if int(halo_prev[t]) == int(head_key[t, 0]):
+            start, r = run_start_from_window(keys, int(starts[t]),
+                                             int(head_key[t, 0]))
+            carry[t] = start
+            rounds.append(r)
+    pre = torch.maximum(torch.maximum(carry[:, None, None],
+                                      warp_before[..., None]), excl)
+    start = torch.maximum(pre.reshape(n_tiles, threads)[..., None], hm)
+    rank = (i - start).to(torch.int32)
+    return (first.reshape(-1)[:n], last.reshape(-1)[:n],
+            rank.reshape(-1)[:n], rounds)
+
+
+def _check_wc(keys, got, pallas_block=1024):
+    f, l_, r = (x.numpy() for x in got[:3])
+    for want in (j_wc_combine_ref(jnp.asarray(keys)),
+                 wc_combine_op(jnp.asarray(keys), block=pallas_block,
+                               interpret=True)):
+        wf, wl, wr = (np.asarray(x) for x in want)
+        assert np.array_equal(f, wf) and np.array_equal(l_, wl)
+        assert r.dtype == wr.dtype and np.array_equal(r, wr)
+
+
+@pytest.mark.parametrize("n", tile_edges(wcc.TILE))
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
+def test_wc_combine_tiles_equal_reference(layout, n):
+    """The kernel's own tile (128 threads x 4 keys) at every tile edge."""
+    keys = sweep_keys(layout, n, seed=n)
+    got = wc_combine_tiled_emulation(keys, wcc.THREADS, wcc.PER_THREAD)
+    _check_wc(keys, got)
+    if layout == "one_run":      # every tile after the first searches
+        assert len(got[3]) == -(-n // wcc.TILE) - 1
+        assert all(r > 0 for r in got[3])
+    if layout == "distinct":     # no run enters a tile
+        assert got[3] == []
+
+
+@pytest.mark.parametrize("n", tile_edges(128) + [5000])
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
+def test_wc_combine_small_tiles_equal_reference(layout, n):
+    """32 threads x 4 keys a tile: runs that cross dozens of tiles, so the
+    warp search narrows over several rounds, about log32 of its span."""
+    keys = sweep_keys(layout, n, seed=n + 1)
+    got = wc_combine_tiled_emulation(keys, 32, 4)
+    _check_wc(keys, got, pallas_block=256)
+    for r in got[3]:
+        assert r <= math.ceil(math.log(n, 32)) + 1
+
+
+def test_warp_run_start_rounds():
+    """About log32 of the span: 3 rounds at 4,096 keys, 5 at 2^20."""
+    for n, most in ((4096, 3), (1 << 20, 5)):
+        keys = np.full(n, 9, np.int32)
+        keys[:7] = 1
+        start, rounds = warp_run_start(keys, n - 1, 9)
+        assert start == 7 and rounds <= most
+
+
+# scan_probe --------------------------------------------------------------
+
+def _seg_combine(a, b):
+    """The kernel's segmented monoid on (head, w, c) tensors; a before b."""
+    ah, aw, ac = a
+    bh, bw, bc = b
+    return (ah | bh, torch.where(bh == 1, bw, aw + bw),
+            torch.where(bh == 1, bc, torch.where(bc >= 0, bc, ac)))
+
+
+def _seg_identity(shape):
+    return (torch.zeros(shape, dtype=torch.int64),
+            torch.zeros(shape, dtype=torch.int64),
+            torch.full(shape, -1, dtype=torch.int64))
+
+
+def _py_combine(a, b):
+    return _seg_combine(*(tuple(torch.tensor(x) for x in s) for s in (a, b)))
+
+
+def seg_of(t) -> tuple[int, int, int]:
+    return tuple(int(x) for x in t)
+
+
+def look_back(status: list, tile: int, epoch: int):
+    """The kernel's look-back by one warp, as a generator: it yields while
+    a lane up to the nearest stop waits on a word that is not ready
+    (another epoch's, or not yet written) and returns ``(prefix,
+    windows)``: the combined (head, w, c) of the tiles before ``tile`` back
+    to the nearest inclusive prefix or run head, and the number of 32-word
+    windows it read."""
+    acc = (0, 0, -1)
+    pred, windows = tile - 1, 0
+    while True:
+        windows += 1
+        words = [None] * 32          # (stop, (head, w, c)) once ready
+        while True:                  # each lane polls its own word
+            for lane in range(32):
+                j = pred - lane
+                if words[lane] is None and j < 0:
+                    words[lane] = (True, (0, 0, -1))   # an empty prefix
+                elif words[lane] is None:
+                    flag, head, ww, c, ep = spr.unpack_status(status[j])
+                    if ep == epoch and flag != 0:
+                        words[lane] = (flag == spr.FLAG_PREFIX or head == 1,
+                                       (head, ww, c))
+            stop = [w is not None and w[0] for w in words]
+            c = stop.index(True) if any(stop) else 32
+            if all(w is not None for w in words[:c + 1]):
+                break
+            yield
+        v = [words[lane][1] if lane <= c else (0, 0, -1)
+             for lane in range(32)]
+        off = 1                      # the ordered shuffle-down reduction
+        while off < 32:
+            v = [seg_of(_py_combine(v[lane + off], v[lane]))
+                 if lane + off < 32 else v[lane] for lane in range(32)]
+            off *= 2
+        acc = seg_of(_py_combine(v[0], acc))
+        if any(stop):
+            return acc, windows
+        pred -= 32
+
+
+def scan_probe_lookback_emulation(keys, setcode, writer, e_init, threads,
+                                  per_thread, rng, resident=8):
+    """``csrc/scan_probe.cu`` in plain PyTorch: each tile's local scan (the
+    kernel's thread-serial fold, warp shuffle scan and block combine), then
+    the blocks interleaved at random -- tickets handed out in start order,
+    at most ``resident`` blocks at once, every step of a random block --
+    over status words left by an earlier call, and the apply.  Returns
+    ``(e_before, waits, windows)`` with the look-back windows of each tile
+    that looked back."""
+    n = keys.shape[0]
+    tile = threads * per_thread
+    n_tiles = -(-n // tile)
+    k = _tiles(torch.from_numpy(keys.astype(np.int64)), n_tiles, threads,
+               per_thread, 0)
+    i = torch.arange(n_tiles * tile).view(k.shape)
+    valid = i < n
+    sc = _tiles(torch.from_numpy(setcode.astype(np.int64)), n_tiles, threads,
+                per_thread, -1)
+    wr = _tiles(torch.from_numpy(writer.astype(np.int64)), n_tiles, threads,
+                per_thread, 0)
+    ei = _tiles(torch.from_numpy(e_init.astype(np.int64)), n_tiles, threads,
+                per_thread, 0)
+    flat = k.reshape(-1)
+    kp = torch.cat([flat[:1], flat[:-1]]).view(k.shape)   # halo included
+    head = ((i == 0) | (kp != k)).to(torch.int64)
+    lane_seg = (head, wr, torch.where(sc >= 0, sc & 1, -1))
+    # thread-serial fold over the thread's valid lanes
+    agg = _seg_identity(k.shape[:2])
+    for j in range(per_thread):
+        x = tuple(torch.where(valid[..., j], s[..., j], e)
+                  for s, e in zip(lane_seg, _seg_identity(k.shape[:2])))
+        agg = _seg_combine(agg, x)
+    # warp inclusive scan by shuffles, block combine over the warps
+    wshape = (n_tiles, threads // 32, 32)
+    lane = torch.arange(32)
+    incl = tuple(x.reshape(wshape) for x in agg)
+    for off in (1, 2, 4, 8, 16):
+        o = tuple(torch.cat([e[..., :off], x[..., :-off]], -1)
+                  for x, e in zip(incl, _seg_identity(wshape)))
+        incl = tuple(torch.where(lane >= off, c, x)
+                     for c, x in zip(_seg_combine(o, incl), incl))
+    excl = tuple(torch.cat([e[..., :1], x[..., :-1]], -1)
+                 for x, e in zip(incl, _seg_identity(wshape)))
+    warp_tot = tuple(x[..., 31] for x in incl)
+    pre = _seg_identity((n_tiles,))
+    pres = []
+    for w in range(threads // 32):
+        pres.append(pre)
+        pre = _seg_combine(pre, tuple(x[:, w] for x in warp_tot))
+    total = pre
+    pre_w = tuple(torch.stack([p[f] for p in pres], 1) for f in range(3))
+    thread_excl = _seg_combine(tuple(x[..., None] for x in pre_w), excl)
+    thread_excl = tuple(x.reshape(n_tiles, threads) for x in thread_excl)
+    continues = [t > 0 and int(flat[t * tile - 1]) == int(flat[t * tile])
+                 for t in range(n_tiles)]
+
+    # status words left by an earlier call (older epoch), then the blocks
+    epoch = 5
+    status = [spr.pack_status(int(rng.integers(1, 3)), int(rng.integers(0, 2)),
+                              int(rng.integers(0, 100)),
+                              int(rng.integers(-1, 2)), epoch - 1)
+              for _ in range(n_tiles)]
+    prefix = [None] * n_tiles
+    windows = {}
+
+    def block(ticket):
+        tot = seg_of(x[ticket] for x in total)
+        status[ticket] = spr.pack_status(
+            spr.FLAG_PREFIX if tot[0] else spr.FLAG_AGGREGATE, *tot, epoch)
+        yield
+        if continues[ticket]:
+            before, windows[ticket] = yield from look_back(status, ticket,
+                                                           epoch)
+            prefix[ticket] = before
+            if not tot[0]:
+                status[ticket] = spr.pack_status(
+                    spr.FLAG_PREFIX, *seg_of(_py_combine(before, tot)), epoch)
+
+    next_ticket, active, steps = 0, [], 0
+    while next_ticket < n_tiles or active:
+        steps += 1
+        assert steps < 100 * n_tiles + 10_000, "the blocks made no progress"
+        if next_ticket < n_tiles and (not active or (
+                len(active) < resident and rng.random() < 0.5)):
+            active.append(block(next_ticket))
+            next_ticket += 1
+            continue
+        g = active[int(rng.integers(len(active)))]
+        try:
+            next(g)
+        except StopIteration:
+            active.remove(g)
+
+    # apply the exclusive prefix lane by lane
+    tp = tuple(torch.tensor([(p if p is not None else (0, 0, -1))[f]
+                             for p in prefix]) for f in range(3))
+    use = torch.tensor(continues)[:, None]
+    run = tuple(torch.where(use, c, x) for c, x in
+                zip(_seg_combine(tuple(x[:, None] for x in tp), thread_excl),
+                    thread_excl))
+    e_before = torch.zeros(k.shape, dtype=torch.bool)
+    waits = torch.zeros(k.shape, dtype=torch.int32)
+    for j in range(per_thread):
+        h = head[..., j] == 1
+        waits[..., j] = torch.where(h, 0, run[1]).to(torch.int32)
+        e_before[..., j] = torch.where(h, ei[..., j] == 1, torch.where(
+            run[2] >= 0, run[2] == 1, ei[..., j] == 1))
+        run = _seg_combine(run, tuple(s[..., j] for s in lane_seg))
+    return e_before.reshape(-1)[:n], waits.reshape(-1)[:n], windows
+
+
+def _probe_inputs(layout, n, seed):
+    rng = np.random.default_rng(seed)
+    return (sweep_keys(layout, n, seed), rng.integers(-1, 2, n).astype(
+        np.int32), rng.random(n) < 0.3, rng.random(n) < 0.5)
+
+
+def _check_probe(args, got, pallas_block=1024):
+    eb, wt = (x.numpy() for x in got[:2])
+    jargs = [jnp.asarray(x) for x in args]
+    for want in (j_scan_probe_ref(*jargs),
+                 scan_probe_op(*jargs, block=pallas_block, interpret=True),
+                 spr.scan_probe_ref(*(torch.as_tensor(x) for x in args))):
+        we, ww = (np.asarray(x) for x in want)
+        assert np.array_equal(eb, we)
+        assert wt.dtype == ww.dtype and np.array_equal(wt, ww)
+
+
+@pytest.mark.parametrize("n", tile_edges(sp.TILE))
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
+def test_scan_probe_lookback_equals_reference(layout, n):
+    """The kernel's own tile (128 threads x 4 lanes), blocks interleaved
+    at random over stale status words, at every tile edge."""
+    args = _probe_inputs(layout, n, seed=n)
+    got = scan_probe_lookback_emulation(*args, sp.THREADS, sp.PER_THREAD,
+                                        np.random.default_rng(n))
+    _check_probe(args, got)
+    if layout == "one_run":
+        assert sorted(got[2]) == list(range(1, -(-n // sp.TILE)))
+
+
+@pytest.mark.parametrize("n", tile_edges(128) + [5200])
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
+def test_scan_probe_small_tiles_lookback_equals_reference(layout, n):
+    """32 threads x 4 lanes a tile, so one run crosses up to 41 tiles and a
+    look-back may read a second window of 32 words."""
+    args = _probe_inputs(layout, n, seed=n + 3)
+    got = scan_probe_lookback_emulation(*args, 32, 4,
+                                        np.random.default_rng(n + 4),
+                                        resident=5)
+    _check_probe(args, got, pallas_block=256)
+
+
+def _agg(head, w, c, epoch=3):
+    return spr.pack_status(spr.FLAG_AGGREGATE, head, w, c, epoch)
+
+
+def _run(gen):
+    try:
+        while True:
+            next(gen)
+    except StopIteration as stop:
+        return stop.value
+
+
+def test_look_back_stops_at_a_run_head_aggregate():
+    """An aggregate with head = 1 cuts the segment: the look-back stops
+    there, in its first window, and what lies before it does not count."""
+    status = [_agg(0, 9, 1)] * 40
+    status[30] = _agg(1, 2, 0)       # a head in tile 30
+    status[31:] = [_agg(0, 1, -1)] * 9
+    (head, w, c), windows = _run(look_back(status, 38, 3))
+    assert (head, w, c, windows) == (1, 2 + 7, 0, 1)
+
+
+def test_look_back_stops_at_an_inclusive_prefix():
+    status = [_agg(0, 1, 0)] * 40
+    status[20] = spr.pack_status(spr.FLAG_PREFIX, 0, 100, 1, 3)
+    status[25] = _agg(0, 1, -1)
+    (head, w, c), windows = _run(look_back(status, 30, 3))
+    assert (head, w, c, windows) == (0, 100 + 9, 0, 1)
+
+
+def test_look_back_crosses_windows_to_tile_zero():
+    """No prefix and no head for 39 tiles: two windows, back to tile 0."""
+    status = [spr.pack_status(spr.FLAG_PREFIX, 1, 1, -1, 3)]
+    status += [_agg(0, 1, -1)] * 39
+    status[5] = _agg(0, 1, 1)
+    (head, w, c), windows = _run(look_back(status, 40, 3))
+    assert (head, w, c, windows) == (1, 40, 1, 2)
+
+
+def test_look_back_waits_for_words_of_this_epoch():
+    """A word of another epoch reads as not ready: the warp spins until
+    the tile publishes."""
+    status = [spr.pack_status(spr.FLAG_PREFIX, 1, 0, 0, 3),
+              _agg(0, 4, 1, epoch=2)]
+    gen = look_back(status, 2, 3)
+    for _ in range(3):
+        next(gen)                      # tile 1 has not published yet
+    status[1] = _agg(0, 1, -1, epoch=3)
+    assert _run(gen) == ((1, 1, 0), 1)
+
+
+def test_look_back_waits_only_up_to_the_nearest_stop():
+    """Words beyond the nearest prefix are not waited on, even when they
+    are not ready: the look-back ends at its first poll."""
+    status = [_agg(0, 1, 0, epoch=2)] * 10      # tiles 0-7: stale
+    status[8] = spr.pack_status(spr.FLAG_PREFIX, 0, 5, 1, 3)
+    status[9] = _agg(0, 2, -1)
+    with pytest.raises(StopIteration) as stop:
+        next(look_back(status, 10, 3))
+    assert stop.value.value == ((0, 7, 1), 1)
+
+
+@pytest.mark.parametrize("flag", [spr.FLAG_AGGREGATE, spr.FLAG_PREFIX])
+@pytest.mark.parametrize("head", [0, 1])
+@pytest.mark.parametrize("c", [-1, 0, 1])
+@pytest.mark.parametrize("w,epoch", [(0, 1), (2048, 2**27),
+                                     (2**31 - 1, spr.EPOCH_MAX)])
+def test_status_word_round_trip(flag, head, c, w, epoch):
+    word = spr.pack_status(flag, head, w, c, epoch)
+    assert 0 <= word < 2**64
+    assert spr.unpack_status(word) == (flag, head, w, c, epoch)
+    # as the int64 scratch holds it
+    signed = word - 2**64 if word >= 2**63 else word
+    assert spr.unpack_status(signed) == (flag, head, w, c, epoch)
+    t = torch.tensor([signed], dtype=torch.int64)
+    assert spr.unpack_status(int(t[0])) == (flag, head, w, c, epoch)
+
+
+@pytest.mark.parametrize("bad", [dict(w=2**31), dict(c=2), dict(epoch=0),
+                                 dict(epoch=2**28), dict(flag=0)])
+def test_status_word_refuses_what_it_cannot_hold(bad):
+    kw = dict(flag=1, head=0, w=0, c=0, epoch=1) | bad
+    with pytest.raises(ValueError):
+        spr.pack_status(**kw)
+
+
+def test_scratch_epoch_wraps_through_zero():
+    """At the wrap the words and the ticket counter are zeroed before epoch
+    1 comes back, so no word of the earlier cycle reads as ready."""
+    s = sp.Scratch(torch.device("cpu"), 4)
+    s.buf[:] = 7
+    s.epoch = spr.EPOCH_MAX - 1
+    assert s.next_epoch() == spr.EPOCH_MAX
+    assert int(s.buf[1]) == 7
+    assert s.next_epoch() == 1
+    assert int(s.buf.abs().sum()) == 0
+    assert spr.unpack_status(int(s.buf[1]))[0] == 0       # not ready
+
+
+def test_scratch_is_cached_and_grows_zeroed():
+    cpu = torch.device("cpu")
+    key = (cpu.index, -12345)
+    try:
+        a = sp.scratch_of(cpu, -12345, 3)
+        assert a.tiles == sp.MIN_TILES and a is sp.scratch_of(cpu, -12345, 64)
+        a.buf[:] = 1
+        a.epoch = 4
+        b = sp.scratch_of(cpu, -12345, 65)
+        assert b is not a and b.tiles == 2 * sp.MIN_TILES
+        assert int(b.buf.abs().sum()) == 0 and b.epoch == 0
+        assert sp.scratch_of(cpu, -12345, 600).tiles == 600
+    finally:
+        sp._SCRATCH.pop(key, None)
+
+
+@pytest.mark.parametrize("name,mod", [("wc_combine", wcc), ("scan_probe", sp)])
+def test_sweep_tile_constants_match_the_sources(name, mod):
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert int(re.search(r"constexpr int kThreads = (\d+);", src)[1]) == \
+        mod.THREADS
+    assert int(re.search(r"constexpr int kPerThread = (\d+);", src)[1]) == \
+        mod.PER_THREAD
+    assert mod.TILE == mod.THREADS * mod.PER_THREAD
+    if name == "scan_probe":
+        assert int(re.search(r"constexpr int kEpochShift = (\d+);", src)[1]) \
+            == spr.EPOCH_SHIFT
+        assert int(re.search(r"kFlagAggregate = (\d+);", src)[1]) == \
+            spr.FLAG_AGGREGATE
+        assert int(re.search(r"kFlagPrefix = (\d+);", src)[1]) == \
+            spr.FLAG_PREFIX
