@@ -42,15 +42,38 @@ Phases (any mismatch raises, and the script exits non-zero):
    must equal the reference serve's (``SERVE_STATS``); the greedy tokens of
    its first four requests must be the CPU's argmax with the same weights,
    or a near-tie within the card-vs-CPU tolerance.
+7. ``BENCH_recovery.json``: three CN-crash scenarios x 4 modes through
+   ``recovery.run_recovery`` (32 windows of 2048 ops, 64 CNs); every field of
+   every ``modes`` row but the sharded ``failover`` sub-dict (ROADMAP A11).
+8. ``BENCH_replication.json``: the ``single`` rows for R 1-3 x 4 modes (R 1
+   also against ``BENCH_engine.json``) and the ``mn_crash`` cell through
+   ``recovery.run_recovery_replicated``, held to the segmented
+   ``n_replicas``-swap run and the crash-free R 3 prefix.
+9. ``BENCH_scenarios.json``: the ``single`` rows of the four dynamic
+   scenarios x 4 modes through ``runner.run_windows_traced``, per-window
+   trajectories and credit mass included.
+10. ``BENCH_scale.json``'s open-loop curves on one card (1,048,576 slots,
+    512 CNs x 8 lanes, 16 windows): 5 loads x 4 modes, the MMPP row, and
+    the dense re-pack identity (bill, credits, store, permuted results).
+11. deployment scale: 2^24 keys, 64 CNs, batch 4096, 64 windows, CIDER and
+    MCS at 3 MN replicas: ``crash_storm`` (a quarter of the CNs die at
+    window 21) with replica 2 dying at window 42, through
+    ``run_recovery_replicated``, against the oracle, the segmented run, an
+    R = 1 run and the per-replica bill; then a ``RaceHash`` of 2^22 slots
+    with 2^21 keys, 16 YCSB-A windows against the oracle, and a SCAN batch
+    that must raise.
 
-The launch counters are zeroed just before phase 2 and read after phase 6;
-every kernel must have launched in that run, in the phases that run it.  The last lines are the kernel
-table as JSON, the card's name and power limit, and the result line
+Phases 7-11 print the wall time and peak device memory of their runs and
+the idle share of one profiled rerun each.  The launch counters are zeroed
+just before phase 2 and read after phase 11; every kernel must have
+launched in that run, in the phases that run it.  The last lines are the
+kernel table as JSON, the card's name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -1044,6 +1067,841 @@ def serve_tokens_vs_cpu(dev, card: str, n: int = 4) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 7-11: recovery, replication, dynamic scenarios, open loop, and
+# crash recovery with MN replication at deployment scale
+# ---------------------------------------------------------------------------
+# The committed benchmarks' configurations (benchmarks/{recovery,replication,
+# scenarios,scale}.py); the helpers below take ``dev`` so the CPU tests can
+# run them at the benchmarks' FAST sizes against the reference.
+
+RECOVERY_FULL = dict(windows=24, warm=8, batch=2048, n_keys=4096,
+                     n_clients=64, n_cns=64, credit_table=4096, seed=7)
+REPLICATION_FULL = dict(n_slots=65_536, batch=4096, windows=16)
+SCENARIOS_FULL = dict(windows=32, batch=2048, n_keys=4096, n_clients=64,
+                      n_cns=64, credit_table=4096, seed=3)
+OPEN_LOOP_FULL = dict(slots1=131_072, lanes1=512, cns1=64, windows=12,
+                      warmup=4, theta=0.99, seed=11, ol_mesh=8, ol_windows=16,
+                      rhos=[0.5, 0.7, 0.85, 0.95, 1.05], mmpp_rho=0.85)
+REF_SHARDS = 4      # the reference benchmarks round heap_slots to this mesh
+CRASH_R, CRASH_DEAD = 3, (2,)   # benchmarks/replication.py's MN-crash cell
+
+
+def _round4(x) -> list:
+    import numpy as np
+    return [round(float(v), 4) for v in np.asarray(x)]
+
+
+def _io_host(io, sl=slice(None)):
+    """A (W,)-leaf bill as an ``IOMetrics`` of numpy arrays, windows ``sl``."""
+    from repro_torch.core.types import IOMetrics, to_numpy
+    return IOMetrics(*(to_numpy(getattr(io, f.name))[sl]
+                       for f in dataclasses.fields(IOMetrics)))
+
+
+def _io_map(fn, io):
+    from repro_torch.core.types import IOMetrics
+    return IOMetrics(*(fn(getattr(io, f.name))
+                       for f in dataclasses.fields(IOMetrics)))
+
+
+def _check_trees(a, b, what: str) -> None:
+    """Every tensor field of two dataclasses of tensors equal."""
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"{what}.{f.name} differs")
+
+
+def _check_views(a, b, what: str) -> None:
+    """Two stores' logical views (``engine.store_view``) equal."""
+    from repro_torch.core import engine
+    for x, y in zip(engine.store_view(a), engine.store_view(b)):
+        check(bool((x == y).all()), f"{what}: store view differs")
+
+
+def _check_rows(got: dict, want: dict, what: str, skip=()) -> None:
+    """Every key of the committed row ``want`` (recursively) in ``got``."""
+    for k, v in want.items():
+        if k in skip:
+            continue
+        if isinstance(v, dict):
+            check(isinstance(got.get(k), dict), f"{what}: {k} missing")
+            _check_rows(got[k], v, f"{what}/{k}")
+        else:
+            check(got.get(k) == v, f"{what}: {k} = {got.get(k)}, the "
+                                   f"committed file has {v}")
+
+
+def recovery_overrides(name: str, c: dict) -> dict:
+    """``benchmarks/recovery.py::_overrides``: membership events placed
+    past the warm-up windows."""
+    warm, meas = c["warm"], c["windows"]
+    if name == "crash_storm":
+        return {"crash_window": warm + meas // 3}
+    if name == "rolling_restart":
+        return {"start": warm + 1}
+    if name == "elastic_scale":
+        return {"join_window": warm + meas // 3,
+                "leave_window": warm + 2 * meas // 3}
+    return {}
+
+
+def recovery_metrics(cfg, c: dict, ops, run, crash_w, p) -> dict:
+    """``benchmarks/recovery.py::_metrics`` over the port's ``RecoveryRun``:
+    modeled metrics of the measured (post-warm) windows, the repair
+    timeline and the per-window trajectories."""
+    import numpy as np
+    from repro_torch.core import runner
+    from repro_torch.recovery import time_to_repair
+    warm = c["warm"]
+    kinds = np.asarray(ops.kinds)
+    io_m = _io_host(run.io, slice(warm, None))
+    io_sum = _io_map(lambda x: x.sum(), io_m)
+    valid_m = run.valid[warm:]
+    lat = runner.modeled_latency(cfg, kinds, run.results, p, valid=run.valid)
+    lat_m = lat[warm:]
+    n_w = valid_m.sum(-1)
+    out = runner.modeled_throughput(io_sum, p, n_ops=int(n_w.sum()))
+    out.update(runner.latency_stats(lat_m).as_dict())
+    out.update(time_to_repair(run.io, crash_w))
+    out["mn_iops"] = int(np.asarray(io_sum.mn_iops))
+    out["recovery_overhead"] = round(
+        int(io_sum.repair_cas) / max(int(np.asarray(io_sum.mn_iops)), 1), 6)
+    post = lat[crash_w:] if crash_w is not None else lat_m
+    out["p99_post_crash_us"] = round(float(np.nanpercentile(post, 99)), 2)
+    mops_w = [runner.modeled_throughput(_io_map(lambda x, w=w: x[w], io_m), p,
+                                        n_ops=int(n_w[w]))["modeled_mops"]
+              for w in range(len(n_w))]
+    out["windows"] = {
+        "repair_cas": [int(v) for v in io_m.repair_cas],
+        "orphan_windows": [int(v) for v in io_m.orphan_windows],
+        "modeled_mops": _round4(mops_w),
+        "p99_us": _round4(np.nanpercentile(lat_m, 99, axis=-1)),
+    }
+    return out
+
+
+def recovery_setup(dev, c: dict, name: str, mode):
+    """``(cfg, ops, schedule, stream, populated state, credits)`` of one
+    recovery cell, as ``benchmarks/recovery.py`` builds it."""
+    from repro_torch.core import engine, runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.workloads.recovery import RECOVERY_SCENARIOS
+    sc = RECOVERY_SCENARIOS[name]
+    total = c["warm"] + c["windows"]
+    ops, sched = sc.generate(total, c["batch"], c["n_keys"], c["n_clients"],
+                             c["n_cns"], seed=c["seed"],
+                             **recovery_overrides(name, c))
+    heap = c["n_keys"] + total * c["batch"]
+    heap += -heap % REF_SHARDS
+    cfg = EngineConfig(n_slots=c["n_keys"], heap_slots=heap, mode=mode)
+    stream = runner.make_stream(ops.kinds, ops.keys, ops.values,
+                                n_cns=c["n_cns"], alive=sched.alive,
+                                device=dev)
+    pk = sc.populate_keys(c["n_keys"])
+    st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+    return cfg, ops, sched, stream, st, credit_init(c["credit_table"], dev)
+
+
+def recovery_rows(dev, c: dict, profile=None) -> dict:
+    """Every scenario x mode row of ``BENCH_recovery.json``'s schema (without
+    the sharded ``failover`` sub-dict) from ``run_recovery`` on ``dev``.
+    ``profile(label, fn)``, where given, is called once with a rerun of the
+    crash_storm CIDER cell."""
+    from repro_torch.core.simnet import SimParams
+    from repro_torch.core.types import SyncMode
+    from repro_torch.recovery import run_recovery
+    from repro_torch.workloads.recovery import RECOVERY_SCENARIOS
+    p = SimParams()
+    out = {}
+    for name in RECOVERY_SCENARIOS:
+        modes = {}
+        for mode in MODES:
+            cfg, ops, sched, stream, st, cr = recovery_setup(
+                dev, c, name, SyncMode[mode])
+            run = run_recovery(cfg, st, cr, stream)
+            modes[mode] = recovery_metrics(cfg, c, ops, run,
+                                           sched.first_crash_window(), p)
+            if profile and (name, mode) == ("crash_storm", "CIDER"):
+                profile(f"{name} {mode} run_recovery ({stream.shape[0]} "
+                        f"windows)", functools.partial(run_recovery, cfg, st,
+                                                       cr, stream))
+        out[name] = {"crash_window": sched.first_crash_window(),
+                     "modes": modes}
+    return out
+
+
+def replication_cell(cfg, kinds, res, io, p, n_ops: int) -> dict:
+    """``benchmarks/replication.py::_cell`` over the summed bill ``io``:
+    the bill, modeled throughput and latency percentiles."""
+    from repro_torch.core import runner
+    d = io.as_dict()
+    d.update(runner.modeled_throughput(io, p, n_ops=n_ops))
+    lat = runner.modeled_latency(cfg, kinds, res, p)
+    d.update({f"modeled_{k}": v
+              for k, v in runner.latency_stats(lat).as_dict().items()})
+    return d
+
+
+def replication_rows(dev, c: dict, modes=MODES, profile=None) -> dict:
+    """The ``single`` rows of ``BENCH_replication.json`` for R in {1, 2, 3}
+    x ``modes``, and its ``mn_crash`` cell through
+    ``run_recovery_replicated``, held on the way to the segmented
+    ``n_replicas``-swap run (results, bill, store view) and to the
+    crash-free R = 3 run's pre-crash windows.  ``profile(label, fn)``, where
+    given, is called once with a rerun of the CIDER ``mn_crash`` cell."""
+    import numpy as np
+    from repro_torch.core import engine, runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.simnet import SimParams
+    from repro_torch.core.types import SyncMode, per_replica_bill
+    from repro_torch.recovery import mn_crash, run_recovery_replicated
+    from repro_torch.stores import PointerArray
+    from repro_torch.workloads.ycsb import WORKLOADS, generate_window_stream
+    n_slots, b, windows = c["n_slots"], c["batch"], c["windows"]
+    ops = generate_window_stream(WORKLOADS["write-intensive"], windows, b,
+                                 n_slots, b)
+    stream = runner.make_stream(ops.kinds, ops.keys % n_slots, ops.values,
+                                n_cns=16, device=dev)
+    pk = np.arange(n_slots)
+    rows = {str(r): {} for r in (1, 2, 3)}
+    io_one, io_r3 = {}, {}
+    for r in (1, 2, 3):
+        p = dataclasses.replace(SimParams(), n_replicas=r)
+        for mode in modes:
+            pa = PointerArray.create(n_slots, mode=SyncMode[mode], n_replicas=r,
+                                     device=dev).populate(pk, pk)
+            pa, res, io_w = pa.apply_stream(stream, io_per_window=True)
+            io = _io_map(lambda x: x.sum(0), io_w)
+            d = replication_cell(pa.cfg, ops.kinds, res, io, p, windows * b)
+            if r == 1:
+                io_one[mode] = io
+            else:
+                d["per_replica"] = per_replica_bill(io_one[mode], io, r)
+            if r == CRASH_R:
+                io_r3[mode] = io_w
+            rows[str(r)][mode] = d
+    crash = {}
+    wc = windows // 2
+    mn = mn_crash(windows, CRASH_R, dead_replicas=CRASH_DEAD, at_window=wc)
+    p = dataclasses.replace(SimParams(), n_replicas=CRASH_R)
+    for mode in modes:
+        cfg = dataclasses.replace(
+            PointerArray.create(n_slots, mode=SyncMode[mode], device=dev).cfg,
+            n_replicas=CRASH_R)
+        st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+        run = run_recovery_replicated(cfg, st, credit_init(4096, dev), stream,
+                                      mn)
+        ref = segmented_swap_run(cfg, st, credit_init(4096, dev), stream, mn)
+        what = f"mn_crash/{mode}"
+        _check_trees(run.results, ref[2], f"{what}: Results")
+        _check_trees(run.io, ref[3], f"{what}: IOMetrics")
+        _check_views(run.state, ref[0], f"{what} vs the segmented run")
+        _check_trees(_io_map(lambda x: x[:wc], run.io),
+                     _io_map(lambda x: x[:wc], io_r3[mode]),
+                     f"{what}: pre-crash windows vs crash-free R=3")
+        io = _io_map(lambda x: x.sum(0), run.io)
+        d = io.as_dict()
+        d.update(runner.modeled_throughput(io, p, n_ops=windows * b))
+        d["asserted_equal"] = True
+        d["recovery_io"] = run.recovery_io[0]
+        d["windows"] = {"mn_iops": [int(v) for v in run.io.mn_iops.cpu()]}
+        crash[mode] = d
+        if profile and mode == "CIDER":
+            profile(f"mn_crash {mode} run_recovery_replicated ({windows} "
+                    f"windows)", functools.partial(
+                        run_recovery_replicated, cfg, st,
+                        credit_init(4096, dev), stream, mn))
+    return {"replicas": rows, "mn_crash": crash}
+
+
+def segmented_swap_run(cfg, state, credits, stream, mn):
+    """The reference ``run_recovery_replicated`` is held to: the same
+    segments through ``runner.run_windows`` with ``n_replicas`` swapped and
+    no promotion.  Returns ``(state, credits, results, io)`` with per-window
+    leaves concatenated."""
+    import torch
+    from repro_torch.core import runner
+    from repro_torch.recovery import slice_stream
+    ress, ios, prev_alive = [], [], None
+    for lo, hi, surv in mn.segments():
+        seg = slice_stream(stream, lo, hi)
+        state, credits, res, io = runner.run_windows(
+            dataclasses.replace(cfg, n_replicas=len(surv)), state, credits,
+            seg, io_per_window=True, prev_alive=prev_alive)
+        prev_alive = seg.alive[-1]
+        ress.append(res)
+        ios.append(io)
+
+    def cat(items):
+        cls = type(items[0])
+        return cls(*(torch.cat([getattr(x, f.name) for x in items])
+                     for f in dataclasses.fields(cls)))
+    return state, credits, cat(ress), cat(ios)
+
+
+def scenario_cfg(mode, c: dict):
+    from repro_torch.core.types import EngineConfig
+    # benchmarks/scenarios.py::_cfg: the populate load plus one commit per
+    # op and window, rounded to the reference's 4-way mesh
+    heap = c["n_keys"] + c["windows"] * c["batch"]
+    heap += -heap % REF_SHARDS
+    return EngineConfig(n_slots=c["n_keys"], heap_slots=heap, mode=mode)
+
+
+def scenario_row(cfg, ops, res, ios, mass, p) -> dict:
+    """``benchmarks/scenarios.py::_run_one``'s row out of a traced run."""
+    import numpy as np
+    from repro_torch.core import runner
+    from repro_torch.core.types import OpKind, to_numpy
+    kinds = np.asarray(ops.kinds)
+    valid = kinds != OpKind.NOP
+    upd = (kinds == OpKind.UPDATE) & valid
+    writes_w = np.maximum(upd.sum(-1), 1)
+    pess_w = (to_numpy(res.pessimistic) & upd).sum(-1)
+    comb_w = (to_numpy(res.combined) & valid).sum(-1)
+    lat = runner.modeled_latency(cfg, kinds, res, p, valid=valid)
+    n_w = valid.sum(-1)
+    io_np = _io_host(ios)
+    io_sum = _io_map(lambda x: x.sum(), io_np)
+    mops_w = [runner.modeled_throughput(_io_map(lambda x, w=w: x[w], io_np),
+                                        p, n_ops=int(n_w[w]))["modeled_mops"]
+              for w in range(len(n_w))]
+    overall = runner.modeled_throughput(io_sum, p, n_ops=int(n_w.sum()))
+    overall.update(runner.latency_stats(lat).as_dict())
+    overall["pess_ratio"] = round(float(pess_w.sum() / writes_w.sum()), 4)
+    overall["wc_rate"] = round(float(comb_w.sum() / writes_w.sum()), 4)
+    overall["mn_iops"] = int(np.asarray(io_sum.mn_iops))
+    overall["retries"] = int(np.asarray(io_sum.retries))
+    overall["windows"] = {
+        "pess_ratio": _round4(pess_w / writes_w),
+        "credit_mass": [int(v) for v in to_numpy(mass)],
+        "wc_rate": _round4(comb_w / writes_w),
+        "modeled_mops": _round4(mops_w),
+        "p99_us": _round4(np.nanpercentile(lat, 99, axis=-1)),
+    }
+    return overall
+
+
+def scenario_rows(dev, c: dict, names=None, profile=None) -> dict:
+    """The ``single`` rows of ``BENCH_scenarios.json`` (every scenario, or
+    ``names``, x 4 modes) from ``runner.run_windows_traced`` on ``dev``.
+    ``profile(label, fn)``, where given, is called once with a rerun of the
+    hotspot_shift CIDER cell."""
+    from repro_torch.core import engine, runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.simnet import SimParams
+    from repro_torch.core.types import SyncMode
+    from repro_torch.workloads.dynamic import SCENARIOS
+    p = SimParams()
+    out = {}
+    for name in names or SCENARIOS:
+        sc = SCENARIOS[name]
+        ops = sc.generate(c["windows"], c["batch"], c["n_keys"],
+                          c["n_clients"], seed=c["seed"])
+        stream = runner.make_stream(ops.kinds, ops.keys, ops.values,
+                                    n_cns=c["n_cns"], device=dev)
+        pk = sc.populate_keys(c["n_keys"])
+        out[name] = {}
+        for mode in MODES:
+            cfg = scenario_cfg(SyncMode[mode], c)
+            st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+            _, _, res, ios, mass = runner.run_windows_traced(
+                cfg, st, credit_init(c["credit_table"], dev), stream)
+            out[name][mode] = scenario_row(cfg, ops, res, ios, mass, p)
+            if profile and (name, mode) == ("hotspot_shift", "CIDER"):
+                profile(f"{name} {mode} run_windows_traced ({c['windows']} "
+                        f"windows)", functools.partial(
+                            runner.run_windows_traced, cfg, st,
+                            credit_init(c["credit_table"], dev), stream))
+    return out
+
+
+def open_loop_window_us(scale: dict) -> float:
+    """``benchmarks/scale.py``'s open-loop clock: the slowest mode's
+    full-window service time at the open-loop mesh, from the committed
+    weak-scaling rows (a sharded-path figure the clock is defined by)."""
+    c = scale["config"]
+    weak = scale["weak_scaling"][str(c["ol_mesh"])]
+    return max(weak[m]["modeled_ticks_us"] for m in MODES) / (
+        c["windows"] - c["warmup"])
+
+
+def open_loop_setup(c: dict):
+    """``(n_slots, n_cns, lanes, heap)`` of the open-loop cell: the
+    ``ol_mesh``-way problem of ``benchmarks/scale.py`` on one device."""
+    n = c["ol_mesh"]
+    n_slots, n_cns = c["slots1"] * n, c["cns1"] * n
+    lanes = c["lanes1"] // c["cns1"]
+    heap = n_slots + c["ol_windows"] * n_cns * lanes
+    heap += -heap % n
+    return n_slots, n_cns, lanes, heap
+
+
+def open_loop_run(dev, c: dict, mode, ol, window_us: float):
+    """One open-loop stream through ``run_windows`` on ``dev``; returns
+    ``(cfg, state, credits, results, io, record)``."""
+    import numpy as np
+    from repro_torch.core import engine, runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.simnet import SimParams
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.workloads.openloop import open_loop_latency
+    n_slots, n_cns, lanes, heap = open_loop_setup(c)
+    cfg = EngineConfig(n_slots=n_slots, heap_slots=heap, mode=mode)
+    pk = np.arange(n_slots)
+    st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+    stream = runner.make_stream(ol.kinds, ol.keys % n_slots, ol.values,
+                                n_cns=n_cns, lanes_per_cn=lanes,
+                                valid=ol.valid, cn=ol.cn, device=dev)
+    st, cr, res, io = runner.run_windows(cfg, st, credit_init(n_slots, dev),
+                                         stream)
+    lat = runner.modeled_latency(cfg, ol.kinds, res, SimParams(),
+                                 valid=ol.valid)
+    stats = runner.latency_stats(open_loop_latency(ol, lat, window_us))
+    rec = {"p50_us": stats.p50_us, "p99_us": stats.p99_us,
+           "offered": ol.offered, "delivered": ol.delivered,
+           "mean_delay_windows": round(
+               float(ol.delay_windows[ol.valid].mean()), 3)
+           if ol.delivered else 0.0}
+    return cfg, st, cr, res, io, rec
+
+
+def open_loop_rows(dev, c: dict, window_us: float, profile=None) -> dict:
+    """``BENCH_scale.json``'s ``open_loop`` curves (every rho x 4 modes),
+    the MMPP row, and the dense re-pack identity on the CIDER cell: bill,
+    credits, store and every valid lane's results at its permuted lane.
+    ``profile(label, fn)``, where given, is called once with a rerun of the
+    MMPP CIDER cell."""
+    import numpy as np
+    from repro_torch.core.types import SyncMode, to_numpy
+    from repro_torch.workloads.openloop import (OpenLoopSpec, dense_repack,
+                                                generate_openloop_stream)
+    from repro_torch.workloads.ycsb import WORKLOADS
+    spec = WORKLOADS["write-intensive"]
+    n_slots, n_cns, lanes, _ = open_loop_setup(c)
+
+    def stream(rho, seed, arrival="poisson"):
+        return generate_openloop_stream(OpenLoopSpec(
+            n_cns=n_cns, lanes_per_cn=lanes, windows=c["ol_windows"],
+            rho=rho, n_keys=n_slots, mix=spec, theta=c["theta"],
+            arrival=arrival, seed=seed))
+
+    out = {"curves": {m: [] for m in MODES}, "mmpp": {}}
+    for rho in c["rhos"]:
+        ol = stream(rho, c["seed"] + int(rho * 100))
+        for mode in MODES:
+            rec = open_loop_run(dev, c, SyncMode[mode], ol, window_us)[-1]
+            out["curves"][mode].append({"rho": rho, **rec})
+    olm = stream(c["mmpp_rho"], c["seed"] + 5000, "mmpp")
+    for mode in MODES:
+        rec = open_loop_run(dev, c, SyncMode[mode], olm, window_us)[-1]
+        out["mmpp"][mode] = {"rho": c["mmpp_rho"], **rec,
+                             "burst_windows_frac": round(
+                                 float(olm.phases.mean()), 3)}
+    if profile:
+        profile(f"open loop MMPP CIDER ({c['ol_windows']} windows, set-up "
+                f"included)", functools.partial(open_loop_run, dev, c,
+                                                SyncMode.CIDER, olm,
+                                                window_us))
+    ol = stream(0.8, c["seed"] + 9000)
+    rp = dense_repack(ol)
+    _, st_a, cr_a, res_a, io_a, _ = open_loop_run(dev, c, SyncMode.CIDER, ol,
+                                                  window_us)
+    _, st_b, cr_b, res_b, io_b, _ = open_loop_run(dev, c, SyncMode.CIDER, rp,
+                                                  window_us)
+    _check_trees(io_a, io_b, "open_loop/dense_repack: IOMetrics")
+    _check_trees(cr_a, cr_b, "open_loop/dense_repack: credits")
+    _check_views(st_a, st_b, "open_loop/dense_repack")
+    for f in dataclasses.fields(res_a):
+        moved = np.take_along_axis(to_numpy(getattr(res_a, f.name)),
+                                   rp.order, axis=1)
+        check(np.array_equal(moved[rp.valid],
+                             to_numpy(getattr(res_b, f.name))[rp.valid]),
+              f"open_loop/dense_repack: Results.{f.name} at the permuted "
+              f"lanes")
+    out["dense_repack"] = {"delivered": rp.delivered,
+                           "mn_iops": io_a.as_dict()["mn_iops"]}
+    return out
+
+
+def replicated_deployment(dev, n_keys: int, windows: int, batch: int,
+                          n_cns: int, n_clients: int, credit_table: int,
+                          seed: int, modes=("CIDER", "MCS"), timer=None,
+                          profile=None) -> dict:
+    """Crash recovery with MN replication at ``n_keys`` populated keys:
+    ``crash_storm``'s stream (a quarter of the CNs fail-stop at window
+    ``windows // 3``) over ``n_replicas = 3``, replica 2 dying at window
+    ``2 * windows // 3`` (``mn_crash``), through ``run_recovery_replicated``.
+    Raises unless, per mode: every post-drop-valid op's ``ok``/``value`` and
+    the final value of every touched key equal the sequential oracle applied
+    with that validity; results, bill, state and credits equal the
+    segmented ``n_replicas``-swap run; results, state and credits equal an
+    R = 1 run of the same stream, and each constant-membership segment's
+    bill decomposes into per-replica bills (``per_replica_bill``) that sum
+    back to it.  ``timer(label, fn)`` runs ``fn`` and returns its result
+    (the phase times it there); ``profile(label, fn)``, where given, is
+    called once with a rerun of the first mode's replicated run.  Returns
+    the per-mode summaries."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.oracle import OracleStore
+    from repro_torch.core.types import (EngineConfig, SyncMode,
+                                        per_replica_bill, to_numpy)
+    from repro_torch.recovery import (mn_crash, run_recovery,
+                                      run_recovery_replicated, time_to_repair)
+    from repro_torch.workloads.recovery import crash_storm
+    timer = timer or (lambda label, fn: fn())
+    ops, sched = crash_storm(windows, batch, n_keys, n_clients, n_cns,
+                             seed=seed)
+    mn = mn_crash(windows, CRASH_R, dead_replicas=CRASH_DEAD,
+                  at_window=2 * windows // 3)
+    stream = runner.make_stream(ops.kinds, ops.keys, ops.values, n_cns=n_cns,
+                                alive=sched.alive, device=dev)
+    valid = np.asarray(sched.drop_mask(batch))
+    keys = np.unique(ops.keys)
+    oracle = OracleStore()
+    oracle.populate(keys, keys)
+    want = [oracle.apply(ops.kinds[w], ops.keys[w], ops.values[w],
+                         valid=valid[w]) for w in range(windows)]
+    want_ok = np.stack([x[0] for x in want])
+    want_val = np.stack([x[1] for x in want])
+    kt = torch.as_tensor(keys, device=dev).long()
+    want_e = np.array([int(k) in oracle.kv for k in keys])
+    want_v = np.array([oracle.kv.get(int(k), -1) for k in keys])
+    out = {}
+    for name in modes:
+        cfg = EngineConfig(n_slots=n_keys, heap_slots=n_keys + windows * batch,
+                           mode=SyncMode[name], n_replicas=CRASH_R)
+        st = engine.populate(cfg, engine.store_init(cfg, dev),
+                             np.arange(n_keys), np.arange(n_keys))
+        cr = credit_init(credit_table, dev)
+        run = timer(f"{name} run_recovery_replicated",
+                    lambda: run_recovery_replicated(cfg, st, cr, stream, mn))
+        if profile and name == modes[0]:
+            profile(f"{name} run_recovery_replicated ({windows} windows)",
+                    lambda: run_recovery_replicated(cfg, st, cr, stream, mn))
+        what = f"replicated deployment/{name}"
+        check(np.array_equal(run.valid, valid),
+              f"{what}: post-drop validity differs from the schedule's")
+        check(np.array_equal(to_numpy(run.results.ok), want_ok),
+              f"{what}: ok differs from the oracle")
+        check(np.array_equal(to_numpy(run.results.value), want_val),
+              f"{what}: value differs from the oracle")
+        exists, val = engine.store_view(run.state)
+        check(np.array_equal(to_numpy(exists[kt]), want_e)
+              and np.array_equal(to_numpy(val[kt]), want_v),
+              f"{what}: final store differs from the oracle")
+        ref = timer(f"{name} segmented n_replicas-swap run",
+                    lambda: segmented_swap_run(cfg, st, cr, stream, mn))
+        _check_trees(run.state, ref[0], f"{what}: state vs segmented run")
+        _check_trees(run.credits, ref[1], f"{what}: credits vs segmented run")
+        _check_trees(run.results, ref[2], f"{what}: Results vs segmented run")
+        _check_trees(run.io, ref[3], f"{what}: IOMetrics vs segmented run")
+        one = timer(f"{name} R = 1 run_recovery",
+                    lambda: run_recovery(dataclasses.replace(cfg, n_replicas=1),
+                                         st, cr, stream))
+        _check_trees(run.results, one.results, f"{what}: Results vs R = 1")
+        _check_trees(run.state, one.state, f"{what}: state vs R = 1")
+        _check_trees(run.credits, one.credits, f"{what}: credits vs R = 1")
+        per_seg = []
+        for lo, hi, surv in mn.segments():
+            io_r = _io_map(lambda x: x[lo:hi].sum(0), run.io)
+            bills = per_replica_bill(_io_map(lambda x: x[lo:hi].sum(0),
+                                             one.io), io_r, len(surv))
+            total = io_r.as_dict()
+            total.pop("mn_iops")
+            check({k: sum(b[k] for b in bills) for k in total} == total,
+                  f"{what}: per-replica bills of windows [{lo}, {hi}) do "
+                  f"not sum to the bill")
+            per_seg.append({"windows": [lo, hi], "replicas": len(surv),
+                            "mn_iops": [b["reads"] + b["writes"] + b["cas"]
+                                        + b["faa"] for b in bills]})
+        out[name] = {"time_to_repair": time_to_repair(
+                         run.io, sched.first_crash_window()),
+                     "segments": per_seg, "recovery_io": run.recovery_io,
+                     "n_valid": int(valid.sum()),
+                     "mn_iops": run.io_sum().as_dict()["mn_iops"]}
+    out["crash_window"] = sched.first_crash_window()
+    out["touched_keys"] = int(keys.size)
+    return out
+
+
+def race_hash_deployment(dev, capacity: int, n_pop: int, windows: int,
+                         batch: int, n_cns: int, seed: int, timer=None,
+                         profile=None) -> dict:
+    """``RaceHash`` of ``capacity`` slots: populate ``n_pop`` keys (every
+    key found must hold its value, and every key not found must have a full
+    candidate bucket: the bucket its batch overflowed), run ``windows``
+    YCSB-A windows of
+    ``batch`` ops against the oracle (``ok``/``value`` of every op, the
+    overflow lanes masked out), and require a SCAN batch to raise
+    ``UnsupportedOpError``.  ``timer`` and ``profile`` as in
+    ``replicated_deployment`` (the profiled run is the YCSB-A windows)."""
+    import numpy as np
+    from repro_torch.core import engine
+    from repro_torch.core.oracle import OracleStore
+    from repro_torch.core.types import OpKind, UnsupportedOpError, to_numpy
+    from repro_torch.stores import RaceHash
+    from repro_torch.workloads.ycsb import YCSB, generate_ycsb_stream
+    timer = timer or (lambda label, fn: fn())
+    rng = np.random.default_rng(seed)
+    # distinct keys spread over the int32 range (an odd multiplier is a
+    # bijection modulo 2^31); none is the -1 empty marker
+    keys = np.arange(n_pop, dtype=np.int64) * 2654435761 % 2**31
+    values = rng.integers(1, 2**31 - 1, n_pop)
+    rh0 = RaceHash.create(capacity, device=dev)
+    rh = timer("RaceHash.populate", lambda: rh0.populate(keys, values))
+    slot, found = rh.locate(keys)
+    exists, val = engine.store_view(rh.state)
+    slot, found = slot[found].long(), to_numpy(found)
+    check(bool(exists[slot].all()) and np.array_equal(
+        to_numpy(val[slot]), values[found].astype(np.int32)),
+        "RaceHash: populated values differ")
+    full = (rh.slot_keys.reshape(rh.n_buckets, rh.ways) != -1).all(1)
+    b1, b2 = rh._buckets(rh.slot_keys.new_tensor(keys[~found]))
+    check(bool((full[b1.long()] | full[b2.long()]).all()),
+          "RaceHash: a populated key is missing, and neither of its buckets "
+          "is full")
+    oracle = OracleStore()
+    oracle.populate(keys[found], values[found])
+    ops = generate_ycsb_stream(YCSB["A"], windows, batch, n_pop, n_cns,
+                               seed=seed)
+    ops.keys[:] = keys[ops.keys]                 # key ids -> stored keys
+
+    def run(store):
+        outs = []
+        for w in range(windows):
+            store, res, io, ovf = store.apply(ops.kinds[w], ops.keys[w],
+                                              ops.values[w], n_cns=n_cns)
+            outs.append((res, io, ovf))
+        return store, outs
+
+    rh1, outs = timer(f"RaceHash {windows} YCSB-A windows", lambda: run(rh))
+    if profile:
+        profile(f"RaceHash {windows} YCSB-A windows", lambda: run(rh))
+    n_ovf = 0
+    for w, (res, _, ovf) in enumerate(outs):
+        ovf = to_numpy(ovf)
+        n_ovf += int(ovf.sum())
+        ok, value = oracle.apply(ops.kinds[w], ops.keys[w], ops.values[w],
+                                 valid=~ovf)
+        check(np.array_equal(to_numpy(res.ok), ok)
+              and np.array_equal(to_numpy(res.value), value),
+              f"RaceHash window {w}: results differ from the oracle")
+    kinds = np.full(batch, OpKind.SEARCH, np.int32)
+    kinds[batch // 2] = OpKind.SCAN
+    try:
+        rh1.apply(kinds, ops.keys[0], ops.values[0], n_cns=n_cns)
+    except UnsupportedOpError:
+        pass
+    else:
+        raise RuntimeError("RaceHash accepted a SCAN batch")
+    return {"overflow": n_ovf, "populate_overflow": int((~found).sum())}
+
+
+class PhaseClock:
+    """Wall time and peak device memory of a phase's runs, and the idle
+    share of profiled reruns (``profile``), which wait until the run that
+    asks for them has been timed."""
+
+    def __init__(self, card: str):
+        import torch
+        self.card = card
+        self.pending = None
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def run(self, label: str, fn):
+        """``fn()`` timed by the host clock, ended by a synchronize, with
+        the peak memory allocated while it ran; then the reruns it asked to
+        profile."""
+        import torch
+        self.pending = []
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        say(f"    {label}: {dt:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated "
+            f"[{self.card}]")
+        pending, self.pending = self.pending, None
+        for args in pending:
+            self.profile(*args)
+        return out
+
+    def profile(self, label: str, fn) -> None:
+        """The idle share of one run of ``fn``: device busy time of a
+        profiled rerun over the wall of an unprofiled one."""
+        import torch
+        if self.pending is not None:
+            self.pending.append((label, fn))
+            return
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        busy, pwall, top = profile_device(fn, iters=1)
+        say(f"  profiled {label}: device busy {busy} ms; wall {wall} ms "
+            f"unprofiled, {pwall} ms profiled; idle share "
+            f"{None if busy is None else 1 - busy / wall} (busy over the "
+            f"unprofiled wall) [{self.card}]")
+        for key, ms, count in top:
+            say(f"    {ms:9.4f} ms  x{count:5d}  {key}")
+
+    def done(self, n: int) -> None:
+        import torch
+        torch.cuda.synchronize()
+        say(f"  phase {n}: {time.perf_counter() - self.t0:.3f} s [{self.card}]")
+
+
+def _config_matches(committed: dict, ours: dict, what: str) -> None:
+    for k, v in ours.items():
+        check(committed.get(k) == v, f"{what}: config {k} = {v}, the "
+                                     f"committed file has {committed.get(k)}")
+
+
+def phase7_recovery(dev, card: str) -> None:
+    ref = json.loads((ROOT / "BENCH_recovery.json").read_text())
+    _config_matches(ref["config"], RECOVERY_FULL, "recovery")
+    clock = PhaseClock(card)
+    rows = clock.run("3 scenarios x 4 modes, run_recovery",
+                     lambda: recovery_rows(dev, RECOVERY_FULL,
+                                           profile=clock.profile))
+    for name, sc in ref["scenarios"].items():
+        check(rows[name]["crash_window"] == sc["crash_window"],
+              f"recovery/{name}: crash window {rows[name]['crash_window']}")
+        for mode, want in sc["modes"].items():
+            _check_rows(rows[name]["modes"][mode], want,
+                        f"recovery/{name}/{mode}", skip=("failover",))
+        r = rows[name]["modes"]
+        say(f"  {name}: 4 modes == BENCH_recovery.json (modeled "
+            + ", ".join(f"{m} {r[m]['modeled_mops']} Mops/s repair_cas "
+                        f"{r[m]['repair_cas']} ttr {r[m]['windows_to_repair']}"
+                        for m in MODES) + ")")
+    say("  the 'failover' sub-dicts (4-way shard failover through "
+        "run_recovery_sharded) are not checked: the sharded store is "
+        "ROADMAP item A11")
+    clock.done(7)
+
+
+def phase8_replication(dev, card: str) -> None:
+    ref = json.loads((ROOT / "BENCH_replication.json").read_text())
+    eng = json.loads((ROOT / "BENCH_engine.json").read_text())
+    _config_matches(ref["config"], REPLICATION_FULL, "replication")
+    clock = PhaseClock(card)
+    rows = clock.run("R 1-3 x 4 modes + the mn_crash cell",
+                     lambda: replication_rows(dev, REPLICATION_FULL,
+                                              profile=clock.profile))
+    for r in ("1", "2", "3"):
+        for mode, want in ref["replicas"][r]["single"].items():
+            _check_rows(rows["replicas"][r][mode], want,
+                        f"replication/R{r}/{mode}")
+    for mode in MODES:
+        _check_rows(rows["replicas"]["1"][mode], eng[mode],
+                    f"replication/R1/{mode} vs BENCH_engine.json",
+                    skip=("throughput_mops", "wall_s"))
+        _check_rows(rows["mn_crash"][mode], ref["mn_crash"]["modes"][mode],
+                    f"replication/mn_crash/{mode}")
+    say("  single rows R 1-3 == BENCH_replication.json (R 1 == "
+        "BENCH_engine.json); modeled Mops/s by R: "
+        + "; ".join(f"R{r} " + ", ".join(
+            f"{m} {rows['replicas'][r][m]['modeled_mops']}" for m in MODES)
+            for r in ("1", "2", "3")))
+    say("  mn_crash (R 3, replica 2 dies at window 8) through "
+        "run_recovery_replicated == the segmented n_replicas-swap run and "
+        "the crash-free R 3 prefix, and == BENCH_replication.json: "
+        + ", ".join(f"{m} {rows['mn_crash'][m]['modeled_mops']} Mops/s"
+                    for m in MODES))
+    clock.done(8)
+
+
+def phase9_scenarios(dev, card: str) -> None:
+    ref = json.loads((ROOT / "BENCH_scenarios.json").read_text())
+    _config_matches(ref["config"], SCENARIOS_FULL, "scenarios")
+    clock = PhaseClock(card)
+    rows = clock.run("4 scenarios x 4 modes, run_windows_traced",
+                     lambda: scenario_rows(dev, SCENARIOS_FULL,
+                                           profile=clock.profile))
+    for name, sc in ref["scenarios"].items():
+        for mode, want in sc["single"].items():
+            _check_rows(rows[name][mode], want, f"scenarios/{name}/{mode}")
+        say(f"  {name}: 4 modes == BENCH_scenarios.json single rows, "
+            f"trajectories and credit_mass included (modeled "
+            + ", ".join(f"{m} {rows[name][m]['modeled_mops']}"
+                        for m in MODES) + " Mops/s)")
+    clock.done(9)
+
+
+def phase10_open_loop(dev, card: str) -> None:
+    scale = json.loads((ROOT / "BENCH_scale.json").read_text())
+    ref = scale["open_loop"]
+    _config_matches(scale["config"], OPEN_LOOP_FULL, "scale")
+    window_us = open_loop_window_us(scale)
+    check(round(window_us, 2) == ref["window_us"],
+          f"open-loop window {window_us} us, BENCH_scale.json has "
+          f"{ref['window_us']}")
+    n_slots, n_cns, lanes, _ = open_loop_setup(OPEN_LOOP_FULL)
+    clock = PhaseClock(card)
+    rows = clock.run(
+        f"{len(OPEN_LOOP_FULL['rhos'])} rho x 4 modes + MMPP x 4 + dense "
+        f"re-pack x 2, {n_slots} slots, {n_cns} CNs x {lanes} lanes",
+        lambda: open_loop_rows(dev, OPEN_LOOP_FULL, window_us,
+                               profile=clock.profile))
+    for mode in MODES:
+        check(len(rows["curves"][mode]) == len(ref["curves"][mode]),
+              f"open_loop/{mode}: curve length")
+        for got, want in zip(rows["curves"][mode], ref["curves"][mode]):
+            _check_rows(got, want, f"open_loop/{mode}/rho {want['rho']}")
+        _check_rows(rows["mmpp"][mode], ref["mmpp"][mode],
+                    f"open_loop/mmpp/{mode}")
+    say("  open-loop curves (p50, p99, offered, delivered, mean delay), the "
+        "MMPP row == BENCH_scale.json; p99 by rho: "
+        + "; ".join(f"{m} " + ", ".join(str(r["p99_us"])
+                                        for r in rows["curves"][m])
+                    for m in MODES))
+    say(f"  dense re-pack (CIDER, rho 0.8, {rows['dense_repack']['delivered']}"
+        f" ops): bill, credits, store view and every valid lane's results "
+        f"equal at the permuted lanes")
+    clock.done(10)
+
+
+def phase11_deployment(dev, card: str, n_keys: int, windows: int, batch: int,
+                       n_cns: int, credit_table: int) -> None:
+    clock = PhaseClock(card)
+    out = replicated_deployment(dev, n_keys, windows, batch, n_cns,
+                                n_clients=n_cns, credit_table=credit_table,
+                                seed=5, timer=clock.run, profile=clock.profile)
+    for name in ("CIDER", "MCS"):
+        o = out[name]
+        say(f"  {name} {n_keys} keys, {windows} x {batch} ops, R 3 (replica "
+            f"2 dies at window {2 * windows // 3}), a quarter of {n_cns} CNs "
+            f"crash at window {out['crash_window']}: {o['n_valid']} "
+            f"post-drop-valid ops and {out['touched_keys']} touched keys == "
+            f"oracle; == segmented run; == R 1 run; per-replica bills "
+            f"conserve, MN IOPS by replica per segment {o['segments']}; "
+            f"time_to_repair {o['time_to_repair']}; recovery_io "
+            f"{o['recovery_io']}")
+    cap, n_pop = n_keys >> 2, n_keys >> 3
+    rh = race_hash_deployment(dev, cap, n_pop, windows=16, batch=batch,
+                              n_cns=n_cns, seed=5, timer=clock.run,
+                              profile=clock.profile)
+    say(f"  RaceHash capacity {cap}: {n_pop} keys populated "
+        f"({rh['populate_overflow']} overflowed a full bucket), every other "
+        f"one found with its value; 16 YCSB-A windows x {batch} ops "
+        f"== oracle ({rh['overflow']} overflow lanes); a SCAN batch raises "
+        f"UnsupportedOpError")
+    clock.done(11)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -1120,6 +1978,23 @@ def main() -> int:
     phase(6, "serve qwen3-0.6b at full width")
     phase6_serve(dev, card)
     mark(6)
+    phase(7, "crash recovery, BENCH_recovery.json")
+    phase7_recovery(dev, card)
+    mark(7)
+    phase(8, "MN replication, BENCH_replication.json")
+    phase8_replication(dev, card)
+    mark(8)
+    phase(9, "dynamic scenarios, BENCH_scenarios.json")
+    phase9_scenarios(dev, card)
+    mark(9)
+    phase(10, "open-loop arrivals at BENCH_scale.json's open-loop size")
+    phase10_open_loop(dev, card)
+    mark(10)
+    phase(11, "deployment scale: crash recovery with MN replication, "
+              "RaceHash")
+    phase11_deployment(dev, card, n_keys=1 << 24, windows=64, batch=4096,
+                       n_cns=64, credit_table=4096)
+    mark(11)
     launches = {name: c.count for name, c in counters.items()}
     say(f"  main-path launches: {launches}; cumulative after each phase: "
         f"{per_phase}")
@@ -1128,13 +2003,16 @@ def main() -> int:
     for name in KERNEL_META:
         by_n = dict(sorted(counters[name].by_size.items()))
         say(f"  {name} main-path launches by N: {by_n}")
-    before = {2: {n: 0 for n in counters}, 3: per_phase[2], 4: per_phase[3],
-              5: per_phase[4], 6: per_phase[5]}
+    before = {2: {n: 0 for n in counters}}
+    before.update({k: per_phase[k - 1] for k in range(3, 12)})
     for phase, names in ((2, ("wc_combine",)), (3, ("wc_combine",
                                                     "scan_probe")),
                          (4, ("wc_combine", "scan_probe")),
                          (5, ("paged_attention", "flash_attention")),
-                         (6, ("wc_combine", "paged_attention"))):
+                         (6, ("wc_combine", "paged_attention")),
+                         (7, ("wc_combine",)), (8, ("wc_combine",)),
+                         (9, ("wc_combine",)), (10, ("wc_combine",)),
+                         (11, ("wc_combine",))):
         for name in names:
             check(per_phase[phase][name] > before[phase][name],
                   f"{name} was not launched in phase {phase}")

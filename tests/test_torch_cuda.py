@@ -558,3 +558,94 @@ def test_sweeps_launch_one_kernel_per_call(cuda_device):
                 break
         assert len(events) == 1 and name in events[0].name, [
             e.name for e in events]
+
+
+# ---------------------------------------------------------------------------
+# crash recovery and the RACE hash index: the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", list(SyncMode), ids=lambda m: m.name)
+def test_crash_storm_on_card_equals_cpu(cuda_device, mode):
+    """``crash_storm`` at ``benchmarks/recovery.py``'s FAST size through
+    ``run_recovery`` (a quarter of 64 CNs fail-stop at window 8) and, at 3
+    MN replicas with one dying at window 12, ``run_recovery_replicated``:
+    the card, through the kernels, equals the CPU bit for bit."""
+    from repro_torch.core import engine
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.recovery import (mn_crash, run_recovery,
+                                      run_recovery_replicated)
+    from repro_torch.workloads.recovery import crash_storm
+    w, b, nk, ncn = 16, 256, 512, 64
+    ops, sched = crash_storm(w, b, nk, 64, ncn, seed=7, crash_window=8)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        stream = runner.make_stream(ops.kinds, ops.keys, ops.values,
+                                    n_cns=ncn, alive=sched.alive, device=dev)
+        runs = []
+        for r in (1, 3):
+            cfg = EngineConfig(n_slots=nk, heap_slots=nk + w * b, mode=mode,
+                               n_replicas=r)
+            st = engine.populate(cfg, engine.store_init(cfg, dev),
+                                 np.arange(nk), np.arange(nk))
+            c0 = wcc.counter.count
+            if r == 1:
+                run = run_recovery(cfg, st, credit_init(1024, dev), stream)
+            else:
+                run = run_recovery_replicated(cfg, st, credit_init(1024, dev),
+                                              stream, mn_crash(w, 3, (2,), 12))
+            assert wcc.counter.count - c0 == (w if dev.type == "cuda" else 0)
+            runs.append(run)
+        out[dev.type] = runs
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        for name in ("results", "io", "state", "credits"):
+            a, c = getattr(card, name), getattr(cpu, name)
+            for f in dataclasses.fields(a):
+                assert torch.equal(getattr(a, f.name).cpu(),
+                                   getattr(c, f.name)), (name, f.name)
+        assert np.array_equal(card.valid, cpu.valid)
+        assert card.recovery_io == cpu.recovery_io
+    assert int(out["cuda"][0].io.repair_cas.sum()) > 0 or mode == SyncMode.OSYNC
+
+
+@pytest.mark.parametrize("mode", [SyncMode.MCS, SyncMode.CIDER],
+                         ids=lambda m: m.name)
+def test_race_hash_batches_on_card_equal_cpu(cuda_device, mode):
+    """Mixed batches (absent keys, same-key INSERT runs, overflow into a
+    small table) through ``RaceHash.apply`` on the card and on the CPU:
+    results, bill, overflow, index and store bit for bit; every apply
+    launches ``wc_combine`` four times (reservation, its bucket ranks, the
+    batch-local binding and the engine's window)."""
+    from repro_torch.core.types import OpKind
+    from repro_torch.stores import RaceHash
+    rng = np.random.default_rng(11)
+    kinds_all = [OpKind.SEARCH, OpKind.INSERT, OpKind.UPDATE, OpKind.DELETE]
+    stores = {d: RaceHash.create(256, mode=mode, ways=4, device=d)
+              for d in (cuda_device, "cpu")}
+    for step in range(4):
+        kinds = rng.choice(kinds_all, 512, p=(0.2, 0.5, 0.2, 0.1)).astype(
+            np.int32)
+        keys = rng.integers(0, 150 + 100 * step, 512).astype(np.int32)
+        values = rng.integers(0, 10_000, 512).astype(np.int32)
+        outs = {}
+        for d, s in stores.items():
+            c0 = wcc.counter.count
+            s, res, io, ovf = s.apply(kinds, keys, values, n_cns=8)
+            launched = wcc.counter.count - c0
+            assert launched == (4 if d == cuda_device else 0)
+            stores[d] = s
+            outs[d] = (res, io, ovf, s)
+        (rc, ic, oc, sc), (rp, ip, op, sp_) = outs[cuda_device], outs["cpu"]
+        for a, c in ((rc, rp), (ic, ip), (sc.state, sp_.state),
+                     (sc.credits, sp_.credits)):
+            for f in dataclasses.fields(a):
+                assert torch.equal(getattr(a, f.name).cpu(),
+                                   getattr(c, f.name)), f.name
+        assert torch.equal(oc.cpu(), op)
+        assert torch.equal(sc.slot_keys.cpu(), sp_.slot_keys)
+    assert bool(oc.any())
+    scan = np.zeros(8, np.int32)
+    scan[3] = OpKind.SCAN
+    from repro_torch.core.types import UnsupportedOpError
+    with pytest.raises(UnsupportedOpError):
+        stores[cuda_device].apply(scan, np.arange(8), np.arange(8))

@@ -43,7 +43,11 @@ def test_port_sources_exist():
                 "models/transformer.py", "models/model.py",
                 "configs/__init__.py", "configs/qwen3_0_6b.py",
                 "serving/pagetable.py", "serving/scheduler.py",
-                "launch/serve.py"):
+                "launch/serve.py", "recovery/__init__.py",
+                "recovery/liveness.py", "recovery/orchestrator.py",
+                "dist/__init__.py", "dist/store.py", "stores/race_hash.py",
+                "workloads/recovery.py", "workloads/dynamic.py",
+                "workloads/openloop.py"):
         assert rel in mods, rel
     for cu in ("wc_combine.cu", "scan_probe.cu", "paged_attention.cu",
                "flash_attention.cu"):
