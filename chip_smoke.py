@@ -44,7 +44,9 @@ Phases (any mismatch raises, and the script exits non-zero):
    or a near-tie within the card-vs-CPU tolerance.
 7. ``BENCH_recovery.json``: three CN-crash scenarios x 4 modes through
    ``recovery.run_recovery`` (32 windows of 2048 ops, 64 CNs); every field of
-   every ``modes`` row but the sharded ``failover`` sub-dict (ROADMAP A11).
+   every ``modes`` row, the crash storm's ``failover`` sub-dict from
+   ``recovery.run_recovery_sharded`` (4 shards, survivors 0 and 2 from the
+   crash window) included, held to the single-device drop-mask run.
 8. ``BENCH_replication.json``: the ``single`` rows for R 1-3 x 4 modes (R 1
    also against ``BENCH_engine.json``) and the ``mn_crash`` cell through
    ``recovery.run_recovery_replicated``, held to the segmented
@@ -62,10 +64,18 @@ Phases (any mismatch raises, and the script exits non-zero):
     R = 1 run and the per-replica bill; then a ``RaceHash`` of 2^22 slots
     with 2^21 keys, 16 YCSB-A windows against the oracle, and a SCAN batch
     that must raise.
+12. the sharded store (``dist.store`` on ``launch.mesh.make_local_mesh``:
+    every shard a partition on the one card): the ``sharded4`` rows of
+    ``BENCH_ycsb.json`` (A-F x 4 modes), ``BENCH_replication.json`` (R 1-3)
+    and ``BENCH_scenarios.json`` (traced), each also equal to its ``single``
+    row; ``BENCH_scale.json``'s ``weak_scaling`` (meshes 1, 4, 8, 16;
+    131,072 slots, 512 lanes and 64 CNs a shard; per-shard bills) and
+    ``efficiency``; then YCSB A and E over 2^24 keys on 4 shards, CIDER and
+    MCS, against the single-device run and the oracle.
 
-Phases 7-11 print the wall time and peak device memory of their runs and
+Phases 7-12 print the wall time and peak device memory of their runs and
 the idle share of one profiled rerun each.  The launch counters are zeroed
-just before phase 2 and read after phase 11; every kernel must have
+just before phase 2 and read after phase 12; every kernel must have
 launched in that run, in the phases that run it.  The last lines are the
 kernel table as JSON, the card's name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -223,17 +233,18 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 
 def profile_device(fn, iters: int = 20):
-    """Run ``fn`` ``iters`` times under ``torch.profiler`` (CPU + CUDA).
-    Returns ``(device_ms_per_call, wall_ms_per_call, top)``: the summed
-    self device time of every GPU event, the host wall time around the
-    calls, and the five events with the most device time.  The device time
-    is None when the profiler recorded no GPU events."""
+    """Run ``fn`` ``iters`` times under ``torch.profiler``, tracing the
+    device only (a trace of the CPU's operators would be most of the
+    processing time of a long run, and no number here reads it).  Returns
+    ``(device_ms_per_call, wall_ms_per_call, top)``: the summed self device
+    time of every GPU event, the host wall time around the calls, and the
+    five events with the most device time.  The device time is None when
+    the profiler recorded no GPU events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -660,20 +671,25 @@ def phase2_engine_json(dev, card: str) -> dict:
     return walls
 
 
-def phase3_ycsb(dev, card: str) -> None:
+def ycsb_rows(dev, c: dict, n_shards: int | None = None, profile=None):
+    """``benchmarks/run.py::bench_ycsb_json``'s rows (workload -> mode ->
+    row) for one topology: the single device (``n_shards`` None) or an
+    ``n_shards``-way local mesh (``run_windows_sharded``).  Also returns
+    each run's ``scan_probe`` launches, ``(workload, mode) -> count``.
+    ``profile(label, fn)``, where given, is called once with a rerun of
+    the A CIDER cell."""
     import numpy as np
-    import torch
     from repro_torch.core import engine, runner
     from repro_torch.core.credits import credit_init
     from repro_torch.core.simnet import SimParams
-    from repro_torch.core.types import EngineConfig, OpKind, SyncMode
+    from repro_torch.core.types import EngineConfig, OpKind, SyncMode, to_numpy
+    from repro_torch.dist import store as dstore
     from repro_torch.kernels.scan_probe import ops as sp
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.workloads.ycsb import YCSB, generate_ycsb_stream
-
-    ref = json.loads((ROOT / "BENCH_ycsb.json").read_text())
-    c = ref["config"]
     p = SimParams()
     pk = np.arange(c["n_keys"])
+    rows, launches = {}, {}
     for wl, spec in YCSB.items():
         ops = generate_ycsb_stream(spec, c["windows"], c["batch"], c["n_keys"],
                                    c["n_clients"], seed=c["seed"])
@@ -682,32 +698,62 @@ def phase3_ycsb(dev, card: str) -> None:
         counts = np.where(ops.kinds == OpKind.SCAN, ops.values, 0)
         n_ops = int((ops.kinds != OpKind.NOP).sum())
         upd = ops.kinds == OpKind.UPDATE
-        scan_max = c["scan_max"] if spec.scan > 0 else 0
-        t0 = time.perf_counter()
+        rows[wl] = {}
         for name in MODES:
             cfg = EngineConfig(n_slots=c["n_slots"], heap_slots=c["heap_slots"],
-                               mode=SyncMode[name], scan_max=scan_max)
-            st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+                               mode=SyncMode[name],
+                               scan_max=c["scan_max"] if spec.scan > 0 else 0)
+            cr = credit_init(c["credit_table"], dev)
+            if n_shards is None:
+                st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+                run = functools.partial(runner.run_windows, cfg, st, cr,
+                                        stream)
+            else:
+                run = functools.partial(
+                    dstore.run_windows_sharded, cfg,
+                    make_local_mesh(n_shards, dev),
+                    _sharded_store(dev, cfg, n_shards, pk), cr, stream)
             before = sp.counter.count
-            _, _, res, io = runner.run_windows(cfg, st,
-                                               credit_init(c["credit_table"],
-                                                           dev), stream)
-            launched = sp.counter.count - before
-            check(launched == (c["windows"] if scan_max else 0),
-                  f"ycsb/{wl}/{name}: scan_probe launched {launched} times")
+            _, _, res, io = run()
+            launches[(wl, name)] = sp.counter.count - before
             row = modeled_row(runner, cfg, p, ops.kinds, res, io, n_ops,
                               scan_counts=counts)
             row["rows"] = int(res.rows.sum().item())
-            pess = res.pessimistic.cpu().numpy()
+            pess = to_numpy(res.pessimistic)
             row["pess_ratio"] = round(float((pess & upd).sum()
                                             / max(int(upd.sum()), 1)), 4)
-            for k, v in ref["workloads"][wl]["single"][name].items():
-                check(row.get(k) == v, f"ycsb/{wl}/{name}: {k} = {row.get(k)},"
-                                       f" BENCH_ycsb.json has {v}")
-        torch.cuda.synchronize()
-        say(f"  {wl}: 4 modes == BENCH_ycsb.json single rows "
-            f"({time.perf_counter() - t0:.3f} s for 4 x {c['windows']} "
-            f"windows) [{card}]")
+            rows[wl][name] = row
+            if profile and (wl, name) == ("A", "CIDER"):
+                profile(f"YCSB A CIDER {run.func.__name__} ({n_shards or 1} "
+                        f"shard(s), {c['windows']} windows)", run)
+    return rows, launches
+
+
+def check_ycsb(rows, launches, ref: dict, topo: str, n_shards: int) -> None:
+    """``ycsb_rows`` against ``BENCH_ycsb.json``'s ``topo`` rows; E's runs
+    launch ``scan_probe`` once a window on every shard, the others never."""
+    windows = ref["config"]["windows"]
+    for wl, by_mode in rows.items():
+        for name, row in by_mode.items():
+            _check_rows(row, ref["workloads"][wl][topo][name],
+                        f"ycsb/{wl}/{topo}/{name}")
+            want = windows * n_shards if wl == "E" else 0
+            check(launches[(wl, name)] == want,
+                  f"ycsb/{wl}/{topo}/{name}: scan_probe launched "
+                  f"{launches[(wl, name)]} times, expected {want}")
+
+
+def phase3_ycsb(dev, card: str) -> None:
+    import torch
+    ref = json.loads((ROOT / "BENCH_ycsb.json").read_text())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, launches = ycsb_rows(dev, ref["config"])
+    torch.cuda.synchronize()
+    check_ycsb(rows, launches, ref, "single", 1)
+    say(f"  A-F x 4 modes == BENCH_ycsb.json single rows "
+        f"({time.perf_counter() - t0:.3f} s for 24 x "
+        f"{ref['config']['windows']} windows) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -725,17 +771,61 @@ def touched_keys(ops, scan_max: int):
     return np.unique(np.concatenate(keys))
 
 
+@functools.lru_cache(maxsize=None)
+def deployment_oracle(wl: str, n_keys: int, windows: int, batch: int,
+                      n_cns: int):
+    """YCSB ``wl``'s stream at deployment scale (seed 11, keys ``< n_keys``
+    populated with themselves) and the sequential oracle's answers:
+    ``(ops, touched keys, final key -> value map, ok, value, rows)``."""
+    import numpy as np
+    from repro_torch.core.oracle import OracleStore
+    from repro_torch.workloads.ycsb import YCSB, generate_ycsb_stream
+    spec = YCSB[wl]
+    scan_max = spec.scan_max if spec.scan > 0 else 0
+    ops = generate_ycsb_stream(spec, windows, batch, n_keys, n_cns, seed=11)
+    keys = touched_keys(ops, spec.scan_max)
+    oracle = OracleStore()
+    pop = keys[keys < n_keys]
+    oracle.populate(pop, pop)
+    want = [oracle.apply(ops.kinds[w], ops.keys[w], ops.values[w],
+                         scan_max=scan_max) + (oracle.rows.copy(),)
+            for w in range(windows)]
+    return (ops, keys, oracle.kv, np.stack([x[0] for x in want]),
+            np.stack([x[1] for x in want]), np.stack([x[2] for x in want]))
+
+
+def check_oracle(what: str, res, exists, val, oracle) -> None:
+    """Every op's ``ok``/``value``/``rows`` and the final value of every
+    touched key equal the oracle's (``deployment_oracle``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import to_numpy
+    _, keys, kv, want_ok, want_val, want_rows = oracle
+    check(np.array_equal(to_numpy(res.ok), want_ok),
+          f"{what}: ok differs from the oracle")
+    check(np.array_equal(to_numpy(res.value), want_val),
+          f"{what}: value differs from the oracle")
+    check(np.array_equal(to_numpy(res.rows), want_rows),
+          f"{what}: rows differ from the oracle")
+    kt = keys[keys < exists.shape[0]]
+    ki = torch.as_tensor(kt, device=exists.device).long()
+    want_e = np.array([int(k) in kv for k in kt])
+    want_v = np.array([kv.get(int(k), -1) for k in kt])
+    check(np.array_equal(to_numpy(exists[ki]), want_e)
+          and np.array_equal(to_numpy(val[ki]), want_v),
+          f"{what}: final store differs from the oracle")
+
+
 def phase4_deployment(dev, card: str, n_keys: int, windows: int, batch: int,
                       n_cns: int, credit_table: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import combine, engine, runner
     from repro_torch.core.credits import credit_init
-    from repro_torch.core.oracle import OracleStore
     from repro_torch.kernels.scan_probe import ops as sp
     from repro_torch.kernels.wc_combine import ops as wcc
     from repro_torch.core.types import EngineConfig, OpKind, SyncMode
-    from repro_torch.workloads.ycsb import YCSB, generate_ycsb_stream
+    from repro_torch.workloads.ycsb import YCSB
 
     counters = {"wc_combine": wcc.counter, "scan_probe": sp.counter}
     n_slots = n_keys + windows * batch          # room for E's inserts
@@ -744,18 +834,8 @@ def phase4_deployment(dev, card: str, n_keys: int, windows: int, batch: int,
     for wl in ("A", "E"):
         spec = YCSB[wl]
         scan_max = spec.scan_max if spec.scan > 0 else 0
-        ops = generate_ycsb_stream(spec, windows, batch, n_keys, n_cns,
-                                   seed=11)
-        keys = touched_keys(ops, spec.scan_max)
-        oracle = OracleStore()
-        pop = keys[keys < n_keys]
-        oracle.populate(pop, pop)
-        want = [oracle.apply(ops.kinds[w], ops.keys[w], ops.values[w],
-                             scan_max=scan_max) + (oracle.rows.copy(),)
-                for w in range(windows)]
-        want_ok = np.stack([x[0] for x in want])
-        want_val = np.stack([x[1] for x in want])
-        want_rows = np.stack([x[2] for x in want])
+        oracle = deployment_oracle(wl, n_keys, windows, batch, n_cns)
+        ops, keys = oracle[:2]
         stream = runner.make_stream(ops.kinds, ops.keys, ops.values,
                                     n_cns=n_cns, device=dev)
         for name in ("CIDER", "MCS"):
@@ -775,21 +855,8 @@ def phase4_deployment(dev, card: str, n_keys: int, windows: int, batch: int,
             launched = {k: c.count - before[k] for k, c in counters.items()}
             busy, wall, top = profile_device(
                 lambda: runner.run_windows(cfg, st, cr, stream), iters=1)
-            st = st1
-            check(np.array_equal(res.ok.cpu().numpy(), want_ok),
-                  f"deploy/{wl}/{name}: ok differs from the oracle")
-            check(np.array_equal(res.value.cpu().numpy(), want_val),
-                  f"deploy/{wl}/{name}: value differs from the oracle")
-            check(np.array_equal(res.rows.cpu().numpy(), want_rows),
-                  f"deploy/{wl}/{name}: rows differ from the oracle")
-            exists, val = engine.store_view(st)
-            kt = torch.as_tensor(keys[keys < n_slots], device=dev).long()
-            e_np, v_np = exists[kt].cpu().numpy(), val[kt].cpu().numpy()
-            kv = oracle.kv
-            want_e = np.array([int(k) in kv for k in kt.cpu().numpy()])
-            want_v = np.array([kv.get(int(k), -1) for k in kt.cpu().numpy()])
-            check(np.array_equal(e_np, want_e) and np.array_equal(v_np, want_v),
-                  f"deploy/{wl}/{name}: final store differs from the oracle")
+            check_oracle(f"deploy/{wl}/{name}", res,
+                         *engine.store_view(st1), oracle)
             n_ops = int((ops.kinds != OpKind.NOP).sum())
             out[(wl, name)] = dict(s=dt, ops_per_s=n_ops / dt, peak=peak,
                                    mn_iops=io.as_dict()["mn_iops"])
@@ -1082,7 +1149,9 @@ SCENARIOS_FULL = dict(windows=32, batch=2048, n_keys=4096, n_clients=64,
 OPEN_LOOP_FULL = dict(slots1=131_072, lanes1=512, cns1=64, windows=12,
                       warmup=4, theta=0.99, seed=11, ol_mesh=8, ol_windows=16,
                       rhos=[0.5, 0.7, 0.85, 0.95, 1.05], mmpp_rho=0.85)
-REF_SHARDS = 4      # the reference benchmarks round heap_slots to this mesh
+REF_SHARDS = 4      # the reference benchmarks' sharded4 mesh (heap_slots
+                    # is rounded to it)
+SURVIVORS = (0, 2)  # benchmarks/recovery.py: shards 1 and 3 die at the crash
 CRASH_R, CRASH_DEAD = 3, (2,)   # benchmarks/replication.py's MN-crash cell
 
 
@@ -1205,9 +1274,39 @@ def recovery_setup(dev, c: dict, name: str, mode):
     return cfg, ops, sched, stream, st, credit_init(c["credit_table"], dev)
 
 
+def recovery_failover(dev, c: dict, cfg, stream, single, crash_w: int,
+                      what: str) -> dict:
+    """``benchmarks/recovery.py``'s shard failover on the crash storm: a
+    ``REF_SHARDS``-way store whose shards outside ``SURVIVORS`` die at the
+    crash window, through ``run_recovery_sharded``; raises unless its
+    results, every window's bill and the store view equal the
+    single-device drop-mask run ``single``.  Returns the ``failover``
+    sub-dict."""
+    from repro_torch.core import engine
+    from repro_torch.core.credits import credit_init
+    from repro_torch.dist import store as dstore
+    from repro_torch.recovery import FailoverEvent, run_recovery_sharded
+    from repro_torch.workloads.recovery import RECOVERY_SCENARIOS
+    pk = RECOVERY_SCENARIOS["crash_storm"].populate_keys(c["n_keys"])
+    sst = dstore.sharded_populate(
+        cfg, REF_SHARDS, dstore.sharded_store_init(cfg, REF_SHARDS, dev),
+        pk, pk)
+    run = run_recovery_sharded(cfg, REF_SHARDS, sst,
+                               credit_init(c["credit_table"], dev), stream,
+                               failovers=[FailoverEvent(crash_w, SURVIVORS)])
+    _check_trees(run.io, single.io, f"{what}: failover IOMetrics vs the "
+                                    f"single-device drop-mask run")
+    _check_trees(run.results, single.results, f"{what}: failover Results")
+    for x, y in zip(dstore.sharded_store_view(cfg, len(SURVIVORS), run.state),
+                    engine.store_view(single.state)):
+        check(bool((x == y).all()), f"{what}: failover store view differs")
+    return {"asserted_equal": True, **run.recovery_io[0]}
+
+
 def recovery_rows(dev, c: dict, profile=None) -> dict:
-    """Every scenario x mode row of ``BENCH_recovery.json``'s schema (without
-    the sharded ``failover`` sub-dict) from ``run_recovery`` on ``dev``.
+    """Every scenario x mode row of ``BENCH_recovery.json``'s schema from
+    ``run_recovery`` on ``dev``, with the crash storm's ``failover``
+    sub-dict from ``run_recovery_sharded`` (``recovery_failover``).
     ``profile(label, fn)``, where given, is called once with a rerun of the
     crash_storm CIDER cell."""
     from repro_torch.core.simnet import SimParams
@@ -1224,6 +1323,10 @@ def recovery_rows(dev, c: dict, profile=None) -> dict:
             run = run_recovery(cfg, st, cr, stream)
             modes[mode] = recovery_metrics(cfg, c, ops, run,
                                            sched.first_crash_window(), p)
+            if name == "crash_storm":
+                modes[mode]["failover"] = recovery_failover(
+                    dev, c, cfg, stream, run, sched.first_crash_window(),
+                    f"recovery/{name}/{mode}")
             if profile and (name, mode) == ("crash_storm", "CIDER"):
                 profile(f"{name} {mode} run_recovery ({stream.shape[0]} "
                         f"windows)", functools.partial(run_recovery, cfg, st,
@@ -1385,15 +1488,20 @@ def scenario_row(cfg, ops, res, ios, mass, p) -> dict:
     return overall
 
 
-def scenario_rows(dev, c: dict, names=None, profile=None) -> dict:
+def scenario_rows(dev, c: dict, names=None, profile=None,
+                  n_shards: int | None = None) -> dict:
     """The ``single`` rows of ``BENCH_scenarios.json`` (every scenario, or
-    ``names``, x 4 modes) from ``runner.run_windows_traced`` on ``dev``.
-    ``profile(label, fn)``, where given, is called once with a rerun of the
-    hotspot_shift CIDER cell."""
+    ``names``, x 4 modes) from ``runner.run_windows_traced`` on ``dev``, or
+    with ``n_shards`` its ``sharded<n_shards>`` rows from
+    ``run_windows_sharded_traced`` on a local mesh.  ``profile(label,
+    fn)``, where given, is called once with a rerun of the hotspot_shift
+    CIDER cell."""
     from repro_torch.core import engine, runner
     from repro_torch.core.credits import credit_init
     from repro_torch.core.simnet import SimParams
     from repro_torch.core.types import SyncMode
+    from repro_torch.dist import store as dstore
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.workloads.dynamic import SCENARIOS
     p = SimParams()
     out = {}
@@ -1407,15 +1515,21 @@ def scenario_rows(dev, c: dict, names=None, profile=None) -> dict:
         out[name] = {}
         for mode in MODES:
             cfg = scenario_cfg(SyncMode[mode], c)
-            st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
-            _, _, res, ios, mass = runner.run_windows_traced(
-                cfg, st, credit_init(c["credit_table"], dev), stream)
+            cr = credit_init(c["credit_table"], dev)
+            if n_shards is None:
+                st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+                run = functools.partial(runner.run_windows_traced, cfg, st,
+                                        cr, stream)
+            else:
+                run = functools.partial(
+                    dstore.run_windows_sharded_traced, cfg,
+                    make_local_mesh(n_shards, dev),
+                    _sharded_store(dev, cfg, n_shards, pk), cr, stream)
+            _, _, res, ios, mass = run()
             out[name][mode] = scenario_row(cfg, ops, res, ios, mass, p)
             if profile and (name, mode) == ("hotspot_shift", "CIDER"):
-                profile(f"{name} {mode} run_windows_traced ({c['windows']} "
-                        f"windows)", functools.partial(
-                            runner.run_windows_traced, cfg, st,
-                            credit_init(c["credit_table"], dev), stream))
+                profile(f"{name} {mode} {run.func.__name__} "
+                        f"({c['windows']} windows)", run)
     return out
 
 
@@ -1704,6 +1818,206 @@ def race_hash_deployment(dev, capacity: int, n_pop: int, windows: int,
     return {"overflow": n_ovf, "populate_overflow": int((~found).sum())}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded store
+# ---------------------------------------------------------------------------
+# The reference benchmarks' sharded runs (the sharded4 rows of benchmarks/
+# {run,replication,scenarios}.py, benchmarks/scale.py's weak scaling) on a
+# local mesh: every shard a partition in this process, on one device
+# (launch.mesh.make_local_mesh); then a 2^24-key store over 4 shards.
+
+SCALE_FULL = dict(meshes=[1, 4, 8, 16], **OPEN_LOOP_FULL)
+
+
+def _sharded_store(dev, cfg, n_shards: int, keys):
+    """An ``n_shards``-way store holding ``keys`` (each its own value)."""
+    from repro_torch.dist import store as dstore
+    return dstore.sharded_populate(
+        cfg, n_shards, dstore.sharded_store_init(cfg, n_shards, dev), keys,
+        keys)
+
+
+def replication_sharded_rows(dev, c: dict, n_shards: int,
+                             modes=MODES) -> dict:
+    """``BENCH_replication.json``'s ``sharded<n_shards>`` rows, R -> mode
+    -> cell, through ``run_windows_sharded`` on a local mesh of ``dev``."""
+    import numpy as np
+    from repro_torch.core import runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.simnet import SimParams
+    from repro_torch.core.types import SyncMode
+    from repro_torch.dist import store as dstore
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.stores import PointerArray
+    from repro_torch.workloads.ycsb import WORKLOADS, generate_window_stream
+    n_slots, b, windows = c["n_slots"], c["batch"], c["windows"]
+    ops = generate_window_stream(WORKLOADS["write-intensive"], windows, b,
+                                 n_slots, b)
+    stream = runner.make_stream(ops.kinds, ops.keys % n_slots, ops.values,
+                                n_cns=16, device=dev)
+    mesh = make_local_mesh(n_shards, dev)
+    rows = {}
+    for r in (1, 2, 3):
+        p = dataclasses.replace(SimParams(), n_replicas=r)
+        rows[str(r)] = {}
+        for mode in modes:
+            cfg = PointerArray.create(n_slots, mode=SyncMode[mode],
+                                      n_replicas=r, device=dev).cfg
+            _, _, res, io = dstore.run_windows_sharded(
+                cfg, mesh, _sharded_store(dev, cfg, n_shards,
+                                          np.arange(n_slots)),
+                credit_init(4096, dev), stream)
+            rows[str(r)][mode] = replication_cell(cfg, ops.kinds, res, io, p,
+                                                  windows * b)
+    return rows
+
+
+def weak_scaling_rows(dev, c: dict, modes=MODES, profile=None):
+    """``benchmarks/scale.py::_weak_scaling`` on local meshes of ``dev``:
+    mesh -> mode -> record, and the efficiency table.  The 1-way mesh's
+    per-shard bill must sum to the single-device run's, window by window.
+    ``profile(label, fn)``, where given, is called once with a rerun of
+    the largest mesh's CIDER cell."""
+    import numpy as np
+    from repro_torch.core import engine, runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.simnet import SimParams
+    from repro_torch.core.types import EngineConfig, SyncMode, to_numpy
+    from repro_torch.dist import store as dstore
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.workloads.ycsb import WORKLOADS, generate_window_stream
+    p = SimParams()
+    spec = WORKLOADS["write-intensive"]
+    weak = {}
+    for n in c["meshes"]:
+        n_slots, b, n_cns = c["slots1"] * n, c["lanes1"] * n, c["cns1"] * n
+        heap = n_slots + c["windows"] * b
+        heap += -heap % n
+        ops = generate_window_stream(spec, c["windows"], b, n_slots, n_cns,
+                                     seed=c["seed"], theta=c["theta"])
+        stream = runner.make_stream(ops.kinds, ops.keys % n_slots, ops.values,
+                                    n_cns=n_cns, device=dev)
+        mesh = make_local_mesh(n, dev)
+        pk = np.arange(n_slots)
+        wu = c["warmup"]
+        n_steady = (c["windows"] - wu) * b
+        weak[str(n)] = {}
+        for mode in modes:
+            cfg = EngineConfig(n_slots=n_slots, heap_slots=heap,
+                               mode=SyncMode[mode])
+            run = functools.partial(
+                dstore.run_windows_sharded, cfg, mesh,
+                _sharded_store(dev, cfg, n, pk), credit_init(n_slots, dev),
+                stream, per_shard_io=True, io_per_window=True)
+            _, _, res, io = run()
+            # benchmarks/scale.py::_window_ticks: shards serve their
+            # partitions concurrently, so a window takes its hottest
+            # shard's time
+            win_ticks = np.maximum(
+                to_numpy(io.mn_iops).astype(np.float64) / p.mn_cap,
+                to_numpy(io.mn_bytes).astype(np.float64) / p.mn_bw).max(-1)
+            ticks = float(win_ticks[wu:].sum())
+            lat = runner.modeled_latency(cfg, ops.kinds, res, p)[wu:]
+            iops = to_numpy(io.mn_iops)[wu:]
+            weak[str(n)][mode] = {
+                "modeled_mops": round(n_steady / ticks, 4),
+                "modeled_ticks_us": round(ticks, 2),
+                "modeled_mops_with_warmup": round(
+                    c["windows"] * b / float(win_ticks.sum()), 4),
+                "shard_mn_iops": [int(x) for x in iops.sum(0)],
+                "hot_shard_imbalance": round(
+                    float(iops.sum(0).max() / max(iops.sum(0).mean(), 1e-9)),
+                    3),
+                "mn_iops": int(iops.sum()),
+                "mn_bytes": int(to_numpy(io.mn_bytes)[wu:].sum()),
+                "combined": int(to_numpy(io.combined)[wu:].sum()),
+                "modeled_p99_us": runner.latency_stats(lat).p99_us,
+            }
+            if n == 1:
+                st1 = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+                io1 = runner.run_windows(cfg, st1, credit_init(n_slots, dev),
+                                         stream, io_per_window=True)[3]
+                _check_trees(_io_map(lambda x: x.sum(-1, dtype=x.dtype), io),
+                             io1, f"weak scaling/mesh 1/{mode}: per-shard "
+                                  f"bill vs the single device")
+            if profile and n == c["meshes"][-1] and mode == "CIDER":
+                profile(f"weak scaling CIDER run_windows_sharded ({n} shards,"
+                        f" {n_slots} slots, {c['windows']} windows)", run)
+    eff = {m: {} for m in modes}
+    base = weak.get("1", {})
+    for n_str, rows in weak.items():
+        for m in modes:
+            if int(n_str) > 1 and m in base:
+                eff[m][n_str] = round(rows[m]["modeled_mops"]
+                                      / (int(n_str)
+                                         * base[m]["modeled_mops"]), 4)
+    return weak, eff
+
+
+def sharded_deployment(dev, n_keys: int, windows: int, batch: int,
+                       n_cns: int, credit_table: int, n_shards: int,
+                       modes=("CIDER", "MCS"), timer=None,
+                       profile=None) -> dict:
+    """YCSB A and E over ``n_keys`` populated keys on an ``n_shards``-way
+    local mesh (phase 4's streams and store size): raises unless, per
+    workload and mode, the sharded run's results, bill, credit table and
+    store view equal the single-device run's on the same stream, and every
+    op's result and every touched key's final value equal the oracle's.
+    ``timer(label, fn)`` runs and times ``fn``; ``profile(label, fn)``,
+    where given, is called once with a rerun of the A sharded run of the
+    first mode.  Returns per-cell summaries."""
+    import numpy as np
+    from repro_torch.core import engine, runner
+    from repro_torch.core.credits import credit_init
+    from repro_torch.core.types import EngineConfig, SyncMode
+    from repro_torch.dist import store as dstore
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.workloads.ycsb import YCSB
+    timer = timer or (lambda label, fn: fn())
+    n_slots = n_keys + windows * batch          # room for E's inserts
+    heap_slots = n_slots + windows * batch
+    mesh = make_local_mesh(n_shards, dev)
+    pk = np.arange(n_keys)
+    out = {}
+    for wl in ("A", "E"):
+        spec = YCSB[wl]
+        oracle = deployment_oracle(wl, n_keys, windows, batch, n_cns)
+        ops = oracle[0]
+        stream = runner.make_stream(ops.kinds, ops.keys, ops.values,
+                                    n_cns=n_cns, device=dev)
+        for name in modes:
+            cfg = EngineConfig(n_slots=n_slots, heap_slots=heap_slots,
+                               mode=SyncMode[name],
+                               scan_max=spec.scan_max if spec.scan > 0 else 0)
+            st = engine.populate(cfg, engine.store_init(cfg, dev), pk, pk)
+            one = timer(f"{wl} {name} single device",
+                        lambda: runner.run_windows(
+                            cfg, st, credit_init(credit_table, dev), stream))
+            del st
+            run = functools.partial(
+                dstore.run_windows_sharded, cfg, mesh,
+                _sharded_store(dev, cfg, n_shards, pk),
+                credit_init(credit_table, dev), stream)
+            shd = timer(f"{wl} {name} {n_shards} shards", run)
+            what = f"sharded deployment/{wl}/{name}"
+            _check_trees(shd[1], one[1], f"{what}: credits vs single device")
+            _check_trees(shd[2], one[2], f"{what}: Results vs single device")
+            _check_trees(shd[3], one[3], f"{what}: IOMetrics vs single device")
+            view = dstore.sharded_store_view(cfg, n_shards, shd[0])
+            for x, y in zip(view, engine.store_view(one[0])):
+                check(bool((x == y).all()),
+                      f"{what}: store view differs from the single device's")
+            check_oracle(what, shd[2], *view, oracle)
+            out[(wl, name)] = {"mn_iops": shd[3].as_dict()["mn_iops"],
+                               "touched_keys": int(oracle[1].size)}
+            del one, shd
+            if profile and wl == "A" and name == modes[0]:
+                profile(f"deployment A {name} run_windows_sharded "
+                        f"({n_shards} shards, {n_slots} slots, {windows} "
+                        f"windows)", run)
+    return out
+
+
 class PhaseClock:
     """Wall time and peak device memory of a phase's runs, and the idle
     share of profiled reruns (``profile``), which wait until the run that
@@ -1730,6 +2044,7 @@ class PhaseClock:
         dt = time.perf_counter() - t0
         say(f"    {label}: {dt:.3f} s, peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated "
+            f"(ends {time.perf_counter() - self.t0:.1f} s into the phase) "
             f"[{self.card}]")
         pending, self.pending = self.pending, None
         for args in pending:
@@ -1748,11 +2063,13 @@ class PhaseClock:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
         busy, pwall, top = profile_device(fn, iters=1)
         say(f"  profiled {label}: device busy {busy} ms; wall {wall} ms "
             f"unprofiled, {pwall} ms profiled; idle share "
             f"{None if busy is None else 1 - busy / wall} (busy over the "
-            f"unprofiled wall) [{self.card}]")
+            f"unprofiled wall); the profiled run and its trace took "
+            f"{time.perf_counter() - t1:.1f} s [{self.card}]")
         for key, ms, count in top:
             say(f"    {ms:9.4f} ms  x{count:5d}  {key}")
 
@@ -1780,15 +2097,18 @@ def phase7_recovery(dev, card: str) -> None:
               f"recovery/{name}: crash window {rows[name]['crash_window']}")
         for mode, want in sc["modes"].items():
             _check_rows(rows[name]["modes"][mode], want,
-                        f"recovery/{name}/{mode}", skip=("failover",))
+                        f"recovery/{name}/{mode}")
         r = rows[name]["modes"]
         say(f"  {name}: 4 modes == BENCH_recovery.json (modeled "
             + ", ".join(f"{m} {r[m]['modeled_mops']} Mops/s repair_cas "
                         f"{r[m]['repair_cas']} ttr {r[m]['windows_to_repair']}"
                         for m in MODES) + ")")
-    say("  the 'failover' sub-dicts (4-way shard failover through "
-        "run_recovery_sharded) are not checked: the sharded store is "
-        "ROADMAP item A11")
+    say(f"  crash_storm failover ({REF_SHARDS} shards, survivors "
+        f"{SURVIVORS} from window {rows['crash_storm']['crash_window']}, "
+        f"run_recovery_sharded on a local mesh): results, every window's "
+        f"bill and the store view == the single-device drop-mask run, and "
+        f"the failover sub-dicts == BENCH_recovery.json "
+        f"({rows['crash_storm']['modes']['CIDER']['failover']})")
     clock.done(7)
 
 
@@ -1901,6 +2221,74 @@ def phase11_deployment(dev, card: str, n_keys: int, windows: int, batch: int,
     clock.done(11)
 
 
+def phase12_sharded(dev, card: str, n_keys: int, windows: int, batch: int,
+                    n_cns: int, credit_table: int) -> None:
+    ycsb = json.loads((ROOT / "BENCH_ycsb.json").read_text())
+    repl = json.loads((ROOT / "BENCH_replication.json").read_text())
+    scen = json.loads((ROOT / "BENCH_scenarios.json").read_text())
+    scale = json.loads((ROOT / "BENCH_scale.json").read_text())
+    n = REF_SHARDS
+    topo = f"sharded{n}"
+    for what, ref in (("ycsb", ycsb), ("replication", repl),
+                      ("scenarios", scen)):
+        check(ref["config"]["n_shards"] == n,
+              f"{what}: the committed file's mesh is {ref['config']['n_shards']}")
+    _config_matches(scale["config"], SCALE_FULL, "scale")
+    clock = PhaseClock(card)
+    rows, launches = clock.run(
+        f"YCSB A-F x 4 modes, {n} shards",
+        lambda: ycsb_rows(dev, ycsb["config"], n, profile=clock.profile))
+    check_ycsb(rows, launches, ycsb, topo, n)
+    check_ycsb(rows, launches, ycsb, "single", n)
+    say(f"  YCSB A-F {topo} rows == BENCH_ycsb.json and == the single rows "
+        f"(E's cross-shard SCANs: {rows['E']['CIDER']['rows']} rows)")
+    rows = clock.run(f"replication R 1-3 x 4 modes, {n} shards",
+                     lambda: replication_sharded_rows(dev, REPLICATION_FULL,
+                                                      n))
+    for r, by_mode in rows.items():
+        for mode, row in by_mode.items():
+            ref = repl["replicas"][r]
+            _check_rows(row, ref[topo][mode], f"replication/R{r}/{topo}/{mode}")
+            _check_rows(row, {k: v for k, v in ref["single"][mode].items()
+                              if k != "per_replica"},
+                        f"replication/R{r}/{topo}/{mode} vs the single row")
+    say(f"  replication R 1-3 {topo} rows == BENCH_replication.json and == "
+        f"the single rows")
+    rows = clock.run(f"4 scenarios x 4 modes, {n} shards, "
+                     f"run_windows_sharded_traced",
+                     lambda: scenario_rows(dev, SCENARIOS_FULL,
+                                           profile=clock.profile, n_shards=n))
+    for name, sc in scen["scenarios"].items():
+        for mode in MODES:
+            _check_rows(rows[name][mode], sc[topo][mode],
+                        f"scenarios/{name}/{topo}/{mode}")
+            _check_rows(rows[name][mode], sc["single"][mode],
+                        f"scenarios/{name}/{topo}/{mode} vs the single row")
+    say(f"  scenarios {topo} rows == BENCH_scenarios.json and == the single "
+        f"rows, trajectories and credit_mass included")
+    weak, eff = clock.run(
+        f"weak scaling, meshes {SCALE_FULL['meshes']} x 4 modes, "
+        f"{SCALE_FULL['slots1']} slots and {SCALE_FULL['cns1']} CNs a shard",
+        lambda: weak_scaling_rows(dev, SCALE_FULL, profile=clock.profile))
+    for m, by_mode in scale["weak_scaling"].items():
+        for mode, want in by_mode.items():
+            _check_rows(weak[m][mode], want, f"weak_scaling/{m}/{mode}")
+    _check_rows(eff, scale["efficiency"], "efficiency")
+    say("  weak_scaling (per-shard bills, hottest-shard ticks, p99) and "
+        "efficiency == BENCH_scale.json; efficiency at 16 shards: "
+        + ", ".join(f"{m} {eff[m]['16']}" for m in MODES)
+        + "; mesh 1's per-shard bill == the single device's")
+    out = sharded_deployment(dev, n_keys, windows, batch, n_cns, credit_table,
+                             n, timer=clock.run, profile=clock.profile)
+    say(f"  deployment: YCSB A and E over {n_keys} keys on {n} shards, "
+        f"{windows} x {batch} ops, CIDER and MCS: results, bill, credits and "
+        f"store view == the single-device run, every result and touched key "
+        f"== oracle; MN IOPS "
+        + ", ".join(f"{wl} {name} {o['mn_iops']}"
+                    for (wl, name), o in out.items()))
+    clock.done(12)
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1995,6 +2383,11 @@ def main() -> int:
     phase11_deployment(dev, card, n_keys=1 << 24, windows=64, batch=4096,
                        n_cns=64, credit_table=4096)
     mark(11)
+    phase(12, "the sharded store: BENCH_*.json sharded rows, weak scaling, "
+              "2^24 keys over 4 shards")
+    phase12_sharded(dev, card, n_keys=1 << 24, windows=64, batch=4096,
+                    n_cns=64, credit_table=4096)
+    mark(12)
     launches = {name: c.count for name, c in counters.items()}
     say(f"  main-path launches: {launches}; cumulative after each phase: "
         f"{per_phase}")
@@ -2004,7 +2397,7 @@ def main() -> int:
         by_n = dict(sorted(counters[name].by_size.items()))
         say(f"  {name} main-path launches by N: {by_n}")
     before = {2: {n: 0 for n in counters}}
-    before.update({k: per_phase[k - 1] for k in range(3, 12)})
+    before.update({k: per_phase[k - 1] for k in range(3, 13)})
     for phase, names in ((2, ("wc_combine",)), (3, ("wc_combine",
                                                     "scan_probe")),
                          (4, ("wc_combine", "scan_probe")),
@@ -2012,7 +2405,8 @@ def main() -> int:
                          (6, ("wc_combine", "paged_attention")),
                          (7, ("wc_combine",)), (8, ("wc_combine",)),
                          (9, ("wc_combine",)), (10, ("wc_combine",)),
-                         (11, ("wc_combine",))):
+                         (11, ("wc_combine",)),
+                         (12, ("wc_combine", "scan_probe"))):
         for name in names:
             check(per_phase[phase][name] > before[phase][name],
                   f"{name} was not launched in phase {phase}")

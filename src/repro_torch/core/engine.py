@@ -183,13 +183,18 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     ``alive`` (``(n_cns,)`` bool) masks the compute nodes alive through this
     window and ``died`` those that crashed at it: ops of non-alive CNs are
     dropped, and the pessimistic writes of newly-died CNs strand orphaned
-    locks that the next surviving waiter repairs (step 5b).  The sharded
-    arguments ``owned``/``slot_base`` belong to the port's ``dist`` slice.
+    locks that the next surviving waiter repairs (step 5b).
+
+    Sharded execution (``repro_torch.dist.store``): ``owned`` masks the ops
+    whose key's slot lives in this shard and ``slot_base`` (an int) is the
+    shard's first global slot, so store arrays are indexed by
+    ``keys - slot_base``.  The data plane (linearization, commits, results,
+    metering) runs on the owned lanes; the credit plane (steps 3 and 6) runs
+    on the full window with global keys, so every shard's replica of the
+    credit table evolves identically.  Lanes a shard does not own come out
+    as each ``Results`` field's neutral element (``value`` -1, ``wc_batch``
+    1, the rest 0/False), so a sum over shards reassembles the results.
     """
-    if owned is not None or slot_base is not None:
-        raise NotImplementedError(
-            "owned/slot_base (sharded execution) arrive with the port's dist "
-            "slice (repro_torch.dist, on torch.distributed)")
     b = batch.kinds.shape[0]
     dev = batch.kinds.device
     kinds, keys, values, pos, cn = (batch.kinds, batch.keys, batch.values,
@@ -205,14 +210,17 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     present = valid
     if alive is not None:
         valid = valid & alive[torch.clamp(cn, 0, alive.shape[0] - 1).long()]
-    # unsharded, the data plane (the reference's `valid`) and the credit
-    # plane (`valid`, `is_update`) see the same lanes
-    is_insert = (kinds == OpKind.INSERT) & valid
-    is_update = (kinds == OpKind.UPDATE) & valid
-    is_delete = (kinds == OpKind.DELETE) & valid
+    # valid: the window's live ops (credit plane); valid_o: the ops whose
+    # slot this shard owns (data plane).  The same lanes when unsharded.
+    valid_o = valid if owned is None else valid & owned
+    base = 0 if slot_base is None else int(slot_base)
+    is_insert = (kinds == OpKind.INSERT) & valid_o
+    is_update = (kinds == OpKind.UPDATE) & valid_o
+    is_delete = (kinds == OpKind.DELETE) & valid_o
+    upd_full = (kinds == OpKind.UPDATE) & valid
 
     # ---- 1. linearize: one sorted last-setter sweep serializes every slot
-    plan_all = wc.plan_combine(keys, pos, valid, backend=cfg.kernel_backend)
+    plan_all = wc.plan_combine(keys, pos, valid_o, backend=cfg.kernel_backend)
     perm = plan_all.perm.long()
     idx = torch.arange(b, dtype=_I32, device=dev)
     seg_start = idx - plan_all.rank
@@ -220,12 +228,12 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     seg_start_l, seg_end_l = seg_start.long(), seg_end.long()
     ks = kinds[perm]
     vals = values[perm]
-    v_sorted = valid[perm]
+    v_sorted = valid_o[perm]
     ins_s = v_sorted & (ks == OpKind.INSERT)
     upd_s = v_sorted & (ks == OpKind.UPDATE)
     del_s = v_sorted & (ks == OpKind.DELETE)
-    # incoming (pre-window) state of each sorted lane's slot
-    slot = torch.clamp(keys[perm], 0, cfg.n_slots - 1)
+    # incoming (pre-window) state of each sorted lane's (shard-local) slot
+    slot = torch.clamp(keys[perm] - base, 0, cfg.n_slots - 1)
     slot_l = slot.long()
     p = state.ptr[slot_l]
     e_init = p != NULL_PTR
@@ -273,15 +281,17 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     ver = state.ver.index_add(0, slot_l,
                               torch.where(plan_all.is_last, run_del, 0)) % 16
 
-    # ---- 3. synchronization-mode decision (CIDER credit split, §4.3)
+    # ---- 3. synchronization-mode decision (CIDER credit split, §4.3), on
+    # the FULL window so every shard's credit table sees every op
     table = credits.credit.shape[0]
     if cfg.mode == SyncMode.CIDER:
-        credits2, pess = credit_decide(credits, keys, is_update, table)
+        credits2, pess_full = credit_decide(credits, keys, upd_full, table)
     elif cfg.mode in (SyncMode.MCS, SyncMode.SPIN):
-        credits2, pess = credits, is_update
+        credits2, pess_full = credits, upd_full
     else:  # OSYNC
-        credits2, pess = credits, torch.zeros_like(is_update)
-    opt_upd = is_update & ~pess
+        credits2, pess_full = credits, torch.zeros_like(upd_full)
+    pess = pess_full if owned is None else pess_full & valid_o
+    opt_upd = is_update & ~pess_full
 
     # ---- 4. effective writers after local WC (per (key, CN) group).  With
     # a static CN count in scope (the liveness plane's shape, always on the
@@ -295,9 +305,10 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     if n_cns_static is not None:
         def _group_last(mask):
             return wc.local_executors_scatter(keys, cn, pos, mask,
-                                              cfg.n_slots, n_cns_static)
+                                              cfg.n_slots, n_cns_static, base)
     else:
-        gplan = wc.plan_groups(keys, cn, pos, valid) if cfg.local_wc else None
+        gplan = (wc.plan_groups(keys, cn, pos, valid_o) if cfg.local_wc
+                 else None)
 
         def _group_last(mask):
             return wc.group_last(gplan, mask)
@@ -311,8 +322,9 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     s = wc.sum_i32
     zero = torch.zeros((), dtype=_I32, device=dev)
     n_found_search = s((ks == OpKind.SEARCH) & ok_s)
-    reads = s(valid) * cfg.index_read_iops + n_found_search
-    mn_bytes = s(valid) * cfg.index_read_bytes + n_found_search * cfg.value_bytes
+    reads = s(valid_o) * cfg.index_read_iops + n_found_search
+    mn_bytes = (s(valid_o) * cfg.index_read_bytes
+                + n_found_search * cfg.value_bytes)
     ro_bytes = mn_bytes        # read-only bytes bill to ONE replica
     writes = cas = faa = cn_msgs = retries_total = combined_total = zero
     per_op_retries = torch.zeros((b,), dtype=_I32, device=dev)
@@ -402,12 +414,14 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     if cfg.mode == SyncMode.OSYNC:
         stranded = state.stranded          # lock-free: crashes strand nothing
     else:
-        slot_u = torch.clamp(keys, 0, cfg.n_slots - 1).long()
+        slot_u = torch.clamp(keys - base, 0, cfg.n_slots - 1).long()
         if died is None:
             add_slot = torch.zeros((cfg.n_slots,), dtype=_I32, device=dev)
         else:
             dead_w = (present & died[torch.clamp(cn, 0, died.shape[0] - 1).long()]
                       & ((kinds == OpKind.UPDATE) | (kinds == OpKind.DELETE)))
+            if owned is not None:
+                dead_w = dead_w & owned
             if cfg.mode == SyncMode.CIDER:
                 # only writers the credit table routed pessimistically held
                 # a lock; DELETEs always lock
@@ -458,20 +472,23 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     # ---- 5c. SCAN reader probes (range reads).  A SCAN(key, count) expands
     # into `count` reader probes over [key, key+count), each joining its
     # slot's wait queue as a reader at the scanning op's batch position; one
-    # sort of writer+probe lanes feeds the fused scan_probe pass.
+    # sort of writer+probe lanes feeds the fused scan_probe pass.  Probes
+    # outside this shard's slots belong to another shard: each shard counts
+    # the rows of its own sub-run of a cross-shard SCAN.
     if cfg.scan_max > 0:
         ns = cfg.scan_max
         is_scan = (kinds == OpKind.SCAN) & valid
         count = torch.clamp(values, 0, ns)            # count rides `values`
         jj = torch.arange(ns, dtype=_I32, device=dev)
-        pk = keys[:, None] + jj[None, :]              # (B, ns) slots
+        pk = keys[:, None] + jj[None, :]              # (B, ns) global slots
+        p_loc = pk - base
         p_in = (is_scan[:, None] & (jj[None, :] < count[:, None])
-                & (pk >= 0) & (pk < cfg.n_slots))
+                & (p_loc >= 0) & (p_loc < cfg.n_slots))
         keys_p = pk.reshape(b * ns)
         pv = p_in.reshape(b * ns)
         keys_c = torch.cat([keys, keys_p])
         pos_c = torch.cat([pos, pos.repeat_interleave(ns)])
-        tvalid = torch.cat([valid, pv])
+        tvalid = torch.cat([valid_o, pv])
         plan_c = wc.plan_combine(keys_c, pos_c, tvalid,
                                  backend=cfg.kernel_backend)
         pc = plan_c.perm.long()
@@ -483,7 +500,7 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
         lockw = loc_exec_pess | is_delete              # exclusive lock holders
         writer_c = torch.cat([lockw, torch.zeros((b * ns,), dtype=torch.bool,
                                                  device=dev)])
-        slot_c = torch.clamp(keys_c[pc], 0, cfg.n_slots - 1).long()
+        slot_c = torch.clamp(keys_c[pc] - base, 0, cfg.n_slots - 1).long()
         e_init_c = state.ptr[slot_c] != NULL_PTR
         e_bc, waits_s = _probe_sweep(plan_c.keys_sorted, setcode_c[pc],
                                      writer_c[pc], e_init_c,
@@ -540,11 +557,33 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
         repair_total = repair_total * rep
         mn_bytes = ro_bytes + rep * (mn_bytes - ro_bytes)
 
-    # ---- 6. credit feedback (§4.3, Algorithm 1 lines 13-22)
+    # ---- 6. credit feedback (§4.3, Algorithm 1 lines 13-22), on the FULL
+    # window like the decision; unsharded the full masks are the owned ones
     if cfg.mode == SyncMode.CIDER:
+        if owned is None:
+            pess_fb, batch_fb = loc_exec_pess, per_op_batch
+            opt_fb, retry_fb = loc_exec_opt | is_insert, per_op_retries
+        else:
+            # the full-window masks are subsets of `valid`, not `valid_o`:
+            # the replicated credit plane pays one full-validity plan of
+            # each kind and derives both feedback stats from it
+            opt_upd_full = upd_full & ~pess_full
+            if cfg.local_wc:
+                loc_opt_full = wc.group_last(
+                    wc.plan_groups(keys, cn, pos, valid), opt_upd_full)
+            else:
+                loc_opt_full = opt_upd_full
+            plan_full = wc.plan_combine(keys, pos, valid,
+                                        backend=cfg.kernel_backend)
+            plan_p_fb = wc.stats_from_plan(plan_full, pess_full)
+            plan_o_fb = wc.stats_from_plan(plan_full, loc_opt_full)
+            pess_fb = pess_full
+            batch_fb = torch.where(pess_full, plan_p_fb.mult_of, 1)
+            opt_fb = loc_opt_full | ((kinds == OpKind.INSERT) & valid)
+            retry_fb = torch.where(loc_opt_full, plan_o_fb.rank_of, 0)
         credits3 = credit_feedback(
-            credits2, keys, table, pess=loc_exec_pess, wc_batch=per_op_batch,
-            opt=loc_exec_opt | is_insert, n_retry=per_op_retries,
+            credits2, keys, table, pess=pess_fb, wc_batch=batch_fb,
+            opt=opt_fb, n_retry=retry_fb,
             initial_credit=cfg.initial_credit,
             hotness_threshold=cfg.hotness_threshold,
             aimd_factor=cfg.aimd_factor)
@@ -554,9 +593,11 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
     # ---- 7. epoch FAA bookkeeping (fault-tolerance heartbeat, §4.6)
     if cfg.mode in (SyncMode.MCS, SyncMode.CIDER):
         rel = loc_exec_pess | is_delete
-        in_range = rel & (keys >= 0) & (keys < cfg.n_slots)
+        k_loc = keys - base
+        in_range = rel & (k_loc >= 0) & (k_loc < cfg.n_slots)
         epoch = state.epoch.index_add(
-            0, torch.clamp(keys, 0, cfg.n_slots - 1).long(), in_range.to(_I32))
+            0, torch.clamp(k_loc, 0, cfg.n_slots - 1).long(),
+            in_range.to(_I32))
     else:
         epoch = state.epoch
 

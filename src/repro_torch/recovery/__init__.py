@@ -8,9 +8,9 @@
   repair CAS, billed in ``IOMetrics.repair_cas``/``orphan_windows``;
 * **orchestration** (:mod:`repro_torch.recovery.orchestrator`) —
   ``run_recovery`` (single device), ``run_recovery_replicated`` (MN
-  replica deaths, ``dist.store.promote_replica`` between segments) and
-  ``time_to_repair``.  ``run_recovery_sharded`` raises until the sharded
-  store lands (ROADMAP item A11).
+  replica deaths, ``dist.store.promote_replica`` between segments),
+  ``run_recovery_sharded`` (shard failover, ``dist.store.failover_reown``
+  between segments) and ``time_to_repair``.
 
 Scenario generators live in :mod:`repro_torch.workloads.recovery`.
 """

@@ -15,8 +15,10 @@ alive row is threaded into the next segment (``prev_alive``), so CN crashes
 at the failover boundary still strand locks.  Segment outputs are
 concatenated on the device.
 
-``run_recovery_sharded`` (shard failover over a slot-partitioned store)
-belongs to the sharded store, ROADMAP item A11, and raises.
+``run_recovery_sharded`` runs a slot-partitioned store on a local mesh
+(``launch.mesh.make_local_mesh``) and splits the stream at each shard
+failover, re-owning the dead shards' partitions onto the survivors
+(``dist.store.failover_reown``) between segments.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.core.engine import Results, StoreState
 from repro_torch.core.runner import WindowStream
 from repro_torch.core.types import EngineConfig, IOMetrics, to_numpy
 from repro_torch.dist import store as dstore
+from repro_torch.launch.mesh import make_local_mesh
 
 __all__ = ["FailoverEvent", "RecoveryRun", "run_recovery",
            "run_recovery_replicated", "run_recovery_sharded", "slice_stream",
@@ -108,13 +111,43 @@ def run_recovery_sharded(cfg: EngineConfig, n_shards: int, state: StoreState,
                          credits: CreditState, stream: WindowStream,
                          failovers: Sequence[FailoverEvent] = (),
                          ) -> RecoveryRun:
-    """Sharded run with elastic membership: needs the slot-partitioned store
-    on ``torch.distributed``, which the port does not have yet."""
-    raise NotImplementedError(
-        "run_recovery_sharded needs the sharded store (dist.store's "
-        "slot-partitioned StoreState on torch.distributed, with "
-        "failover_reown), which is ROADMAP item A11; the single-device "
-        "paths are run_recovery and run_recovery_replicated")
+    """Sharded run with elastic membership, every segment on a local mesh
+    of the state's device.
+
+    ``state`` must be an ``n_shards``-way store (``sharded_store_init`` /
+    ``sharded_populate``); each failover's survivor count must divide
+    ``cfg.n_slots``/``cfg.heap_slots`` (``dstore.shard_extents``).  Between
+    segments ``dstore.failover_reown`` rebuilds the store over the
+    survivors and bills the rebuild into ``recovery_io``; the replicated
+    credit table and the last alive row carry over.
+    """
+    w = stream.shape[0]
+    evs = sorted(failovers, key=lambda e: e.window)
+    if any(not 0 < e.window <= w for e in evs):
+        raise ValueError(f"failover windows must lie in (0, {w}]")
+    bounds = [0] + [e.window for e in evs] + [w]
+    if len(set(bounds)) != len(bounds):
+        raise ValueError("failover windows must be distinct and interior")
+    ress, ios, recovery_io = [], [], []
+    prev_alive = None
+    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if i > 0:
+            state, rio = dstore.failover_reown(cfg, n_shards, state,
+                                               evs[i - 1].survivors)
+            rio["window"] = evs[i - 1].window
+            recovery_io.append(rio)
+            n_shards = len(evs[i - 1].survivors)
+        seg = slice_stream(stream, lo, hi)
+        mesh = make_local_mesh(data=n_shards, device=state.ptr.device)
+        state, credits, res, io = dstore.run_windows_sharded(
+            cfg, mesh, state, credits, seg, io_per_window=True,
+            prev_alive=prev_alive)
+        prev_alive = seg.alive[-1]
+        ress.append(res)
+        ios.append(io)
+    return RecoveryRun(results=_cat(ress), io=_cat(ios), state=state,
+                       credits=credits, valid=_post_drop_valid(stream),
+                       n_shards=n_shards, recovery_io=recovery_io)
 
 
 def run_recovery_replicated(cfg: EngineConfig, state: StoreState,

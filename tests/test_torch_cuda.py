@@ -649,3 +649,94 @@ def test_race_hash_batches_on_card_equal_cpu(cuda_device, mode):
     from repro_torch.core.types import UnsupportedOpError
     with pytest.raises(UnsupportedOpError):
         stores[cuda_device].apply(scan, np.arange(8), np.arange(8))
+
+
+# ---------------------------------------------------------------------------
+# the sharded store: a 4-way local mesh on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _sharded_case(dev, mode, w=8, b=512, nk=2048, ncn=16, n=4):
+    """A 4-way store with hot keys, SCANs and a CN crash at window 5, and
+    its stream, on ``dev``."""
+    from repro_torch.core.types import EngineConfig, OpKind
+    from repro_torch.dist import store as dstore
+    rng = np.random.default_rng(5)
+    kinds = rng.choice([OpKind.SEARCH, OpKind.INSERT, OpKind.UPDATE,
+                        OpKind.DELETE, OpKind.SCAN], size=(w, b),
+                       p=(0.25, 0.1, 0.4, 0.1, 0.15)).astype(np.int32)
+    hot = rng.integers(0, nk, 8)
+    keys = np.where(rng.random((w, b)) < 0.5, hot[rng.integers(0, 8, (w, b))],
+                    rng.integers(0, nk, (w, b))).astype(np.int32)
+    values = np.where(kinds == OpKind.SCAN, rng.integers(1, 12, (w, b)),
+                      rng.integers(0, 1000, (w, b))).astype(np.int32)
+    alive = np.ones((w, ncn), bool)
+    alive[5:, :ncn // 4] = False
+    cfg = EngineConfig(n_slots=nk, heap_slots=nk + w * b, mode=mode,
+                       scan_max=8)
+    stream = runner.make_stream(kinds, keys, values, n_cns=ncn, alive=alive,
+                                device=dev)
+    pk = np.arange(0, nk, 2)
+    st = dstore.sharded_populate(cfg, n, dstore.sharded_store_init(cfg, n, dev),
+                                 pk, pk)
+    return cfg, stream, st
+
+
+def _trees_equal(a, c, what):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(c, f.name)
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y), (what, f.name)
+
+
+@pytest.mark.parametrize("mode", list(SyncMode), ids=lambda m: m.name)
+def test_sharded_store_on_card_equals_cpu(cuda_device, mode):
+    """``run_windows_sharded`` (per-shard, per-window bills) and
+    ``run_windows_sharded_traced`` on a 4-way local mesh of the card equal
+    the same runs on the CPU bit for bit; each shard's window launches
+    ``wc_combine`` once for its plan, once for the probe plan and, in
+    CIDER, once for the credit plane's full-window plan, and ``scan_probe``
+    once."""
+    from repro_torch.core.credits import credit_init
+    from repro_torch.dist import store as dstore
+    from repro_torch.launch.mesh import make_local_mesh
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        cfg, stream, st = _sharded_case(dev, mode)
+        mesh = make_local_mesh(4, dev)
+        c0, s0 = wcc.counter.count, sp.counter.count
+        a = dstore.run_windows_sharded(cfg, mesh, st, credit_init(512, dev),
+                                       stream, io_per_window=True,
+                                       per_shard_io=True)
+        per_call = 2 + (mode == SyncMode.CIDER)
+        w = stream.shape[0]
+        on_card = dev.type == "cuda"
+        assert wcc.counter.count - c0 == (w * 4 * per_call if on_card else 0)
+        assert sp.counter.count - s0 == (w * 4 if on_card else 0)
+        b = dstore.run_windows_sharded_traced(cfg, mesh, st,
+                                              credit_init(512, dev), stream)
+        out[dev.type] = (a, b)
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        for i, what in enumerate(("state", "credits", "results", "io")):
+            _trees_equal(card[i], cpu[i], what)
+    assert torch.equal(out["cuda"][1][4].cpu(), out["cpu"][1][4])
+    assert int(out["cpu"][0][2].rows.sum()) > 0
+
+
+@pytest.mark.parametrize("mode", [SyncMode.MCS, SyncMode.CIDER],
+                         ids=lambda m: m.name)
+def test_shard_failover_on_card_equals_cpu(cuda_device, mode):
+    """``run_recovery_sharded``: 4 shards, survivors (0, 2) from the crash
+    window, on the card and on the CPU, bit for bit, recovery bill
+    included."""
+    from repro_torch.core.credits import credit_init
+    from repro_torch.recovery import FailoverEvent, run_recovery_sharded
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        cfg, stream, st = _sharded_case(dev, mode)
+        runs[dev.type] = run_recovery_sharded(
+            cfg, 4, st, credit_init(512, dev), stream,
+            failovers=[FailoverEvent(5, (0, 2))])
+    card, cpu = runs["cuda"], runs["cpu"]
+    for name in ("results", "io", "state", "credits"):
+        _trees_equal(getattr(card, name), getattr(cpu, name), name)
+    assert card.recovery_io == cpu.recovery_io
+    assert card.n_shards == cpu.n_shards == 2

@@ -104,15 +104,6 @@ def test_apply_batch_matches_reference(mode, scan_max, variant):
     assert (repairs > 0) == (variant == "crash" and mode != SyncMode.OSYNC)
 
 
-def test_sharded_arguments_name_the_dist_slice():
-    cfg = TConfig(n_slots=8, heap_slots=16)
-    st = teng.store_init(cfg, "cpu")
-    b = TBatch.make([0], [1], [1], device="cpu")
-    with pytest.raises(NotImplementedError, match="dist"):
-        teng.apply_batch(cfg, st, t_credit_init(8, "cpu"), b,
-                         owned=torch.ones(1, dtype=torch.bool))
-
-
 def test_store_helpers_match_reference():
     cfg_kw = dict(n_slots=32, heap_slots=40)
     jcfg, tcfg = JConfig(**cfg_kw), TConfig(**cfg_kw)

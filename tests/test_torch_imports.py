@@ -45,7 +45,8 @@ def test_port_sources_exist():
                 "serving/pagetable.py", "serving/scheduler.py",
                 "launch/serve.py", "recovery/__init__.py",
                 "recovery/liveness.py", "recovery/orchestrator.py",
-                "dist/__init__.py", "dist/store.py", "stores/race_hash.py",
+                "dist/__init__.py", "dist/store.py", "launch/mesh.py",
+                "stores/race_hash.py",
                 "workloads/recovery.py", "workloads/dynamic.py",
                 "workloads/openloop.py"):
         assert rel in mods, rel

@@ -173,5 +173,11 @@ def test_slice_stream_and_post_drop_valid():
 
 def test_recovery_exports_match_reference():
     assert sorted(trec.__all__) == sorted(jrec.__all__)
-    with pytest.raises(NotImplementedError, match="A11"):
-        trec.run_recovery_sharded(None, 4, None, None, None)
+    smoke = load_smoke()
+    _, _, _, stream, _, _ = smoke.recovery_setup(
+        "cpu", FAST, "crash_storm", TSyncMode.CIDER)
+    w = stream.shape[0]
+    for bad in (0, w + 1):
+        with pytest.raises(ValueError, match="failover windows must lie"):
+            trec.run_recovery_sharded(None, 4, None, None, stream,
+                                      [trec.FailoverEvent(bad, (0, 2))])

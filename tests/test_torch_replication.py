@@ -3,7 +3,7 @@
 ``run_recovery_replicated`` (R 2 and 3, CN crashes included) bit for bit;
 the ``BENCH_replication.json`` rows at the benchmark's FAST size through
 ``chip_smoke.py``'s helpers; and ``chip_smoke.py``'s deployment check at a
-small size.  The sharded entry raises."""
+small size."""
 from __future__ import annotations
 
 import dataclasses
@@ -190,12 +190,6 @@ def test_run_recovery_replicated_validates_shapes():
         with pytest.raises(ValueError, match="replicas"):
             mod.run_recovery_replicated(cfg, st, cr, stream,
                                         mod.mn_always_alive(W, 3))
-
-
-def test_run_recovery_sharded_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="ROADMAP item A11"):
-        trec.run_recovery_sharded(TConfig(n_slots=8, heap_slots=8), 4, None,
-                                  None, None, failovers=())
 
 
 # ---------------------------------------------------------------------------
