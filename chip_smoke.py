@@ -12,7 +12,7 @@ Phases (any mismatch raises, and the script exits non-zero):
    ``cuobjdump -sass`` of the flash library holds ``HGMMA`` (bf16 runs on
    the tensor cores).
 1. each kernel against its plain PyTorch version on the card: the two sort
-   sweeps bit for bit over N in ``SWEEP_SIZES`` (1, 2, every tile edge of
+   sweeps bit for bit over N in ``SWEEP_SIZES`` (1-3, 64, every tile edge of
    either kernel, ragged last tiles, the main path's sizes, 2^20) and four
    key layouts, each
    one kernel launch per call; their times at the main path's N and 2^20
@@ -73,12 +73,28 @@ Phases (any mismatch raises, and the script exits non-zero):
     ``efficiency``; then YCSB A and E over 2^24 keys on 4 shards, CIDER and
     MCS, against the single-device run and the oracle.
 
+13. the protocol simulator (``core.sim``, ticks replayed from CUDA graphs):
+    ``run_sim`` at the default ``SimParams`` (1,024 lanes, 32,768 ticks),
+    at ``benchmarks/run.py``'s BASE in 4 modes x {48, 512} clients and
+    CIDER with ``wc_off``, ``cas_off`` and 3 MN replicas, and the two crash
+    configurations of ``tests/test_substrates.py``: every ``SimResult``
+    field equal to ``SIM_PINS`` (pinned from the JAX reference by
+    ``tests/test_torch_sim_pins.py``), wall time and ms a tick each;
+    256 ticks eagerly and through the graphs from one full-width state in
+    all 4 modes, every ``SimState`` field equal; ms a tick by replay and
+    eagerly, kernels a tick and the idle share of one profiled replay;
+    replays and an engine window loop under
+    ``torch.cuda.set_sync_debug_mode("error")``; and ``race_check``'s
+    tick-level conformance scenario on the card.
+
 Phases 7-12 print the wall time and peak device memory of their runs and
 the idle share of one profiled rerun each.  The launch counters are zeroed
-just before phase 2 and read after phase 12; every kernel must have
-launched in that run, in the phases that run it.  The last lines are the
-kernel table as JSON, the card's name and power limit, and the result line
-``{"ok": true, "device": {...}}``.
+just before phase 2 and read after phase 13; every kernel must have
+launched in that run, in the phases that run it.  A kernel captured into a
+CUDA graph (phase 13) is counted once at capture, so its replays' launches
+are added from the graphs' capture counts and replay counts.  The last
+lines are the kernel table as JSON, the card's name and power limit, and
+the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -113,11 +129,12 @@ SERVE_STATS = {"prefix_hits": 15, "prefix_misses": 17, "admitted": 16,
                "completed": 16}
 # the sort sweeps' checked sizes: N = 1 and 2, edges of their 512-key tiles,
 # ragged sizes (514 and 4098 leave the last thread two keys), the main
-# path's sizes and 2^20
-SWEEP_SIZES = (1, 2, 511, 512, 513, 514, 1000, 1023, 1024, 1025, 2047, 2048,
-               2049, 4095, 4096, 4097, 4098, 8192, 9692, 34816, 69632,
+# path's sizes (the simulator's 3, 64, 512 and 1024 lanes among them) and
+# 2^20
+SWEEP_SIZES = (1, 2, 3, 64, 511, 512, 513, 514, 1000, 1023, 1024, 1025, 2047,
+               2048, 2049, 4095, 4096, 4097, 4098, 8192, 9692, 34816, 69632,
                1 << 20)
-SWEEP_TIMED = (1, 4096, 34816, 69632, 1 << 20)
+SWEEP_TIMED = (1, 1024, 4096, 34816, 69632, 1 << 20)
 KERNEL_META = {
     "wc_combine": dict(source="src/repro_torch/kernels/csrc/wc_combine.cu",
                        replaces="src/repro/kernels/wc_combine/wc_combine.py:57",
@@ -2290,6 +2307,322 @@ def phase12_sharded(dev, card: str, n_keys: int, windows: int, batch: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the protocol simulator
+# ---------------------------------------------------------------------------
+# The pinned runs of the port's run_sim (1,000,000 keys, seed 0, write-
+# intensive unless said): the default SimParams (full width: 1,024 lanes,
+# 2^14 key slots, 32,768 ticks); benchmarks/run.py's BASE (Figs 11-12) in
+# all four modes at 48 and 512 clients; BASE CIDER at 512 clients with
+# wc_off, with cas_off (Fig 20) and with 3 MN replicas; and the two crash
+# configurations of tests/test_substrates.py (MCS, one key, 16 clients).
+# tests/test_torch_sim_pins.py proves that the JAX reference gives SIM_PINS.
+
+SIM_BASE = dict(n_lanes=512, ticks=8192, max_ops=1024)
+SIM_CRASH = dict(n_lanes=64, ticks=6144, max_ops=512, fail_tick=600,
+                 max_wait=512, lanes_per_cn=1, local_wc=False)
+SIM_WI = ("write-intensive", 1_000_000)
+# name -> (SimParams overrides, mode, (workload, keys), clients)
+SIM_RUNS = {
+    "default_CIDER_512": ({}, "CIDER", SIM_WI, 512),
+    **{f"base_{m}_{nc}": (SIM_BASE, m, SIM_WI, nc)
+       for m in MODES for nc in (48, 512)},
+    "base_CIDER_512_wc_off": (dict(SIM_BASE, wc_off=True), "CIDER", SIM_WI,
+                              512),
+    "base_CIDER_512_cas_off": (dict(SIM_BASE, cas_off=True), "CIDER",
+                               SIM_WI, 512),
+    "base_CIDER_512_r3": (dict(SIM_BASE, n_replicas=3), "CIDER", SIM_WI,
+                          512),
+    "crash_MCS_lane3": (dict(SIM_CRASH, fail_lane=3), "MCS",
+                        ("write-only", 1), 16),
+    "crash_MCS_lanes": (dict(SIM_CRASH, fail_lanes=(3, 5, 9)), "MCS",
+                        ("write-only", 1), 16),
+}
+SIM_PINS = {
+    'default_CIDER_512': dict(
+        mode='CIDER', n_clients=512, ticks=32768, ops_done=402530,
+        throughput_mops=12.28424072265625, p50_us=36.0, p99_us=148.0,
+        retries=24839, mn_iops_used=1048954, cn_msgs=33659,
+        wc_rate=0.12364560884289559, wc_rate_local=0.0,
+        wc_rate_global=0.12364560884289559, avg_batch=8.305865102639297,
+        pess_ratio=0.15546573179330825, ideal_pess_ratio=0.02432690111330705,
+        deadlocks=0),
+    'base_OSYNC_48': dict(
+        mode='OSYNC', n_clients=48, ticks=8192, ops_done=64573,
+        throughput_mops=7.8824462890625, p50_us=6.0, p99_us=8.0, retries=2574,
+        mn_iops_used=163625, cn_msgs=0, wc_rate=0.010605594835536428,
+        wc_rate_local=0.010605594835536428, wc_rate_global=0.0, avg_batch=0.0,
+        pess_ratio=0.0, ideal_pess_ratio=0.014233015677835845, deadlocks=0),
+    'base_OSYNC_512': dict(
+        mode='OSYNC', n_clients=512, ticks=8192, ops_done=27054,
+        throughput_mops=3.302490234375, p50_us=6.0, p99_us=2047.0,
+        retries=35909, mn_iops_used=103222, cn_msgs=0,
+        wc_rate=0.03452675823763417, wc_rate_local=0.03452675823763417,
+        wc_rate_global=0.0, avg_batch=0.0, pess_ratio=0.0,
+        ideal_pess_ratio=0.05179013735645125, deadlocks=0),
+    'base_SPIN_48': dict(
+        mode='SPIN', n_clients=48, ticks=8192, ops_done=37474,
+        throughput_mops=4.574462890625, p50_us=10.0, p99_us=48.0,
+        retries=3240, mn_iops_used=133110, cn_msgs=0,
+        wc_rate=0.0258442999841446, wc_rate_local=0.0258442999841446,
+        wc_rate_global=0.0, avg_batch=0.0, pess_ratio=1.0,
+        ideal_pess_ratio=0.03937424026214259, deadlocks=0),
+    'base_SPIN_512': dict(
+        mode='SPIN', n_clients=512, ticks=8192, ops_done=60888,
+        throughput_mops=7.4326171875, p50_us=10.0, p99_us=1277.0,
+        retries=25801, mn_iops_used=233324, cn_msgs=0,
+        wc_rate=0.04569972533836328, wc_rate_local=0.04569972533836328,
+        wc_rate_global=0.0, avg_batch=0.0, pess_ratio=1.0,
+        ideal_pess_ratio=0.06803666567391377, deadlocks=0),
+    'base_MCS_48': dict(
+        mode='MCS', n_clients=48, ticks=8192, ops_done=44806,
+        throughput_mops=5.469482421875, p50_us=10.0, p99_us=34.0, retries=0,
+        mn_iops_used=155640, cn_msgs=4259, wc_rate=0.022125066242713303,
+        wc_rate_local=0.022125066242713303, wc_rate_global=0.0, avg_batch=0.0,
+        pess_ratio=1.0, ideal_pess_ratio=0.0, deadlocks=0),
+    'base_MCS_512': dict(
+        mode='MCS', n_clients=512, ticks=8192, ops_done=77390,
+        throughput_mops=9.447021484375, p50_us=15.0, p99_us=1139.0, retries=0,
+        mn_iops_used=262188, cn_msgs=9625, wc_rate=0.05798908807482463,
+        wc_rate_local=0.05798908807482463, wc_rate_global=0.0, avg_batch=0.0,
+        pess_ratio=1.0, ideal_pess_ratio=0.0, deadlocks=0),
+    'base_CIDER_48': dict(
+        mode='CIDER', n_clients=48, ticks=8192, ops_done=63446,
+        throughput_mops=7.744873046875, p50_us=6.0, p99_us=12.0, retries=2225,
+        mn_iops_used=162489, cn_msgs=820, wc_rate=0.006074268895985973,
+        wc_rate_local=0.0, wc_rate_global=0.006074268895985973,
+        avg_batch=2.2847682119205297, pess_ratio=0.024923288872189867,
+        ideal_pess_ratio=0.012618197758156428, deadlocks=0),
+    'base_CIDER_512': dict(
+        mode='CIDER', n_clients=512, ticks=8192, ops_done=98750,
+        throughput_mops=12.054443359375, p50_us=32.0, p99_us=152.0,
+        retries=11287, mn_iops_used=262507, cn_msgs=7009,
+        wc_rate=0.10683881952326901, wc_rate_local=0.0,
+        wc_rate_global=0.10683881952326901, avg_batch=8.78267254038179,
+        pess_ratio=0.13029025458083346, ideal_pess_ratio=0.04426787741203178,
+        deadlocks=0),
+    'base_CIDER_512_wc_off': dict(
+        mode='CIDER', n_clients=512, ticks=8192, ops_done=85039,
+        throughput_mops=10.3807373046875, p50_us=6.0, p99_us=1602.0,
+        retries=6754, mn_iops_used=224141, cn_msgs=3389, wc_rate=0.0,
+        wc_rate_local=0.0, wc_rate_global=0.0, avg_batch=0.0,
+        pess_ratio=0.042834890965732085,
+        ideal_pess_ratio=0.028509392995374305, deadlocks=0),
+    'base_CIDER_512_cas_off': dict(
+        mode='CIDER', n_clients=512, ticks=8192, ops_done=77980,
+        throughput_mops=9.51904296875, p50_us=33.0, p99_us=143.0, retries=0,
+        mn_iops_used=262503, cn_msgs=14383, wc_rate=0.16901661658576675,
+        wc_rate_local=0.0, wc_rate_global=0.16901661658576675,
+        avg_batch=4.986094316807739, pess_ratio=1.0, ideal_pess_ratio=0.0,
+        deadlocks=0),
+    'base_CIDER_512_r3': dict(
+        mode='CIDER', n_clients=512, ticks=8192, ops_done=51432,
+        throughput_mops=6.2783203125, p50_us=64.0, p99_us=293.0, retries=8444,
+        mn_iops_used=262830, cn_msgs=3398, wc_rate=0.09922800998128509,
+        wc_rate_local=0.0, wc_rate_global=0.09922800998128509,
+        avg_batch=9.268608414239482, pess_ratio=0.11930754834684966,
+        ideal_pess_ratio=0.06019962570180911, deadlocks=0),
+    'crash_MCS_lane3': dict(
+        mode='MCS', n_clients=16, ticks=6144, ops_done=817,
+        throughput_mops=0.13297526041666666, p50_us=104.0, p99_us=524.0,
+        retries=0, mn_iops_used=4115, cn_msgs=1648, wc_rate=0.0,
+        wc_rate_local=0.0, wc_rate_global=0.0, avg_batch=0.0, pess_ratio=1.0,
+        ideal_pess_ratio=0.0, deadlocks=15),
+    'crash_MCS_lanes': dict(
+        mode='MCS', n_clients=16, ticks=6144, ops_done=814,
+        throughput_mops=0.13248697916666666, p50_us=90.0, p99_us=531.0,
+        retries=0, mn_iops_used=4100, cn_msgs=1642, wc_rate=0.0,
+        wc_rate_local=0.0, wc_rate_global=0.0, avg_batch=0.0, pess_ratio=1.0,
+        ideal_pess_ratio=0.0, deadlocks=13),
+}
+SIM_EAGER_TICKS = 256      # ticks run eagerly and graphed from one state
+
+
+def sim_streams(dev, over: dict, workload: tuple, cache: dict):
+    """``make_streams`` of one pinned run, shared by runs of one shape."""
+    from repro_torch.core import sim
+    from repro_torch.core.simnet import SimParams
+    from repro_torch.workloads.ycsb import WORKLOADS
+    p = SimParams(**over)
+    key = (p.n_lanes, p.max_ops, p.h_bits, p.hc_bits, p.hl_bits, workload)
+    if key not in cache:
+        cache[key] = sim.make_streams(p, WORKLOADS[workload[0]], workload[1],
+                                      seed=0, device=dev)
+    return p, cache[key]
+
+
+def graph_launches(record: list, out: dict) -> dict:
+    """Add to ``out[(kernel, N)]`` each kernel's launches in the replays of
+    a run's graphs beyond the one the launch counter recorded at capture
+    (every sort sweep of a tick runs at N = the lanes)."""
+    for g in record:
+        n_lanes = g.state.phase.shape[0]
+        for name, n in g.captured.items():
+            key = (name, n_lanes)
+            out[key] = out.get(key, 0) + n * (g.replays - 1)
+    return out
+
+
+def sim_pinned_runs(dev, card: str, streams: dict) -> dict:
+    """Every SIM_RUNS run through ``run_sim`` (CUDA graphs), each result
+    equal to its pin; returns the replays' extra launches by kernel."""
+    import torch
+    from repro_torch.core import sim
+    from repro_torch.core.types import SyncMode
+    extra: dict = {}
+    for name, (over, mode, workload, clients) in SIM_RUNS.items():
+        p, st = sim_streams(dev, over, workload, streams)
+        record = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = sim.run_sim(p, SyncMode[mode], st, clients, record=record)
+        wall = time.perf_counter() - t0
+        got, want = dataclasses.asdict(r), SIM_PINS[name]
+        for field, v in want.items():
+            check(got[field] == v, f"sim {name}: {field} {got[field]!r}, "
+                                   f"pinned {v!r}")
+        graph_launches(record, extra)
+        say(f"  sim {name}: == SIM_PINS ({r.row()}); {p.n_lanes} lanes x "
+            f"{p.ticks} ticks in {wall:.2f} s wall = "
+            f"{wall / p.ticks * 1e3:.4f} ms a tick (capture included), "
+            f"{len(record)} graph(s), peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card}]")
+    return extra
+
+
+def sim_states_equal(a, b, what: str) -> None:
+    from repro_torch import interop
+    import numpy as np
+    x, y = interop.sim_state_to_numpy(a), interop.sim_state_to_numpy(b)
+    for name in x:
+        if name == "net":
+            for g in x["net"]:
+                check(np.array_equal(x["net"][g], y["net"][g]),
+                      f"{what}: net.{g} differs")
+        else:
+            check(np.array_equal(x[name], y[name]), f"{what}: {name} differs")
+
+
+def sim_graph_vs_eager(dev, card: str, streams: dict) -> dict:
+    """From one full-width state, ``SIM_EAGER_TICKS`` ticks eagerly and
+    through the graphs, in all four modes: every ``SimState`` field equal.
+    Returns the replays' extra launches by kernel."""
+    import torch
+    from repro_torch.core import sim
+    from repro_torch.core.types import SyncMode
+    over, _, workload, clients = SIM_RUNS["default_CIDER_512"]
+    p, st = sim_streams(dev, over, workload, streams)
+    n = SIM_EAGER_TICKS
+    extra: dict = {}
+    for mode in MODES:
+        s0 = sim.initial_state(p, st, clients)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        eager = sim.advance(p, SyncMode[mode], st, s0, 0, n, graph=False)
+        torch.cuda.synchronize(dev)
+        t_eager = time.perf_counter() - t0
+        record = []
+        t0 = time.perf_counter()
+        graphed = sim.advance(p, SyncMode[mode], st, s0, 0, n, graph=True,
+                              record=record)
+        torch.cuda.synchronize(dev)
+        t_graph = time.perf_counter() - t0
+        sim_states_equal(eager, graphed, f"sim {mode}: graph vs eager")
+        graph_launches(record, extra)
+        say(f"  sim {mode}: {n} ticks graphed == eager, every SimState "
+            f"field; eager {t_eager / n * 1e3:.4f} ms a tick, graphed "
+            f"{t_graph:.2f} s with its capture [{card}]")
+    return extra
+
+
+def sim_replay_profile(dev, card: str, streams: dict, replays: int = 20):
+    """The default run's program as one ``TickGraph``: ms a tick by
+    replay, replays under ``set_sync_debug_mode("error")``, and one
+    profiled replay (kernels a tick, device busy, idle share).  Returns
+    the graph."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import sim
+    from repro_torch.core.types import SyncMode
+    over, mode, workload, clients = SIM_RUNS["default_CIDER_512"]
+    p, st = sim_streams(dev, over, workload, streams)
+    state = sim.initial_state(p, st, clients)
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    k = sim.GRAPH_TICKS
+    g = sim.TickGraph(p, SyncMode[mode], st, state, t, k)
+    g.replay()
+    ms = cuda_ms(g.replay, iters=replays, warmup=1) / k
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    g.replay()
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.replay()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in events)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    check(n_kernels > 0, "the profiler saw no kernel of a graph replay")
+    idle = 1.0 - busy / wall
+    say(f"  sim graph: {k} ticks a replay, {g.replays} replays; "
+        f"{ms:.4f} ms a tick by replay (CUDA events over {replays} "
+        f"replays); 4 replays under set_sync_debug_mode('error'): no host "
+        f"sync; one profiled replay: {n_kernels / k:.1f} kernels a tick, "
+        f"device busy {busy:.3f} ms of {wall:.3f} ms unprofiled wall, idle "
+        f"share {idle:.4f}; launches captured a replay: {g.captured} "
+        f"[{card}]")
+    return g
+
+
+def window_loop_sync_free(dev, card: str) -> None:
+    """A window loop (YCSB E, SCAN on, all four modes) on the card under
+    ``set_sync_debug_mode("error")``."""
+    import torch
+    from repro_torch.analysis import device_check
+    from repro_torch.core.types import SyncMode
+    for mode in SyncMode:
+        fn, *args = device_check._window_loop_case(mode, dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    say(f"  runner.run_windows (YCSB E, SCAN on, 4 modes) under "
+        f"set_sync_debug_mode('error'): no host sync [{card}]")
+
+
+def phase13_sim(dev, card: str) -> dict:
+    """The protocol simulator on the card; returns each kernel's launches
+    in graph replays beyond the captures the counters recorded, by
+    ``(kernel, N)``."""
+    from repro_torch.analysis import race_check
+    streams: dict = {}
+    t0 = time.perf_counter()
+    extra = sim_pinned_runs(dev, card, streams)
+    say(f"  (pinned runs: {time.perf_counter() - t0:.1f} s)")
+    for k, v in sim_graph_vs_eager(dev, card, streams).items():
+        extra[k] = extra.get(k, 0) + v
+    graph_launches([sim_replay_profile(dev, card, streams)], extra)
+    window_loop_sync_free(dev, card)
+    notes: list = []
+    record: list = []
+    viols = race_check._sim_conformance(notes, device=dev, record=record)
+    check(not viols, f"race_check tick conformance: {viols}")
+    graph_launches(record, extra)
+    say(f"  {notes[0]}: no violation")
+    return extra
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2388,7 +2721,17 @@ def main() -> int:
     phase12_sharded(dev, card, n_keys=1 << 24, windows=64, batch=4096,
                     n_cns=64, credit_table=4096)
     mark(12)
-    launches = {name: c.count for name, c in counters.items()}
+    phase(13, "the protocol simulator: pinned runs through CUDA graphs, "
+              "graph vs eager, replay, race_check conformance")
+    replayed = phase13_sim(dev, card)
+    mark(13)
+    # a graph's kernels were counted once, at capture: add their replays
+    for (name, n_lanes), n in replayed.items():
+        per_phase[13][name] += n
+        by_size = counters[name].by_size
+        by_size[n_lanes] = by_size.get(n_lanes, 0) + n
+    say(f"  phase 13 launches beyond the captures: {replayed}")
+    launches = dict(per_phase[13])
     say(f"  main-path launches: {launches}; cumulative after each phase: "
         f"{per_phase}")
     for name, n in launches.items():
@@ -2397,7 +2740,7 @@ def main() -> int:
         by_n = dict(sorted(counters[name].by_size.items()))
         say(f"  {name} main-path launches by N: {by_n}")
     before = {2: {n: 0 for n in counters}}
-    before.update({k: per_phase[k - 1] for k in range(3, 13)})
+    before.update({k: per_phase[k - 1] for k in range(3, 14)})
     for phase, names in ((2, ("wc_combine",)), (3, ("wc_combine",
                                                     "scan_probe")),
                          (4, ("wc_combine", "scan_probe")),
@@ -2406,7 +2749,8 @@ def main() -> int:
                          (7, ("wc_combine",)), (8, ("wc_combine",)),
                          (9, ("wc_combine",)), (10, ("wc_combine",)),
                          (11, ("wc_combine",)),
-                         (12, ("wc_combine", "scan_probe"))):
+                         (12, ("wc_combine", "scan_probe")),
+                         (13, ("wc_combine",))):
         for name in names:
             check(per_phase[phase][name] > before[phase][name],
                   f"{name} was not launched in phase {phase}")

@@ -167,11 +167,15 @@ def _backoff_polls(wait_rounds, cap: int):
 def _scatter_set(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """A copy of ``dst`` with ``dst[idx] = src`` on the lanes of ``mask``
-    whose index is in range — the reference's ``.at[].set(mode="drop")``."""
-    keep = mask & (idx >= 0) & (idx < dst.shape[0])
-    out = dst.clone()
-    out[idx[keep].long()] = src[keep]
-    return out
+    whose index is in range — the reference's ``.at[].set(mode="drop")``;
+    the kept lanes' indices are distinct.  The other lanes write a spare
+    slot past the end, so no boolean mask sizes a tensor (which would make
+    the host wait for the device)."""
+    n = dst.shape[0]
+    keep = mask & (idx >= 0) & (idx < n)
+    out = torch.cat([dst, dst.new_zeros(1)])
+    out[torch.where(keep, idx, n).long()] = src
+    return out[:n]
 
 
 def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
@@ -459,8 +463,9 @@ def apply_batch(cfg: EngineConfig, state: StoreState, credits: CreditState,
         ro_bytes = ro_bytes + n_repair * cfg.lock_bytes
         if cfg.mode == SyncMode.SPIN:
             # spinners re-CAS the orphaned word until the lease expires
-            pollc = int(_backoff_polls(
-                torch.tensor(cfg.lease_poll_rounds), cfg.backoff_cap))
+            pollc = _backoff_polls(
+                torch.full((), cfg.lease_poll_rounds, dtype=_I32,
+                           device=dev), cfg.backoff_cap)
             lease_polls = per_op_orphan * pollc
             polls_lease = s(lease_polls)
             cas = cas + polls_lease

@@ -1,17 +1,27 @@
-"""Cost model of the disaggregated-memory fabric (port of the ``SimParams``
-half of ``repro.core.simnet``).
+"""Cost model of the disaggregated-memory fabric (port of
+``repro.core.simnet``).
 
-The memory-pool NIC is the bottleneck resource: ``mn_cap`` verbs and
-``mn_bw`` bytes per tick (1 tick == 1 us); CN<->CN messages cost ``cn_rtt``
-and are uncontended.  ``runner.modeled_throughput``/``modeled_latency`` read
-these constants.  The tick simulator (``NetState``/``issue_mn``) belongs to
-the protocol-simulator slice of the port.
+The memory-pool NIC is the bottleneck resource: a token-bucket server with
+``mn_cap`` verbs and ``mn_bw`` bytes per tick (1 tick == 1 us); excess
+arrivals queue FIFO by lane id within a tick, so a verb issued under backlog
+*B* completes after ``rtt + B/cap`` ticks.  Atomics on one (hashed) address
+serialize at ``addr_atomic_cap`` per tick behind their own backlog.  CN<->CN
+messages cost ``cn_rtt`` and are uncontended.  ``runner.modeled_throughput``
+/``modeled_latency`` read the constants; the protocol simulator
+(``core.protocol.tick``) issues its verbs through ``issue_mn``.
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["SimParams"]
+import torch
+
+from repro_torch.core.combine import (_first_last_rank, _unsort, cumsum_i32,
+                                      lexsort2, sum_i32)
+
+__all__ = ["SimParams", "NetState", "net_init", "issue_mn"]
+
+_I32 = torch.int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,3 +69,63 @@ class SimParams:
     # lease a blocked queue waits out before breaking an orphaned lock
     # (runner.modeled_latency)
     lease_us: int = 512
+
+
+@dataclasses.dataclass
+class NetState:
+    backlog: torch.Tensor       # () int32: queued MN verbs
+    byte_backlog: torch.Tensor  # () int32: queued MN bytes
+    addr_backlog: torch.Tensor  # (H,) int32: queued same-address atomics
+
+
+def net_init(h_size: int, device: str | torch.device = "cuda") -> NetState:
+    return NetState(
+        backlog=torch.zeros((), dtype=_I32, device=device),
+        byte_backlog=torch.zeros((), dtype=_I32, device=device),
+        addr_backlog=torch.zeros((h_size,), dtype=_I32, device=device))
+
+
+def run_rank(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """0-based rank of each lane among the lanes with its ``key``, by lane
+    id: the run rank of a stable sort on ``key`` (``jnp.lexsort((ids,
+    key))``), through the ``wc_combine`` kernel on a card."""
+    order = lexsort2(ids, key)
+    _, _, rank = _first_last_rank(key[order], "auto")
+    return _unsort(order, rank)
+
+
+def issue_mn(net: NetState, t: torch.Tensor, issue: torch.Tensor,
+             nbytes: torch.Tensor, cost: torch.Tensor,
+             is_atomic: torch.Tensor, hkey: torch.Tensor, p: SimParams
+             ) -> tuple[NetState, torch.Tensor]:
+    """Issue MN verbs for the masked lanes; returns ``(net', done_at)``.
+
+    ``issue``: (N,) bool; ``nbytes``: (N,) int32 wire bytes; ``cost``: (N,)
+    int32 capacity tokens; ``is_atomic``/``hkey``: concurrent atomics on one
+    hashed address pass at ``addr_atomic_cap`` per tick behind their own
+    per-address FIFO backlog.  Global queueing is FIFO by lane id within the
+    tick, behind the backlog.  ``t`` is the tick as a 0-dim int32 tensor.
+    """
+    h = net.addr_backlog.shape[0]
+    c = cost * issue
+    iops_delay = (net.backlog + cumsum_i32(c) - c) // p.mn_cap
+    nb_m = nbytes * issue
+    bw_delay = (net.byte_backlog + cumsum_i32(nb_m) - nb_m) // p.mn_bw
+    # per-address atomic serialization; lanes without an atomic sort last
+    # on the sentinel H and are dropped from the arrivals
+    atom = issue & is_atomic
+    ah = torch.where(atom, hkey, h)
+    ids = torch.arange(issue.shape[0], dtype=_I32, device=issue.device)
+    arank = run_rank(ah, ids)
+    addr_q = net.addr_backlog.index_select(0, hkey.clamp(0, h - 1))
+    addr_delay = (addr_q + arank) // p.addr_atomic_cap * atom
+    delay = torch.maximum(torch.maximum(iops_delay, bw_delay), addr_delay)
+    done_at = t + p.rtt + delay * issue
+    arrivals = torch.zeros((h,), dtype=_I32, device=issue.device).index_add_(
+        0, hkey * atom, atom.to(_I32))
+    net2 = NetState(
+        backlog=(net.backlog + sum_i32(c) - p.mn_cap).clamp_min(0),
+        byte_backlog=(net.byte_backlog + sum_i32(nb_m) - p.mn_bw).clamp_min(0),
+        addr_backlog=(net.addr_backlog + arrivals
+                      - p.addr_atomic_cap).clamp_min(0))
+    return net2, done_at

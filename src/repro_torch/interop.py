@@ -15,6 +15,11 @@ builds the port's tensors with the same keys, shapes and dtypes, and
 arrays come in as their bits: the reference's numpy bf16 dtype
 (``ml_dtypes``) is recognised by its name and reinterpreted through int16,
 so the port never imports it.
+
+The protocol simulator's ``SimState`` travels as a dict of numpy arrays
+keyed by its field names, ``net`` a dict keyed by ``NetState``'s:
+``sim_state_from_numpy`` builds the port's state from the reference's after
+any tick, and ``sim_state_to_numpy`` gives it back.
 """
 from __future__ import annotations
 
@@ -25,10 +30,13 @@ import torch
 
 from repro_torch.core.credits import CreditState
 from repro_torch.core.engine import StoreState
+from repro_torch.core.protocol import SimState
+from repro_torch.core.simnet import NetState
 from repro_torch.core.types import as_device, as_i32, to_numpy
 
 __all__ = ["state_from_numpy", "state_to_numpy", "credits_from_numpy",
-           "credits_to_numpy", "params_from_numpy", "params_to_numpy"]
+           "credits_to_numpy", "params_from_numpy", "params_to_numpy",
+           "sim_state_from_numpy", "sim_state_to_numpy"]
 
 
 def state_from_numpy(ptr, meta, epoch, heap, heap_top,
@@ -77,3 +85,27 @@ def params_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def sim_state_from_numpy(state: dict, device: str | torch.device = "cuda"
+                         ) -> SimState:
+    """A ``SimState`` as a dict of int32 arrays (``net`` a dict of the
+    ``NetState`` fields) -> the port's ``SimState`` on ``device``."""
+    out = {}
+    for f in dataclasses.fields(SimState):
+        v = state[f.name]
+        if f.name == "net":
+            out["net"] = NetState(**{g.name: as_i32(v[g.name], device)
+                                     for g in dataclasses.fields(NetState)})
+        else:
+            out[f.name] = as_i32(v, device)
+    return SimState(**out)
+
+
+def sim_state_to_numpy(state: SimState) -> dict:
+    """The port's ``SimState`` -> a dict of numpy arrays, ``net`` a dict."""
+    out = {f.name: to_numpy(getattr(state, f.name))
+           for f in dataclasses.fields(SimState) if f.name != "net"}
+    out["net"] = {g.name: to_numpy(getattr(state.net, g.name))
+                  for g in dataclasses.fields(NetState)}
+    return out

@@ -740,3 +740,101 @@ def test_shard_failover_on_card_equals_cpu(cuda_device, mode):
         _trees_equal(getattr(card, name), getattr(cpu, name), name)
     assert card.recovery_io == cpu.recovery_io
     assert card.n_shards == cpu.n_shards == 2
+
+
+# ---------------------------------------------------------------------------
+# the protocol simulator: ticks replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _sim_case(dev, **over):
+    from repro_torch.core import sim
+    from repro_torch.core.simnet import SimParams
+    p = SimParams(**{**dict(n_lanes=512, max_ops=256, ticks=300), **over})
+    streams = sim.make_streams(p, WORKLOADS["write-intensive"], 1_000_000,
+                               seed=3, device=dev)
+    return p, streams
+
+
+def _sim_states_equal(a, b):
+    from repro_torch import interop
+    x, y = interop.sim_state_to_numpy(a), interop.sim_state_to_numpy(b)
+    for name in x:
+        if name == "net":
+            for g in x["net"]:
+                np.testing.assert_array_equal(x["net"][g], y["net"][g],
+                                              err_msg=f"net.{g}")
+        else:
+            np.testing.assert_array_equal(x[name], y[name], err_msg=name)
+
+
+@pytest.mark.parametrize("mode", list(SyncMode), ids=lambda m: m.name)
+def test_sim_graph_replay_equals_eager_on_card(cuda_device, mode):
+    """300 ticks (4 replays of a 64-tick graph and one 44-tick graph) equal
+    300 eager ticks on the card and on the CPU, every ``SimState`` field;
+    each graph captures two ``wc_combine`` launches a tick."""
+    from repro_torch.core import sim
+    p, st = _sim_case(cuda_device)
+    s0 = sim.initial_state(p, st, 400)
+    record = []
+    graphed = sim.advance(p, mode, st, s0, 0, p.ticks, record=record)
+    eager = sim.advance(p, mode, st, s0, 0, p.ticks, graph=False)
+    _sim_states_equal(graphed, eager)
+    assert [(g.n, g.replays) for g in record] == [(64, 4), (44, 1)]
+    assert [g.captured["wc_combine"] for g in record] == [128, 88]
+    p_cpu, st_cpu = _sim_case("cpu")
+    cpu = sim.advance(p_cpu, mode, st_cpu, sim.initial_state(p_cpu, st_cpu,
+                                                             400),
+                      0, p.ticks)
+    _sim_states_equal(graphed, cpu)
+
+
+def test_sim_tick_count_not_a_multiple_of_the_graph(cuda_device):
+    """400 ticks = 6 replays of 64 + one graph of 16, crash and repair on:
+    ``run_sim`` on the card equals it on the CPU."""
+    from repro_torch.core import sim
+    over = dict(n_lanes=64, max_ops=128, ticks=400, lanes_per_cn=1,
+                local_wc=False, fail_lanes=(3, 5, 9), fail_tick=100,
+                max_wait=64)
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        from repro_torch.core.simnet import SimParams
+        p = SimParams(**over)
+        st = sim.make_streams(p, WORKLOADS["write-only"], 1, device=dev)
+        record = []
+        results[dev.type] = sim.run_sim(p, SyncMode.MCS, st, 16,
+                                        record=record)
+        if dev.type == "cuda":
+            assert [(g.n, g.replays) for g in record] == [(64, 6), (16, 1)]
+    assert dataclasses.asdict(results["cuda"]) == \
+        dataclasses.asdict(results["cpu"])
+    assert results["cpu"].deadlocks >= 3
+
+
+def test_sim_replay_makes_no_host_sync(cuda_device):
+    """Graph replays under ``set_sync_debug_mode("error")`` (which raises on
+    a synchronizing call) advance the state like eager ticks."""
+    from repro_torch.core import sim
+    p, st = _sim_case(cuda_device)
+    s0 = sim.initial_state(p, st, 512)
+    state = sim._state_map(torch.clone, s0)
+    t = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    g = sim.TickGraph(p, SyncMode.CIDER, st, state, t, 32)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(t) == 96
+    _sim_states_equal(state, sim.advance(p, SyncMode.CIDER, st, s0, 0, 96,
+                                         graph=False))
+
+
+def test_sim_race_check_conformance_on_card(cuda_device):
+    from repro_torch.analysis import race_check
+    notes, record = [], []
+    assert race_check._sim_conformance(notes, device=cuda_device,
+                                       record=record) == []
+    assert "on cuda" in notes[0]
+    # two runs of 400 ticks: 6 replays of 64 ticks and one graph of 16
+    assert [(g.n, g.replays) for g in record] == [(64, 6), (16, 1)] * 2

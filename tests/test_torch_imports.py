@@ -48,7 +48,9 @@ def test_port_sources_exist():
                 "dist/__init__.py", "dist/store.py", "launch/mesh.py",
                 "stores/race_hash.py",
                 "workloads/recovery.py", "workloads/dynamic.py",
-                "workloads/openloop.py"):
+                "workloads/openloop.py", "core/protocol.py", "core/sim.py",
+                "analysis/__init__.py", "analysis/race_check.py",
+                "analysis/bill_lint.py", "analysis/device_check.py"):
         assert rel in mods, rel
     for cu in ("wc_combine.cu", "scan_probe.cu", "paged_attention.cu",
                "flash_attention.cu"):
