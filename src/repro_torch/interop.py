@@ -14,7 +14,9 @@ builds the port's tensors with the same keys, shapes and dtypes, and
 ``params_to_numpy`` returns numpy arrays, bf16 ones as exact float32.  bf16
 arrays come in as their bits: the reference's numpy bf16 dtype
 (``ml_dtypes``) is recognised by its name and reinterpreted through int16,
-so the port never imports it.
+so the port never imports it.  A decode state (any family's dict of
+caches and recurrent states) travels the same way:
+``decode_state_from_numpy`` / ``decode_state_to_numpy``.
 
 The protocol simulator's ``SimState`` travels as a dict of numpy arrays
 keyed by its field names, ``net`` a dict keyed by ``NetState``'s:
@@ -36,6 +38,7 @@ from repro_torch.core.types import as_device, as_i32, to_numpy
 
 __all__ = ["state_from_numpy", "state_to_numpy", "credits_from_numpy",
            "credits_to_numpy", "params_from_numpy", "params_to_numpy",
+           "decode_state_from_numpy", "decode_state_to_numpy",
            "sim_state_from_numpy", "sim_state_to_numpy"]
 
 
@@ -85,6 +88,18 @@ def params_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def decode_state_from_numpy(state: dict,
+                            device: str | torch.device = "cuda") -> dict:
+    """A decode state of numpy arrays (the reference's, bf16 included) ->
+    the port's dict of tensors on ``device``."""
+    return params_from_numpy(state, device)
+
+
+def decode_state_to_numpy(state: dict) -> dict:
+    """The port's decode state -> numpy arrays (bf16 as exact float32)."""
+    return params_to_numpy(state)
 
 
 def sim_state_from_numpy(state: dict, device: str | torch.device = "cuda"

@@ -12,6 +12,7 @@ non-zero code.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,8 +22,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "LaunchCounter", "build", "library", "library_path",
-           "check", "stream_of", "require_cuda", "require_cuda_views"]
+__all__ = ["SOURCES", "LaunchCounter", "launch_tag", "build", "library",
+           "library_path", "check", "stream_of", "require_cuda",
+           "require_cuda_views"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -32,26 +34,43 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_TAGS: list[str] = []
+
+
+@contextlib.contextmanager
+def launch_tag(tag: str):
+    """Tally the launches made inside the block under ``tag`` as well, in
+    every counter's ``by_tag`` (the innermost tag when blocks nest)."""
+    _TAGS.append(tag)
+    try:
+        yield
+    finally:
+        _TAGS.pop()
 
 
 class LaunchCounter:
-    """Launches of one kernel: its wrapper adds one per launch, nowhere else;
-    ``by_size`` tallies them by problem size where the wrapper calls
-    ``add``."""
+    """Launches of one kernel: its wrapper calls ``add`` once per launch,
+    nowhere else; ``by_size`` tallies them by problem size (N, or the head
+    dim of an attention kernel) and ``by_tag`` by the caller's
+    ``launch_tag``."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
         self.by_size: dict[int, int] = {}
+        self.by_tag: dict[str, int] = {}
 
     def add(self, size: int) -> None:
         """One launch at problem size ``size``."""
         self.count += 1
         self.by_size[size] = self.by_size.get(size, 0) + 1
+        if _TAGS:
+            self.by_tag[_TAGS[-1]] = self.by_tag.get(_TAGS[-1], 0) + 1
 
     def reset(self) -> None:
         self.count = 0
         self.by_size.clear()
+        self.by_tag.clear()
 
 
 def _nvcc() -> str:

@@ -49,11 +49,15 @@
 //    split none (tests/test_torch_kernel_designs.py).  The lo product costs
 //    half again the useful operations, still at the tensor-core rate.
 //
-// f32 design (CUDA cores; TF32 would miss the 2e-5 tolerance).  One block
-// of 128 threads per (64-query tile, head, batch); Q and each 64-key K/V
-// tile staged in shared memory; a thread owns 8 query rows x 4 key columns
-// of the score tile and 8 rows x D/16 columns of the output; every product
-// an f32 FMA.  Same masks and tile skipping.
+// CUDA-core design: f32 at every D (TF32 would miss the 2e-5 tolerance),
+// and bf16 at the head dims the tensor-core tiles do not take (80, 96,
+// 256: not a multiple of the 64-column box, or, at 256, a Q tile and K/V
+// ring beyond shared memory).  One block of 128 threads per (64-query tile,
+// head, batch); Q and each 64-key K/V tile are converted to f32 as they are
+// staged in shared memory; a thread owns 8 query rows x 4 key columns of
+// the score tile and 8 rows x D/16 columns of the output; every product an
+// f32 FMA, and the output rounded once to the input's type.  Same masks and
+// tile skipping.
 //
 // On Hopper the blocks run in no order, so there is no carry between
 // blocks: the TPU kernel's kv grid axis is the loop over key tiles inside
@@ -72,6 +76,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 
+using attn::from_f32;
 using attn::load_chunk;
 
 struct Strides {  // element strides of a (B, S, heads, D) view
@@ -79,7 +84,7 @@ struct Strides {  // element strides of a (B, S, heads, D) view
 };
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// CUDA cores: f32, and bf16 at D 80, 96 and 256
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // query rows per block
@@ -91,14 +96,17 @@ constexpr int smem_floats() {
   return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H,
-              int KH, int S, Strides qs, Strides ks, Strides vs, Strides os,
-              int causal, int window, float scale) {
+flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int H, int KH, int S,
+             Strides qs, Strides ks, Strides vs, Strides os, int causal,
+             int window, float scale) {
   constexpr int LQ = D + 1, LK = D + 1, LV = D, LP = kBK + 1;
-  constexpr int V = 4, C = D / V, NJ = D / 16;
+  // V elements per 16-byte chunk, C chunks per row, NJ output columns a
+  // thread
+  constexpr int V = 16 / sizeof(T), C = D / V, NJ = D / 16;
+  static_assert(D % 16 == 0 && D % V == 0, "D must be a multiple of 16");
   extern __shared__ float smem[];
   float* Qs = smem;            // [kBQ][LQ], pre-scaled
   float* Ks = Qs + kBQ * LQ;   // [kBK][LK]
@@ -108,9 +116,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / KH);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + hk * ks.h;
-  const float* vb = v + b * vs.b + hk * vs.h;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
 
   for (int idx = tid; idx < kBQ * C; idx += kThreads) {
     const int r = idx / C, c = idx % C, pos = q0 + r;
@@ -228,7 +236,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = o + b * os.b + h * os.h;
+  T* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qpos = q0 + ty * 8 + i;
@@ -236,7 +244,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        ob[qpos * os.s + tx + 16 * j] = acc[i][j] / denom;
+        ob[qpos * os.s + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
     }
   }
 }
@@ -630,21 +638,25 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 // host
 // ---------------------------------------------------------------------------
 
+// the head dims the bf16 tensor-core tiles take
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KH, int S, Strides qs, Strides ks, Strides vs,
-               Strides os, int causal, int window, float scale,
-               cudaStream_t stream) {
+constexpr bool kTensorCores = D == 32 || D == 64 || D == 128;
+
+template <typename T, int D>
+int launch_cc(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int KH, int S, Strides qs, Strides ks, Strides vs,
+              Strides os, int causal, int window, float scale,
+              cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_cc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_f32<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, KH, S, qs, ks,
-      vs, os, causal, window, scale);
+  flash_fwd_cc<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), H, KH, S, qs, ks, vs, os,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -737,12 +749,15 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            Strides os, int causal, int window, float scale,
            cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
-                         window, scale, stream);
-  if (dtype == 1)
+    return launch_cc<float, D>(q, k, v, o, B, H, KH, S, qs, ks, vs, os,
+                               causal, window, scale, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kTensorCores<D>)
     return launch_bf16<D>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
                           window, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  else
+    return launch_cc<__nv_bfloat16, D>(q, k, v, o, B, H, KH, S, qs, ks, vs,
+                                       os, causal, window, scale, stream);
 }
 
 }  // namespace
@@ -762,15 +777,17 @@ extern "C" int flash_attention_launch(
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   switch (D) {
-    case 32:
-      return launch<32>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os,
-                        causal, window, scale, stream);
-    case 64:
-      return launch<64>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os,
-                        causal, window, scale, stream);
-    case 128:
-      return launch<128>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os,
-                         causal, window, scale, stream);
+#define FLASH_CASE(DD)                                                     \
+  case DD:                                                                 \
+    return launch<DD>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal, \
+                      window, scale, stream);
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(80)
+    FLASH_CASE(96)
+    FLASH_CASE(128)
+    FLASH_CASE(256)
+#undef FLASH_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -779,12 +796,18 @@ extern "C" int flash_attention_launch(
 // dynamic shared memory of one block (dtype as above), 0 for an unknown D
 extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   switch (D) {
-    case 32:
-      return dtype ? tc::Geom<32>::SMEM : smem_floats<32>() * 4;
-    case 64:
-      return dtype ? tc::Geom<64>::SMEM : smem_floats<64>() * 4;
-    case 128:
-      return dtype ? tc::Geom<128>::SMEM : smem_floats<128>() * 4;
+#define FLASH_SMEM(DD)                                          \
+  case DD:                                                      \
+    if constexpr (kTensorCores<DD>)                             \
+      if (dtype) return tc::Geom<DD>::SMEM;                     \
+    return static_cast<int>(smem_floats<DD>() * sizeof(float));
+    FLASH_SMEM(32)
+    FLASH_SMEM(64)
+    FLASH_SMEM(80)
+    FLASH_SMEM(96)
+    FLASH_SMEM(128)
+    FLASH_SMEM(256)
+#undef FLASH_SMEM
     default:
       return 0;
   }

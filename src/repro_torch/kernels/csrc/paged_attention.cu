@@ -35,6 +35,8 @@
 //  * Scores: the g dot products of a position split D over 4 lanes of a
 //    warp (16-byte reads of every 4th chunk; K rows padded so that the reads
 //    fall in distinct banks), finished by two shuffles; 8 positions a warp.
+//    So D is one of 32, 64, 96, 128 and 256, whose rows split into a
+//    multiple of 4 chunks in either type.
 //  * Softmax: a warp per query head, a lane per position; P.V by threads
 //    that own (head, column pair).
 // With one split the block writes the output; with more, each writes its
@@ -135,6 +137,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int RC = D / CH;          // chunks per row
   constexpr int LK = k_stride<T, D>();
+  static_assert(RC % 4 == 0, "a row's chunks must split over 4 lanes");
   const int g = H / KH;
   const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int length = lengths[b];
@@ -352,18 +355,17 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
              long long qsb, long long qsh, Pool ks, Pool vs, long long btsb,
              long long osb, long long osh, float scale, cudaStream_t stream) {
   switch (D) {
-    case 32:
-      return launch<T, 32>(q, kp, vp, bt, lengths, o, part, B, H, KH, page,
-                           NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
-                           osh, scale, stream);
-    case 64:
-      return launch<T, 64>(q, kp, vp, bt, lengths, o, part, B, H, KH, page,
-                           NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
-                           osh, scale, stream);
-    case 128:
-      return launch<T, 128>(q, kp, vp, bt, lengths, o, part, B, H, KH, page,
-                            NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
-                            osh, scale, stream);
+#define PAGED_CASE(DD)                                                      \
+  case DD:                                                                  \
+    return launch<T, DD>(q, kp, vp, bt, lengths, o, part, B, H, KH, page, NP, \
+                         split, n_split, qsb, qsh, ks, vs, btsb, osb, osh,   \
+                         scale, stream);
+    PAGED_CASE(32)
+    PAGED_CASE(64)
+    PAGED_CASE(96)
+    PAGED_CASE(128)
+    PAGED_CASE(256)
+#undef PAGED_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -403,15 +405,16 @@ extern "C" int paged_attention_launch(
 // heads per kv head, 0 for an unknown D
 extern "C" int paged_attention_smem_bytes(int dtype, int D, int g) {
   switch (D) {
-    case 32:
-      return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 32>(g)
-                                    : smem_bytes<float, 32>(g));
-    case 64:
-      return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 64>(g)
-                                    : smem_bytes<float, 64>(g));
-    case 128:
-      return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 128>(g)
-                                    : smem_bytes<float, 128>(g));
+#define PAGED_SMEM(DD)                                              \
+  case DD:                                                          \
+    return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, DD>(g) \
+                                  : smem_bytes<float, DD>(g));
+    PAGED_SMEM(32)
+    PAGED_SMEM(64)
+    PAGED_SMEM(96)
+    PAGED_SMEM(128)
+    PAGED_SMEM(256)
+#undef PAGED_SMEM
     default:
       return 0;
   }

@@ -8,22 +8,25 @@ Replaces the Pallas TPU kernel
 H100 SXM: 4 * B * H * D * (unmasked query-key pairs) operations over 989
 TFLOP/s in bf16 (67 TFLOP/s in f32), or the bytes of q, k, v and out over
 3.35 TB/s, whichever is larger; at the prefill shape (B 2, S 4096, H 16,
-KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design in bf16: one block
-per (128-query tile, head, batch), longest tiles first; a producer warp
-streams the Q tile and a ring of 64-key K/V tiles into shared memory with
-TMA (tensor maps encoded in the C launcher, 128-byte swizzle); two
-consumer warpgroups run S = Q K^T and O += P V as ``wgmma`` on the tensor
-cores, the online softmax in registers, with P split into bf16 hi + lo so
-that the output stays within two bf16 ulps of the f32 reference.  In f32:
-one block per (64-query tile, head, batch), products as f32 FMAs on the
-CUDA cores.  Both skip key tiles their masks cover wholly; any S (rows past
-S read as zeros and are masked), any strides with a contiguous, 16-byte
-aligned D axis, D in {32, 64, 128}.
+KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design in bf16 at D 32,
+64 and 128: one block per (128-query tile, head, batch), longest tiles
+first; a producer warp streams the Q tile and a ring of 64-key K/V tiles
+into shared memory with TMA (tensor maps encoded in the C launcher,
+128-byte swizzle); two consumer warpgroups run S = Q K^T and O += P V as
+``wgmma`` on the tensor cores, the online softmax in registers, with P
+split into bf16 hi + lo so that the output stays within two bf16 ulps of
+the f32 reference.  In f32 at every D, and in bf16 at D 80, 96 and 256
+(which the 64-column tensor-core boxes do not take): one block per
+(64-query tile, head, batch), inputs converted to f32 as they are staged,
+products as f32 FMAs on the CUDA cores, one rounding at the store.  Both
+skip key tiles their masks cover wholly; any S (rows past S read as zeros
+and are masked), any strides with a contiguous, 16-byte aligned D axis, D
+in ``HEAD_DIMS``.
 
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.gqa_attention`` sends CPU tensors
-to its plain chunked version instead.  ``counter.count`` grows by one per
-launch.
+to its plain chunked version instead.  ``counter`` counts one per launch,
+tallied by head dim.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_ref", "counter",
            "HEAD_DIMS"]
 
 counter = build.LaunchCounter("flash_attention")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -85,5 +88,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.stride(0), out.stride(2), out.stride(1),
         int(bool(causal)), int(window), d ** -0.5, build.stream_of(q))
     build.check(lib, err, "flash_attention")
-    counter.count += 1
+    counter.add(d)
     return out

@@ -24,7 +24,8 @@ weights.
 any other; ``repro_torch.models.attention.decode_attention`` sends CPU
 tensors to the dense plain version instead.  A sequence of length <= 0
 averages every row of its pages, as the reference does.
-``counter.count`` grows by one per call that launches the kernel.
+``counter`` counts one per call that launches the kernel, tallied by head
+dim.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ __all__ = ["paged_attention_cuda", "paged_attention_ref", "counter",
            "split_plan", "HEAD_DIMS", "SPLIT", "TILE"]
 
 counter = build.LaunchCounter("paged_attention")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 TILE = 32           # positions per tile of the kernel
 SPLIT = 512         # positions per block, unless the span needs more
 _MAX_SPLITS = 65535  # the grid's z extent
@@ -116,5 +117,5 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         block_table.stride(0), out.stride(0), out.stride(1),
         d ** -0.5, build.stream_of(q))
     build.check(lib, err, "paged_attention")
-    counter.count += 1
+    counter.add(d)
     return out

@@ -5,10 +5,14 @@
         --smoke --requests 16 --max-new 8 --device cpu
 
 Without ``--device`` it runs on the GPU (and raises when there is none).
-Weights are random, from a seeded ``torch.Generator``.  Every token,
-prompt tokens included, goes through ``Model.decode_step`` (the
-``paged_attention`` kernel on a card); the prefix-cache page table runs on
-the CIDER engine (the ``wc_combine`` kernel on a card).
+``--arch`` takes any family with a decode step (all but the encoder,
+``hubert-xlarge``, for which it raises ``ValueError`` as the reference's
+``init_decode_state`` does); the vlm serves text only.  Weights are
+random, from a seeded ``torch.Generator``.  Every token, prompt tokens
+included, goes through ``Model.decode_step`` (the ``paged_attention``
+kernel on a card for the attention layers; an MoE layer's dispatch runs
+``wc_combine``); the prefix-cache page table runs on the CIDER engine (the
+``wc_combine`` kernel on a card).
 """
 from __future__ import annotations
 
@@ -90,6 +94,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name}: {cfg.family} has no decode state")
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     smax = args.prompt_len + args.max_new

@@ -1,10 +1,16 @@
 """Shared model building blocks (port of ``repro.models.common``): RMSNorm,
-RoPE and initialisers that draw from an explicit ``torch.Generator``.
+RoPE, initialisers that draw from an explicit ``torch.Generator``, and
+``associative_scan`` (the algorithm of ``jax.lax.associative_scan``, which
+the recurrent layers use).
 
 The port has no sharding yet, so parameters are plain tensors (no ``Param``
 boxes) and a parameter tree is a nested dict of them, with the same keys,
 shapes and dtypes as the reference's unboxed tree.  Every initialiser
-creates its tensor on the generator's device.
+creates its tensor on the generator's device and fills it a slab of the
+leading axis at a time (at most 256 MiB in f32, or one layer of a stacked
+weight whose layers are larger), so that init holds no more than that in
+f32 beside the weights: deepseek-moe-16b's (28, 64, 2048, 1408) expert
+weights would take 20.7 GB in f32 at once.
 """
 from __future__ import annotations
 
@@ -13,7 +19,12 @@ import math
 import torch
 
 __all__ = ["rms_norm", "rope", "apply_rope", "init_dense", "init_embed",
-           "init_scalar", "trunc_normal"]
+           "init_scalar", "trunc_normal", "associative_scan"]
+
+# f32 elements drawn at a time (256 MiB, a few percent of the smallest
+# full-width model's weights): as many leading indices (layers of a
+# stacked weight, rows of a 2-D one) as fit, at least one.
+_SLAB = 1 << 26
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
@@ -42,13 +53,25 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1)
 
 
+def _slabs(out: torch.Tensor):
+    """Views of ``out`` along its leading axis, each at most ``_SLAB``
+    elements unless one leading index is larger."""
+    per_row = out[0].numel() if out.dim() > 1 else 1
+    step = max(1, _SLAB // max(per_row, 1)) if out.dim() > 1 else _SLAB
+    return out.split(step) if out.numel() else ()
+
+
 def trunc_normal(gen: torch.Generator, shape, scale: float,
                  dtype=torch.bfloat16) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times ``scale``, drawn in f32
-    and cast to ``dtype`` (the reference's ``truncated_normal * scale``)."""
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * scale).to(dtype)
+    and cast to ``dtype`` (the reference's ``truncated_normal * scale``),
+    a slab at a time."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for slab in _slabs(out):
+        w = torch.empty(slab.shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        slab.copy_(w * scale)
+    return out
 
 
 def init_dense(gen: torch.Generator, in_dim: int, out_dims, dtype=torch.bfloat16,
@@ -60,11 +83,49 @@ def init_dense(gen: torch.Generator, in_dim: int, out_dims, dtype=torch.bfloat16
 
 def init_embed(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.bfloat16) -> torch.Tensor:
-    w = torch.empty((vocab, d), dtype=torch.float32, device=gen.device)
-    w.normal_(0.0, 1.0, generator=gen)
-    return (w * 0.02).to(dtype)
+    out = torch.empty((vocab, d), dtype=dtype, device=gen.device)
+    for slab in _slabs(out):
+        w = torch.empty(slab.shape, dtype=torch.float32, device=gen.device)
+        w.normal_(0.0, 1.0, generator=gen)
+        slab.copy_(w * 0.02)
+    return out
 
 
 def init_scalar(gen: torch.Generator, shape, fill: float = 1.0,
                 dtype=torch.float32) -> torch.Tensor:
     return torch.full(shape, fill, dtype=dtype, device=gen.device)
+
+
+def associative_scan(fn, elems: tuple, dim: int = 0) -> tuple:
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` with
+    the associative ``fn(left, right) -> tuple``, by the algorithm of
+    ``jax.lax.associative_scan``: combine neighbouring pairs, scan the
+    half-length result, then fix the even positions — 2 log2(n) levels of
+    tensor ops, and the reference's order of combination."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(x, start, stop=None, step=1):
+        return x.narrow(dim, 0, 0) if start >= x.shape[dim] else \
+            x[(slice(None),) * (dim % x.dim()) + (slice(start, stop, step),)]
+
+    odd = associative_scan(fn, fn(tuple(sl(e, 0, -1, 2) for e in elems),
+                                  tuple(sl(e, 1, None, 2) for e in elems)),
+                           dim)
+    if n % 2 == 0:
+        even = fn(tuple(sl(e, 0, -1) for e in odd),
+                  tuple(sl(e, 2, None, 2) for e in elems))
+    else:
+        even = fn(odd, tuple(sl(e, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([sl(e, 0, 1), r], dim) for e, r in zip(elems, even))
+    out = []
+    for ev, od in zip(even, odd):
+        # interleave: even positions from ``ev``, odd ones from ``od``
+        if od.shape[dim] < ev.shape[dim]:
+            od = torch.cat([od, torch.zeros_like(sl(ev, 0, 1))], dim)
+        both = torch.stack([ev, od], dim + 1 if dim >= 0 else dim)
+        shape = list(ev.shape)
+        shape[dim] = 2 * ev.shape[dim]
+        out.append(both.reshape(shape).narrow(dim, 0, n))
+    return tuple(out)

@@ -1,8 +1,8 @@
 """Model configuration shared by all 10 assigned architectures (a copy of
 ``repro.models.config``: the port imports nothing of the JAX package).
 
-The port's ``Model`` runs the ``dense`` family without a frontend; the
-other fields describe configurations it does not run yet.
+The port's ``Model`` runs every family; ``kimi-k2-1t-a32b`` only at its
+smoke size, since its full width fits no single card.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """The public Model API the serve entry point calls (port of
 ``repro.models.model``): ``init``, ``prefill``, ``decode_step`` and
-``init_decode_state`` for the dense family.  ``loss_fn`` and
-``cross_entropy`` arrive with the training slice."""
+``init_decode_state`` for every family.  ``loss_fn`` and ``cross_entropy``
+arrive with the training slice."""
 from __future__ import annotations
 
 import torch
@@ -18,7 +18,6 @@ class Model:
     functions; parameters are passed in, as in the reference."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        tfm.require_dense(cfg)
         self.cfg = cfg
         self.device = as_device(device)
 
@@ -30,10 +29,12 @@ class Model:
                              f"{self.device}")
         return tfm.init_params(self.cfg, generator)
 
-    def prefill(self, params, tokens: torch.Tensor):
-        """Last-position logits (B, 1, V) and the per-layer ``(k, v)``
-        caches, each (L, B, S, KH, hd)."""
-        logits, _, caches = tfm.forward(self.cfg, params, tokens,
+    def prefill(self, params, tokens: torch.Tensor, frontend=None):
+        """Last-position logits (B, 1, V) and the attention layers'
+        ``(k, v)`` caches, each (L_attn, B, S, KH, hd), or None for a
+        family without attention; ``frontend`` holds the stub features of
+        the encoder and the vlm."""
+        logits, _, caches = tfm.forward(self.cfg, params, tokens, frontend,
                                         return_cache=True)
         return logits[:, -1:, :], caches
 
@@ -41,4 +42,5 @@ class Model:
         return tfm.decode_step(self.cfg, params, state, token, pos)
 
     def init_decode_state(self, batch: int, smax: int) -> dict:
+        """Raises ``ValueError`` for the encoder (no decode state)."""
         return tfm.init_decode_state(self.cfg, batch, smax, self.device)

@@ -9,6 +9,7 @@ that has only PyTorch:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -24,6 +25,8 @@ from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.scan_probe import ops as sp  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import attention as tatt  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.kernels.wc_combine import ops as wcc  # noqa: E402
 from repro_torch.stores import PointerArray, SmartART  # noqa: E402
@@ -59,7 +62,8 @@ def sorted_keys(layout: str, n: int, seed: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("n", [1, 1000, 4096, 34816, 69632, 1 << 20])
+@pytest.mark.parametrize("n", [1, 6, 1000, 4096, 12288, 34816, 69632,
+                               1 << 20])
 def test_kernels_bit_equal_plain_on_card(cuda_device, layout, n):
     rng = np.random.default_rng(n)
     k = torch.as_tensor(sorted_keys(layout, n, seed=3), device=cuda_device)
@@ -453,6 +457,67 @@ def test_paged_attention_launches_per_split_plan(cuda_device):
         assert all(w in n for n, w in zip(names, want)), names
 
 
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
+    (2, 16, 16, 1024, 80, False, 0),     # hubert-xlarge
+    (1, 32, 32, 640, 96, True, 0),       # phi-3-vision: 576 patches + 64
+    (1, 16, 1, 4096, 256, True, 2048),   # recurrentgemma-9b
+    (1, 16, 16, 2048, 128, True, 0),     # deepseek-moe-16b: no grouping
+    (2, 4, 2, 129, 80, True, 0),         # ragged S at every new head dim
+    (1, 4, 1, 300, 96, False, 100),
+    (1, 4, 4, 65, 256, True, 0)])
+def test_flash_attention_new_head_dims_match_plain_on_card(cuda_device, dt, b,
+                                                           h, kh, s, d,
+                                                           causal, window):
+    """Head dims 80, 96 and 256 (the CUDA-core design in both dtypes) at
+    the shapes and masks of the models that use them, and ragged; and
+    deepseek-moe-16b's D 128 prefill, whose kv heads are its query heads."""
+    dtype, tol = ATT_DTYPES[dt]
+    q = _randn((b, h, s, d), dtype, cuda_device, d + 1)
+    k = _randn((b, kh, s, d), dtype, cuda_device, d + 2)
+    v = _randn((b, kh, s, d), dtype, cuda_device, d + 3)
+    c0 = fa.counter.by_size.get(d, 0)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.counter.by_size[d] == c0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_close(got, want, tol)
+    tr = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    _assert_close(fa.flash_attention_cuda(*tr, causal=causal, window=window),
+                  want, tol)
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("h,kh,d", [(32, 32, 96), (16, 1, 256),
+                                    (16, 16, 128)])
+def test_paged_attention_new_head_dims_match_plain_on_card(cuda_device, dt, h,
+                                                           kh, d):
+    """Head dims 96 (phi-3-vision) and 256 (recurrentgemma-9b, 16 query
+    heads on one kv head), and deepseek-moe-16b's D 128 with one query
+    head a kv head, at the serve shape, every length 1-40, and over a
+    permuted table whose span takes three splits and the merge."""
+    dtype, tol = ATT_DTYPES[dt]
+    tol = 3e-2 if dt == "bf16" else tol
+    q = _randn((1, h, d), dtype, cuda_device, d)
+    kp = _randn((1, 40, kh, d), dtype, cuda_device, d + 1)
+    vp = _randn((1, 40, kh, d), dtype, cuda_device, d + 2)
+    ident = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    for n in range(1, 41):
+        ln = torch.full((1,), n, dtype=torch.int32, device=cuda_device)
+        _assert_close(pa.paged_attention_cuda(q, kp, vp, ident, ln),
+                      pa.paged_attention_ref(q, kp, vp, ident, ln), tol)
+    q, kp, vp, bt, ln = _pages(3, h, kh, d, 16, 80, 5, dtype, cuda_device, d)
+    args = (q, kp, vp, torch.from_numpy(bt).to(cuda_device),
+            torch.from_numpy(ln).to(cuda_device))
+    assert pa.split_plan(80 * 16)[1] == 3
+    c0 = pa.counter.by_size.get(d, 0)
+    got = pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert pa.counter.by_size[d] == c0 + 1
+    _assert_close(got, pa.paged_attention_ref(*args), tol)
+
+
 def test_attention_wrappers_check_their_inputs_on_card(cuda_device):
     q = torch.zeros((1, 4, 64, 32), device=cuda_device)
     with pytest.raises(ValueError, match="expected one of"):
@@ -512,6 +577,79 @@ def _assert_close_model(got, want):
                                atol=6.25e-2)
     agree = (got.float().argmax(-1) == want.float().argmax(-1)).float().mean()
     assert float(agree) >= 0.9
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b",
+                                  "recurrentgemma-9b", "hubert-xlarge",
+                                  "phi-3-vision-4.2b"])
+def test_other_families_on_card_match_cpu(cuda_device, arch):
+    """Each other family's smoke config: a forward (with its frontend's
+    stub features) and four decode steps on the card against the same
+    weights on the CPU, the MoE routing of the CPU run replayed on the
+    card (``moe.pinned_routing``: a near-tie flips under the card's other
+    rounding), and the card's own choices differing from the CPU's in at
+    most 10 % of them (1.2-4 % at full width).  The hybrid runs at head dim 32: its smoke config's 16 is not a
+    head dim of the kernels.  Tolerance: the model tests' (the hybrid's
+    rtol 1e-1 / atol 1.5e-1; tests/test_torch_models.py says why)."""
+    cfg = get_config(arch, smoke=True)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, head_dim=32)
+    rtol, atol = (1e-1, 1.5e-1) if cfg.family == "hybrid" else (2e-2, 6.25e-2)
+    mc, mg = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
+    pc = mc.init(torch.Generator().manual_seed(0))
+    pg = _to(pc, cuda_device)
+    rng = np.random.default_rng(1)
+    n_text = 0 if cfg.family == "encoder" else 64 - cfg.n_patches
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, n_text)))
+    feats = None
+    if cfg.frontend:
+        n_front = 64 if cfg.frontend == "audio" else cfg.n_patches
+        feats = torch.from_numpy(rng.standard_normal(
+            (2, n_front, cfg.frontend_dim)).astype(np.float32)).bfloat16()
+    moe = cfg.family == "moe"
+    f0, p0 = dict(fa.counter.by_size), dict(pa.counter.by_size)
+    rec = []
+    with tmoe.pinned_routing(record=rec) if moe else contextlib.nullcontext():
+        lc, _, _ = ttfm.forward(cfg, pc, toks, feats)
+    flips = [0, 0]
+    with (tmoe.pinned_routing(replay=rec) if moe
+          else contextlib.nullcontext()) as f:
+        lg, _, _ = ttfm.forward(cfg, pg, toks.to(cuda_device),
+                                None if feats is None else
+                                feats.to(cuda_device))
+    if moe:
+        flips = list(f)
+    torch.testing.assert_close(lg.cpu().float(), lc.float(), rtol=rtol,
+                               atol=atol)
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // 3}.get(cfg.family,
+                                                         cfg.n_layers)
+    assert fa.counter.by_size.get(cfg.hd, 0) - f0.get(cfg.hd, 0) == n_attn
+    if not cfg.has_decode:
+        return
+    sc, sg = mc.init_decode_state(2, 8), mg.init_decode_state(2, 8)
+    for t in range(4):
+        tok = toks[:, t:t + 1]
+        rec = []
+        with tmoe.pinned_routing(record=rec) if moe else contextlib.nullcontext():
+            lc, sc = mc.decode_step(pc, sc, tok, t)
+        with (tmoe.pinned_routing(replay=rec) if moe
+              else contextlib.nullcontext()) as f:
+            lg, sg = mg.decode_step(pg, sg, tok.to(cuda_device), t)
+        if moe:
+            flips = [flips[0] + f[0], flips[1] + f[1]]
+        torch.testing.assert_close(lg.cpu().float(), lc.float(), rtol=rtol,
+                                   atol=atol)
+    if moe:
+        assert 0 < flips[1] and flips[0] <= 0.1 * flips[1], flips
+    assert pa.counter.by_size.get(cfg.hd, 0) - p0.get(cfg.hd, 0) == 4 * n_attn
+    for name in sc:
+        torch.testing.assert_close(sg[name].cpu().float(), sc[name].float(),
+                                   rtol=rtol, atol=atol)
 
 
 def test_serve_on_card_gives_reference_stats(cuda_device):

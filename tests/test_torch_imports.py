@@ -41,6 +41,8 @@ def test_port_sources_exist():
                 "kernels/flash_attention/ref.py", "models/config.py",
                 "models/common.py", "models/mlp.py", "models/attention.py",
                 "models/transformer.py", "models/model.py",
+                "models/moe.py", "models/ssm.py", "models/rglru.py",
+                "models/frontend.py",
                 "configs/__init__.py", "configs/qwen3_0_6b.py",
                 "serving/pagetable.py", "serving/scheduler.py",
                 "launch/serve.py", "recovery/__init__.py",

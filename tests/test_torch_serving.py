@@ -2,8 +2,9 @@
 CIDER-managed prefix-cache page table (results and verb bills bit for
 bit), the scheduler (stats and page assignment), and the serve loop
 (``--smoke --device cpu``) against the same loop driven with the JAX
-``Model`` on the same weights.  Also pins the full-config stats that
-``chip_smoke.py`` checks on the GPU."""
+``Model`` on the same weights, and the serve of every other decoder
+family.  Also pins the full-config stats that ``chip_smoke.py`` checks on
+the GPU (phase 6's ``qwen3-0.6b`` and phase 14's other families)."""
 from __future__ import annotations
 
 import importlib.util
@@ -112,11 +113,7 @@ def test_full_config_stats_are_pinned():
     _drive(js, _j_requests(reqs))
     _drive(ts, tserve.make_requests(vocab, 16, 32, 16, 8))
     assert js.stats == ts.stats == SERVE_STATS
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    assert smoke.SERVE_STATS == SERVE_STATS
+    assert _chip_smoke().SERVE_STATS == SERVE_STATS
 
 
 def test_serve_main_smoke_on_cpu_gives_reference_stats(capsys):
@@ -188,3 +185,50 @@ def test_serve_greedy_tokens_match_jax_loop():
         gap = row[a[first]] - row[b[first]]
         assert 0 <= gap <= 6.25e-2, (rid, first, a, b, gap)
     assert full >= 12, f"only {full} of 16 requests match in full"
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b",
+                                  "recurrentgemma-9b", "phi-3-vision-4.2b"])
+def test_other_family_serve_stats_are_pinned(arch):
+    """Each decoder family that ``chip_smoke.py`` phase 14 serves at full
+    width: the reference's scheduler over that vocabulary's default
+    stream (16 requests) gives the stats the script holds the GPU serve
+    to."""
+    smoke = _chip_smoke()
+    n = 16
+    vocab = j_get_config(arch).vocab
+    assert get_config(arch).vocab == vocab
+    js = JScheduler(n_slots=4, n_pages=1024, page_size=16)
+    ts = Scheduler(n_slots=4, n_pages=1024, page_size=16, device="cpu")
+    assert _drive(js, _j_requests(tserve.make_requests(vocab, n, 32, 16, 8))) \
+        == _drive(ts, tserve.make_requests(vocab, n, 32, 16, 8))
+    assert js.stats == ts.stats == smoke.SERVE_STATS_14[arch]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b",
+                                  "recurrentgemma-9b", "phi-3-vision-4.2b"])
+def test_serve_main_other_families_on_cpu(arch, capsys):
+    """``serve.main`` for every decoder family at its smoke config on the
+    CPU: the stats of the reference's scheduler over the same 4 requests."""
+    cfg = get_config(arch, smoke=True)
+    js = JScheduler(n_slots=4, n_pages=1024, page_size=16)
+    _drive(js, _j_requests(tserve.make_requests(cfg.vocab, 4, 32, 16, 4)))
+    stats = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--requests", "4", "--max-new", "4"])
+    assert stats == js.stats
+    assert "served 4 requests" in capsys.readouterr().out
+
+
+def test_serve_main_refuses_the_encoder():
+    """hubert-xlarge has no decode step: the serve raises as the
+    reference's ``init_decode_state`` does."""
+    with pytest.raises(ValueError, match="has no decode state"):
+        tserve.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
