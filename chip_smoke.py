@@ -6,10 +6,11 @@
 Phases (any mismatch raises, and the script exits non-zero):
 
 0. device and build — the card's name and power limit (``nvidia-smi``), then
-   ``nvcc`` builds all four kernels of ``src/repro_torch/kernels/csrc``; each
-   kernel's registers and spills (``ptxas -v``; the sort sweeps must not
-   spill), the attention kernels' shared memory per block at every head
-   dim (paged: 1, 2 and 16 query heads a kv head), and a check that
+   ``nvcc`` builds all five kernels of ``src/repro_torch/kernels/csrc``
+   (``flash_attention_bwd`` among them); each kernel's registers and spills
+   (``ptxas -v``; the sort sweeps must not spill), the attention kernels'
+   shared memory per block at every head dim (paged: 1, 2 and 16 query
+   heads a kv head; the backward's dK/dV and dQ blocks), and a check that
    ``cuobjdump -sass`` of the flash library holds ``HGMMA`` (bf16 runs on
    the tensor cores).
 1. each kernel against its plain PyTorch version on the card: the two sort
@@ -28,7 +29,12 @@ Phases (any mismatch raises, and the script exits non-zero):
    then the other families' shapes (``FLASH_NEW``, ``PAGED_NEW``: flash
    D 80, 96, 256 and deepseek-moe's ungrouped D 128; paged D 96, 256 and
    the ungrouped D 128, at every length 1-40); kernel, plain, library and
-   bound times.
+   bound times.  ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
+   (``BWD_TOL``), both fed the kernel forward's output and ``lse`` (itself
+   held to the plain version's): the training shape (B 2, S 4096, H 16, KH
+   8, D 128, causal) in bf16 and f32, no mask, a 1024-token window and a
+   ragged S, and a small shape at each other head dim; kernel, plain, SDPA
+   backward and bound times.
 2. the ``engine_json`` configuration (65,536 slots, batch 4096, 16 windows,
    write-intensive Zipf 0.99, 16 CNs) in all four SyncModes: every verb
    counter and the modeled Mops/s and latency percentiles must equal the
@@ -108,10 +114,24 @@ Phases (any mismatch raises, and the script exits non-zero):
     the choices the other side would have made must agree but for at most
     ``FLIP_MAX`` of them.
 
+15. training ``qwen3-0.6b`` at full width and depth (``TRAIN``):
+    ``repro_torch.launch.train.main`` for 8 steps at B 2 x S 4096 (random
+    weights and Zipf tokens from seeds): losses finite and the last below
+    the first; flash forward and backward launches a step (the forward
+    twice under ``remat="block"``); ms a step (host clock, synchronized),
+    tokens/s, peak memory and the idle share of one profiled step; the
+    loss and every gradient leaf on the card against the CPU on the same
+    weights at 2 layers of full width, B 1 x S 256 (``TRAIN_TOL``), every
+    leaf's gradient present and nonzero on the card; two steps with
+    ``--int8-grads``; and 2 + 2 steps with a restart through ``--ckpt``
+    against 4 straight steps (at B 1 x S 512; the state is the full
+    model's, 6 GB with the moments), within ``TRAIN_TOL``'s loss rtol (the
+    embedding's backward adds by atomics, so not bit for bit).
+
 Phases 7-12 print the wall time and peak device memory of their runs and
 the idle share of one profiled rerun each (phase 12: of its YCSB-A and
 hotspot runs only).  The launch counters are zeroed just before phase 2
-and read after phase 14; every kernel must have launched in that run, in
+and read after phase 15; every kernel must have launched in that run, in
 the phases that run it, and every head-dim instance of the attention
 kernels and ``wc_combine`` from the MoE dispatch (a launch tag) in phase
 14.  A kernel captured into a CUDA graph (phase 13) is counted once at capture, so its replays' launches
@@ -125,6 +145,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -176,6 +197,9 @@ KERNEL_META = {
 
 
 ATTN_META = {
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:95", main="train", d=128),
     "paged_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/paged_attention.py:61",
@@ -224,7 +248,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-_ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cc|paged_split_kernel|"
+_ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cc|flash_bwd_delta|"
+                    r"flash_bwd_dkdv|flash_bwd_dq|paged_split_kernel|"
                     r"paged_merge_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
 _SWEEP_ENTRY = re.compile(r"(wc_combine_kernel|scan_probe_kernel)")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -268,6 +293,16 @@ def attention_smem() -> None:
         fns[name] = fn
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS as FLASH_D
     from repro_torch.kernels.paged_attention.ops import HEAD_DIMS as PAGED_D
+    bwd = ctypes.CDLL(str(build.library_path("flash_attention_bwd")))
+    bwd.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    bwd.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    for which, block in ((0, "dK/dV"), (1, "dQ")):
+        sizes = {d: bwd.flash_attention_bwd_smem_bytes(d, which)
+                 for d in FLASH_D}
+        check(all(0 < b <= 232_448 for b in sizes.values()),
+              f"flash_attention_bwd shared memory {sizes} beyond 227 KB")
+        say(f"  dynamic shared memory per block, flash_attention_bwd "
+            f"{block} (f32 and bf16), by D: {sizes} B")
     for dtype, label in ((1, "bf16"), (0, "f32")):
         flash = {d: fns["flash_attention"](dtype, d) for d in FLASH_D}
         check(all(0 < b <= 232_448 for b in flash.values()),
@@ -734,7 +769,115 @@ def phase1_attention(dev, card: str) -> dict:
                 f"({row['bound_by']}) [{card}]")
             del q, kp, vp
     torch.cuda.empty_cache()
+    phase1_backward(dev, card, out)
     return out
+
+
+# the backward kernel against its plain version, both fed the kernel
+# forward's output and lse: (rtol, atol as a share of max(1, max |want|)).
+# f32: the two sum up to S products in other orders; bf16: both work in
+# f32 from the same bf16 inputs and round once (an ulp or two, 2^-7
+# relative each); the atol floor of 1 covers dS = P (dP - delta), which
+# cancels (to 0 at S = 1) in unit-scale inputs
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 1e-4)}
+# the backward's cases: (label, B, S, H, KH, D, causal, window); the first
+# is the training shape, whose bf16 numbers go into the kernel line
+BWD_CASES = (("train", 2, 4096, 16, 8, 128, True, 0),
+             ("non_causal", 2, 4096, 16, 8, 128, False, 0),
+             ("window", 2, 4096, 16, 8, 128, True, 1024),
+             ("ragged", 2, 1000, 16, 8, 128, True, 0),
+             ("d32", 1, 512, 4, 2, 32, True, 0),
+             ("d64", 1, 512, 4, 2, 64, False, 0),
+             ("d80", 1, 512, 4, 4, 80, False, 0),
+             ("d96", 1, 640, 8, 8, 96, True, 0),
+             ("d256", 1, 1024, 4, 1, 256, True, 256))
+
+
+def phase1_backward(dev, card: str, out: dict) -> None:
+    """``flash_attention_bwd`` against ``flash_attention_bwd_ref`` at
+    ``BWD_CASES`` in bf16 and f32 (and the forward's ``lse`` against the
+    plain version's), with kernel, plain, SDPA-backward and bound times;
+    fills ``out["flash_attention_bwd"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    row_out = out["flash_attention_bwd"]
+    for label, b, s, h, kh, d, causal, window in BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            q = _randn((b, h, s, d), dtype, dev, 21)
+            k = _randn((b, kh, s, d), dtype, dev, 22)
+            v = _randn((b, kh, s, d), dtype, dev, 23)
+            do = _randn((b, h, s, d), dtype, dev, 24)
+            kw = dict(causal=causal, window=window)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            _, lse_ref = fa.flash_attention_ref(q, k, v, return_lse=True,
+                                                **kw)
+            lse_err = float((lse - lse_ref).abs().max())
+            check(lse_err <= 1e-5 + 1e-5 * float(lse_ref.abs().max()),
+                  f"flash_attention lse {label} {dname}: max |diff| "
+                  f"{lse_err}")
+            del lse_ref
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            rtol, atol = BWD_TOL[dname]
+            err = 0.0
+            for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+                check(g.dtype == dtype and g.shape == w.shape
+                      and bool(torch.isfinite(g).all()),
+                      f"flash_attention_bwd {label} {dname} {name}: dtype, "
+                      f"shape or finiteness")
+                diff = (g.float() - w.float()).abs()
+                scale = max(float(w.float().abs().max()), 1.0)
+                bad = int((diff > atol * scale
+                           + rtol * w.float().abs()).sum())
+                check(bad == 0, f"flash_attention_bwd {label} {dname} "
+                                f"{name}: {bad} elements beyond rtol {rtol} "
+                                f"/ atol {atol} x {scale:.3g} (max |diff| "
+                                f"{float(diff.max())})")
+                err = max(err, float(diff.max()))
+            row_out["max_abs_err"] = max(row_out["max_abs_err"], err)
+            del got, want
+            args = (q, k, v, o, do, lse)
+            ms, call = timed(lambda: fa.flash_attention_bwd_cuda(*args, **kw),
+                             3)
+            plain, plain_call = timed(
+                lambda: fa.flash_attention_bwd_ref(*args, **kw), 2)
+            lib = lib_call = None        # SDPA has no sliding window
+            if not window:
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                ref_out = F.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, enable_gqa=True)
+                lib, lib_call = timed(lambda: torch.autograd.grad(
+                    ref_out, leaves, do, retain_graph=True), 3)
+                del leaves, ref_out
+            es = q.element_size()
+            nbytes = (4 * b * h * s * d + 4 * b * kh * s * d) * es \
+                + 4 * b * h * s
+            flops = 10 * b * h * d * flash_pairs(s, causal, window)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / FLOPS[dname] * 1e3
+            row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations", call_ms=call,
+                       plain_call_ms=plain_call, library_call_ms=lib_call,
+                       bound_f32_ms=flops / FLOPS["float32"] * 1e3)
+            if label == "train" and dtype == torch.bfloat16:
+                row_out.update(row)
+            say(f"  flash_attention_bwd {label} B{b} S{s} H{h} KH{kh} D{d} "
+                f"causal={causal} window={window}, {dname}: max |diff| "
+                f"{err:.3g} (lse {lse_err:.3g}); device: kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                f"SDPA backward {lib} ms; per call: {call:.4f} / "
+                f"{plain_call:.4f} / {lib_call} ms; bound "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+                f"{flops / 1e9:.2f} GFLOP; f32 CUDA-core bound "
+                f"{row['bound_f32_ms']:.4f} ms) [{card}]")
+            del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3167,6 +3310,187 @@ def phase14_families(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: training qwen3-0.6b at full width and depth
+# ---------------------------------------------------------------------------
+# The train entry point's run (phase 5's prefill shape, 8,192 tokens a
+# step), the card-against-CPU check at 2 layers of full width, and the
+# restart check's smaller batch (the checkpointed state is the full
+# model's either way).  TRAIN_TOL: the loss's rtol and each gradient
+# leaf's |g_card - g_cpu| / |g_cpu| (tests/test_torch_train.py's bounds:
+# bf16 matmuls round at other places in cuBLAS and on the CPU).
+TRAIN = dict(arch="qwen3-0.6b", batch=2, seq=4096, steps=8)
+TRAIN_CPU = dict(n_layers=2, batch=1, seq=256)
+TRAIN_CKPT = dict(batch=1, seq=512)
+TRAIN_TOL = dict(loss_rtol=2e-3, grad_rel=2e-2)
+
+
+def _train_args(**over) -> list:
+    c = dict(TRAIN, **over)
+    return ["--arch", c["arch"], "--batch", str(c["batch"]), "--seq",
+            str(c["seq"]), "--steps", str(c["steps"]), "--log_every", "1"]
+
+
+def _leaf_names(tree, prefix: str = ""):
+    """The paths of a parameter tree's leaves, in ``tree_leaves`` order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_names(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}"
+
+
+def train_vs_cpu(dev, card: str) -> None:
+    """The loss and every gradient leaf of ``TRAIN_CPU`` (2 layers of full
+    width) on the card against the CPU, on the same weights and tokens;
+    every leaf's gradient present and nonzero on the card."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    cfg = dc.replace(get_config(TRAIN["arch"]),
+                     n_layers=TRAIN_CPU["n_layers"])
+    params = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(3))
+    g = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_CPU["batch"],
+                                        TRAIN_CPU["seq"] + 1),
+                         generator=g, device=dev)
+    t0 = time.perf_counter()
+    out = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = tree_map(lambda x: x.detach().to(where).requires_grad_(True),
+                     params)
+        loss, _ = Model(cfg, device=where).loss_fn(
+            p, {"tokens": toks[:, :-1].to(where),
+                "targets": toks[:, 1:].to(where)})
+        leaves = tree_leaves(p)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out[name] = (float(loss.detach()), [None if x is None else x.cpu()
+                                   for x in grads])
+    (lg, gg), (lc, gc) = out["card"], out["cpu"]
+    check(abs(lg - lc) <= TRAIN_TOL["loss_rtol"] * abs(lc),
+          f"train card vs CPU: loss {lg} vs {lc}")
+    names = list(_leaf_names(params))
+    worst = 0.0
+    for name, a, b in zip(names, gg, gc):
+        check(a is not None and bool(a.abs().sum() > 0),
+              f"train on the card: {name} has no gradient or a zero one")
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        check(rel <= TRAIN_TOL["grad_rel"],
+              f"train card vs CPU: {name} off by {rel:.3g}")
+        worst = max(worst, rel)
+    say(f"  card vs CPU at {cfg.n_layers} layers of full width, B "
+        f"{TRAIN_CPU['batch']} x S {TRAIN_CPU['seq']}: loss {lg:.6f} / "
+        f"{lc:.6f}, {len(gg)} gradient leaves all present and nonzero on "
+        f"the card, worst leaf |diff| / |cpu| {worst:.3g} (bound "
+        f"{TRAIN_TOL['grad_rel']}); {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+
+
+def phase15_train(dev, card: str) -> dict:
+    """``launch.train.main`` on ``TRAIN`` (losses finite and falling),
+    launches, step time, tokens/s, peak memory and idle share; then the
+    card against the CPU, ``--int8-grads`` and a checkpoint restart."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = get_config(TRAIN["arch"])
+    out = {}
+    f0, b0 = fa.counter.count, fa.counter_bwd.count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train.main(_train_args())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = TRAIN["steps"]
+    fwd = (fa.counter.count - f0) / steps
+    bwd = (fa.counter_bwd.count - b0) / steps
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(bwd == cfg.n_layers and fwd == 2 * cfg.n_layers,
+          f"flash launches a step: forward {fwd}, backward {bwd}")
+    say(f"  train.main {TRAIN}: losses {[round(x, 4) for x in losses]}; "
+        f"{wall:.2f} s with init, peak {peak:.2f} GiB allocated; flash "
+        f"launches a step: forward {fwd:g}, backward {bwd:g} [{card}]")
+    out.update(losses=losses, peak_gib=peak, fwd_per_step=fwd,
+               bwd_per_step=bwd)
+
+    # ms a step on the host clock (synchronized), and one profiled step
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(params)
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                               global_batch=TRAIN["batch"]), device=dev)
+    state = [params, opt]
+
+    def one(step):
+        p, o, loss, _, _ = train.train_step(model, state[0], state[1],
+                                            pipe.batch_at(step), (), 3e-4,
+                                            False)
+        state[:] = [p, o]
+        return loss
+
+    one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        float(one(1 + i))
+    step_s = (time.perf_counter() - t0) / 3
+    busy, pwall, top = profile_device(lambda: one(4), iters=1)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    out.update(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+               busy_ms=busy,
+               idle_share=None if busy is None else 1 - busy / (step_s * 1e3))
+    say(f"  train step B {TRAIN['batch']} x S {TRAIN['seq']}: "
+        f"{step_s * 1e3:.1f} ms (host clock, 3 steps), "
+        f"{tokens / step_s:.0f} tokens/s; profiled: device busy {busy} ms, "
+        f"wall {pwall} ms profiled; idle share {out['idle_share']} (busy "
+        f"over the unprofiled step) [{card}]")
+    for key, ms, count in top:
+        say(f"    {ms:9.4f} ms  x{count:5d}  {key}")
+    del state, params, opt, model
+    torch.cuda.empty_cache()
+
+    train_vs_cpu(dev, card)
+
+    t0 = time.perf_counter()
+    q8 = train.main(_train_args(steps=2) + ["--int8-grads"])
+    check(len(q8) == 2 and all(map(math.isfinite, q8)), f"int8 {q8}")
+    say(f"  --int8-grads, 2 steps: losses {q8} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    ck = ROOT / "build" / "phase15_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    base = _train_args(steps=4, **TRAIN_CKPT)
+    straight = train.main(base)
+    small = _train_args(steps=2, **TRAIN_CKPT) + ["--ckpt", str(ck)]
+    first = train.main(small)
+    second = train.main(small)
+    shutil.rmtree(ck, ignore_errors=True)
+    restarted = first + second
+    worst = max(abs(a - b) / abs(b) for a, b in zip(restarted, straight))
+    check(len(restarted) == 4 and worst <= TRAIN_TOL["loss_rtol"],
+          f"checkpoint restart {restarted} vs straight {straight}")
+    say(f"  --ckpt 2 + 2 steps with a restart at B {TRAIN_CKPT['batch']} x "
+        f"S {TRAIN_CKPT['seq']}: {restarted} vs 4 straight {straight} "
+        f"(worst rtol {worst:.3g}, bound {TRAIN_TOL['loss_rtol']}); "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3208,7 +3532,8 @@ def main() -> int:
     check(n_hgmma > 0, "flash_attention's SASS holds no HGMMA: its bf16 "
                        "path does not run on the tensor cores")
     counters = {"wc_combine": wcc.counter, "scan_probe": sp.counter,
-                "paged_attention": pa.counter, "flash_attention": fa.counter}
+                "paged_attention": pa.counter, "flash_attention": fa.counter,
+                "flash_attention_bwd": fa.counter_bwd}
 
     def phase(n: int, what: str) -> None:
         say(f"== phase {n}: {what} [{card}] "
@@ -3252,7 +3577,9 @@ def main() -> int:
              "graph vs eager, replay, race_check conformance",
          lambda: phase13_sim(dev, card)),
         (14, "the other model families at full width: "
-             + ", ".join(PHASE14), lambda: phase14_families(dev, card)))
+             + ", ".join(PHASE14), lambda: phase14_families(dev, card)),
+        (15, "training qwen3-0.6b at full width and depth",
+         lambda: phase15_train(dev, card)))
     # a graph's kernels are counted once, at capture: phase 13 returns its
     # replays' launches, added here
     replayed = {name: 0 for name in counters}
@@ -3271,7 +3598,7 @@ def main() -> int:
                 by_size[n_lanes] = by_size.get(n_lanes, 0) + k
             say(f"  phase 13 launches beyond the captures: {result}")
         mark(n)
-    launches = dict(per_phase[14])
+    launches = dict(per_phase[15])
     say(f"  main-path launches: {launches}; cumulative after each phase: "
         f"{per_phase}")
     for name, n in launches.items():
@@ -3280,7 +3607,7 @@ def main() -> int:
         by_n = dict(sorted(counters[name].by_size.items()))
         say(f"  {name} main-path launches by N: {by_n}; N not in "
             f"SWEEP_SIZES: {sorted(set(by_n) - set(SWEEP_SIZES))}")
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "flash_attention_bwd"):
         by_d = dict(sorted(counters[name].by_size.items()))
         say(f"  {name} main-path launches by head dim: {by_d}")
     moe_dispatch = wcc.counter.by_tag.get("moe_dispatch", 0)
@@ -3298,7 +3625,8 @@ def main() -> int:
                            (12, ("wc_combine", "scan_probe")),
                            (13, ("wc_combine",)),
                            (14, ("wc_combine", "paged_attention",
-                                 "flash_attention"))):
+                                 "flash_attention")),
+                           (15, ("flash_attention", "flash_attention_bwd"))):
         for name in names:
             check(per_phase[phase_n][name] > per_phase[phase_n - 1][name],
                   f"{name} was not launched in phase {phase_n}")

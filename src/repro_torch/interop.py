@@ -16,7 +16,11 @@ arrays come in as their bits: the reference's numpy bf16 dtype
 (``ml_dtypes``) is recognised by its name and reinterpreted through int16,
 so the port never imports it.  A decode state (any family's dict of
 caches and recurrent states) travels the same way:
-``decode_state_from_numpy`` / ``decode_state_to_numpy``.
+``decode_state_from_numpy`` / ``decode_state_to_numpy``, and so does a
+gradient tree.  The reference's AdamW ``OptState`` (``m``, ``v``,
+``step``) travels as ``opt_state_from_numpy`` / ``opt_state_to_numpy``:
+``OptState(**{k: jax.tree.map(jnp.asarray, v) for k, v in
+opt_state_to_numpy(o).items()})`` rebuilds a reference state.
 
 The protocol simulator's ``SimState`` travels as a dict of numpy arrays
 keyed by its field names, ``net`` a dict keyed by ``NetState``'s:
@@ -35,10 +39,12 @@ from repro_torch.core.engine import StoreState
 from repro_torch.core.protocol import SimState
 from repro_torch.core.simnet import NetState
 from repro_torch.core.types import as_device, as_i32, to_numpy
+from repro_torch.train.optimizer import OptState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "credits_from_numpy",
            "credits_to_numpy", "params_from_numpy", "params_to_numpy",
            "decode_state_from_numpy", "decode_state_to_numpy",
+           "opt_state_from_numpy", "opt_state_to_numpy",
            "sim_state_from_numpy", "sim_state_to_numpy"]
 
 
@@ -100,6 +106,21 @@ def decode_state_from_numpy(state: dict,
 def decode_state_to_numpy(state: dict) -> dict:
     """The port's decode state -> numpy arrays (bf16 as exact float32)."""
     return params_to_numpy(state)
+
+
+def opt_state_from_numpy(m, v, step,
+                         device: str | torch.device = "cuda") -> OptState:
+    """The reference's ``OptState`` fields as numpy (the moment trees as
+    nested dicts of f32 arrays, ``step`` an int32 scalar) -> the port's."""
+    return OptState(m=params_from_numpy(m, device),
+                    v=params_from_numpy(v, device),
+                    step=as_i32(step, device).reshape(()))
+
+
+def opt_state_to_numpy(opt: OptState) -> dict:
+    """The port's ``OptState`` -> ``{"m", "v", "step"}`` of numpy arrays."""
+    return {"m": params_to_numpy(opt.m), "v": params_to_numpy(opt.v),
+            "step": to_numpy(opt.step)}
 
 
 def sim_state_from_numpy(state: dict, device: str | torch.device = "cuda"

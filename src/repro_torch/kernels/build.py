@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "LaunchCounter", "launch_tag", "build", "library",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("wc_combine", "scan_probe", "paged_attention",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -62,6 +62,11 @@
 // On Hopper the blocks run in no order, so there is no carry between
 // blocks: the TPU kernel's kv grid axis is the loop over key tiles inside
 // the block.
+//
+// Both designs write, when given an `lse` buffer (f32, (B, H, S)
+// contiguous; nullptr for none, as serving passes), each row's log-sum-exp
+// of its scaled, masked scores in natural-log units, m + log(l): the
+// residual that the backward (flash_attention_bwd.cu) recomputes P from.
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -99,9 +104,10 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int KH, int S,
-             Strides qs, Strides ks, Strides vs, Strides os, int causal,
-             int window, float scale) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int H, int KH, int S, Strides qs,
+             Strides ks, Strides vs, Strides os, int causal, int window,
+             float scale) {
   constexpr int LQ = D + 1, LK = D + 1, LV = D, LP = kBK + 1;
   // V elements per 16-byte chunk, C chunks per row, NJ output columns a
   // thread
@@ -245,6 +251,9 @@ flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         ob[qpos * os.s + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+      if (lse != nullptr && tx == 0)
+        lse[(static_cast<long long>(b) * H + h) * S + qpos] =
+            m[i] + logf(denom);
     }
   }
 }
@@ -458,8 +467,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               __nv_bfloat16* __restrict__ o, int H, int KH, int B, int S,
-               Strides os, int causal, int window, float scale_log2) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+               int KH, int B, int S, Strides os, int causal, int window,
+               float scale_log2) {
   using G = Geom<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -619,6 +629,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && lane % 4 == 0) {
+    // m is in log2 units of the scaled scores: m ln 2 + log l
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + 8 * r < S)
+        lse[(static_cast<long long>(b) * H + h) * S + r0 + 8 * r] =
+            m[r] * 0.6931471805599453f + logf(l[r]);
+  }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {
@@ -643,9 +661,9 @@ template <int D>
 constexpr bool kTensorCores = D == 32 || D == 64 || D == 128;
 
 template <typename T, int D>
-int launch_cc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int KH, int S, Strides qs, Strides ks, Strides vs,
-              Strides os, int causal, int window, float scale,
+int launch_cc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
+              Strides vs, Strides os, int causal, int window, float scale,
               cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -655,8 +673,8 @@ int launch_cc(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fwd_cc<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KH, S, qs, ks, vs, os,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, S, qs, ks, vs,
+      os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -719,10 +737,10 @@ bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KH, int S, Strides qs, Strides ks, Strides vs,
-                Strides os, int causal, int window, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KH, int S, Strides qs,
+                Strides ks, Strides vs, Strides os, int causal, int window,
+                float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!encode<D>(&tq, q, S, H, B, qs, tc::kBQ) ||
       !encode<D>(&tk, k, S, KH, B, ks, tc::kBK) ||
@@ -738,39 +756,39 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   tc::flash_fwd_bf16<D><<<static_cast<unsigned>(blocks), tc::kThreads, bytes,
                           stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, B, S, os, causal,
-      window, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KH, B, S, os,
+      causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int H, int KH, int S, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale,
+           float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
+           Strides vs, Strides os, int causal, int window, float scale,
            cudaStream_t stream) {
   if (dtype == 0)
-    return launch_cc<float, D>(q, k, v, o, B, H, KH, S, qs, ks, vs, os,
+    return launch_cc<float, D>(q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os,
                                causal, window, scale, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kTensorCores<D>)
-    return launch_bf16<D>(q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal,
-                          window, scale, stream);
+    return launch_bf16<D>(q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os,
+                          causal, window, scale, stream);
   else
-    return launch_cc<__nv_bfloat16, D>(q, k, v, o, B, H, KH, S, qs, ks, vs,
-                                       os, causal, window, scale, stream);
+    return launch_cc<__nv_bfloat16, D>(q, k, v, o, lse, B, H, KH, S, qs, ks,
+                                       vs, os, causal, window, scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // Strides are in elements; the D axis is contiguous and every row starts on
-// a 16-byte boundary.
+// a 16-byte boundary.  lse: f32 (B, H, S) contiguous, or nullptr.
 extern "C" int flash_attention_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KH, int S, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss, long long osh,
-    int causal, int window, float scale, cudaStream_t stream) {
+    int causal, int window, float scale, float* lse, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0 || H == 0) return 0;
@@ -779,8 +797,8 @@ extern "C" int flash_attention_launch(
   switch (D) {
 #define FLASH_CASE(DD)                                                     \
   case DD:                                                                 \
-    return launch<DD>(dtype, q, k, v, o, B, H, KH, S, qs, ks, vs, os, causal, \
-                      window, scale, stream);
+    return launch<DD>(dtype, q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os, \
+                      causal, window, scale, stream);
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(80)

@@ -26,7 +26,24 @@ in ``HEAD_DIMS``.
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.gqa_attention`` sends CPU tensors
 to its plain chunked version instead.  ``counter`` counts one per launch,
-tallied by head dim.
+tallied by head dim.  With ``return_lse`` the forward also writes each
+row's log-sum-exp of its scaled scores (f32, natural log), the residual of
+the backward.
+
+``flash_attention_bwd_cuda`` launches the backward kernel
+(``csrc/flash_attention_bwd.cu``), which replaces the jnp FlashAttention
+backward ``_flash_vjp_bwd`` of ``src/repro/models/attention.py`` (:95, the
+``custom_vjp`` backward of ``_flash``; not a Pallas kernel).  Bound on an
+H100 SXM: five products of 2 * B * H * D * (unmasked pairs) operations, at
+the training shape (B 2, S 4096, H 16, KH 8, D 128, causal) about 344
+GFLOP: 0.35 ms in bf16 on the tensor cores, 5.1 ms in f32 on the CUDA
+cores, against which this design (f32 FMAs) is measured.  Three launches:
+``delta = rowsum(dO * O)``; one block per (64-key tile, kv head, batch)
+that loops over the query tiles its masks leave and the query heads of
+its group, recomputing P from ``lse`` and accumulating dK and dV in
+registers; one block per (query tile, head, batch) for dQ.  No atomics:
+the result is deterministic.  ``counter_bwd`` counts one per backward
+(three kernel launches), tallied by head dim.
 """
 from __future__ import annotations
 
@@ -35,12 +52,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                    flash_attention_ref)
 
-__all__ = ["flash_attention_cuda", "flash_attention_ref", "counter",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
+           "flash_attention_ref", "flash_attention_bwd_ref", "counter",
+           "counter_bwd", "HEAD_DIMS"]
 
 counter = build.LaunchCounter("flash_attention")
+counter_bwd = build.LaunchCounter("flash_attention_bwd")
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,45 +68,105 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch": (
     ctypes.c_int,
     [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12
+    + [_I, _I, ctypes.c_float, _P, _P])}
+_BWD_SIGNATURES = {"flash_attention_bwd_launch": (
+    ctypes.c_int,
+    [_I, _I] + [_P] * 10 + [_I] * 5 + [_L] * 24
     + [_I, _I, ctypes.c_float, _P])}
 
 
+def _check_shapes(what: str, q, k, v, window: int) -> None:
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if k.shape != v.shape or k.shape != (b, kh, s, d):
+        raise ValueError(f"{what}: k/v shapes {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if kh == 0 or h % kh:
+        raise ValueError(f"{what}: {h} query heads are not a multiple of "
+                         f"{kh} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    if h > 65535 or b > 65535 or s >= 2**31 - 128 \
+            or -(-s // 64) * h * b >= 2**31:
+        raise ValueError(f"{what}: grid too large for {q.shape}")
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
+
+
+def _strides(t: torch.Tensor):
+    """(batch, position, head) element strides of a (B, heads, S, D) view."""
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int = 0
-                         ) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         return_lse: bool = False):
     """q: (B, H, S, D); k/v: (B, KH, S, D), any strides with a contiguous
-    D axis and rows on 16-byte boundaries.  Returns (B, H, S, D) in q's dtype, laid out like q when q is
-    dense (a transposed view of a (B, S, H, D) tensor stays one)."""
+    D axis and rows on 16-byte boundaries.  Returns (B, H, S, D) in q's
+    dtype, laid out like q when q is dense (a transposed view of a (B, S,
+    H, D) tensor stays one); with ``return_lse`` also the (B, H, S) f32
+    log-sum-exp of each row's scaled, masked scores."""
     build.require_cuda_views(
         "flash_attention", {"q": q, "k": k, "v": v},
         dtypes={"q": tuple(_DTYPES), "k": (q.dtype,), "v": (q.dtype,)},
         ndims={"q": 4, "k": 4, "v": 4}, rows16=("q", "k", "v"))
+    _check_shapes("flash_attention", q, k, v, window)
     b, h, s, d = q.shape
     kh = k.shape[1]
-    if k.shape != v.shape or k.shape != (b, kh, s, d):
-        raise ValueError(f"flash_attention: k/v shapes {tuple(k.shape)}, "
-                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if kh == 0 or h % kh:
-        raise ValueError(f"flash_attention: {h} query heads are not a "
-                         f"multiple of {kh} kv heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if h > 65535 or b > 65535 or s >= 2**31 - 128 \
-            or -(-s // 128) * h * b >= 2**31:
-        raise ValueError(f"flash_attention: grid too large for {q.shape}")
-    if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
     out = torch.empty_like(q)
-    dev = q.device
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.library("flash_attention", _SIGNATURES)
     err = lib.flash_attention_launch(
-        dev.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, h, kh, s, d,
-        q.stride(0), q.stride(2), q.stride(1),
-        k.stride(0), k.stride(2), k.stride(1),
-        v.stride(0), v.stride(2), v.stride(1),
-        out.stride(0), out.stride(2), out.stride(1),
-        int(bool(causal)), int(window), d ** -0.5, build.stream_of(q))
+        q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, h, kh, s, d, *_strides(q),
+        *_strides(k), *_strides(v), *_strides(out), int(bool(causal)),
+        int(window), d ** -0.5, None if lse is None else lse.data_ptr(),
+        build.stream_of(q))
     build.check(lib, err, "flash_attention")
     counter.add(d)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0):
+    """The gradients ``(dq, dk, dv)`` of ``flash_attention_cuda``'s output
+    with respect to q, k and v, given its output ``out``, the output's
+    gradient ``dout`` (both (B, H, S, D), q's dtype) and the forward's
+    ``lse`` ((B, H, S) f32, contiguous).  Views as in the forward.  dq is
+    (B, H, S, D), dk and dv (B, KH, S, D), dense, in q's dtype: the scale
+    D^-1/2 is in dq, and a kv head's dk and dv sum over its query heads."""
+    build.require_cuda_views(
+        "flash_attention_bwd",
+        {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse},
+        dtypes={"q": tuple(_DTYPES), "k": (q.dtype,), "v": (q.dtype,),
+                "out": (q.dtype,), "dout": (q.dtype,),
+                "lse": (torch.float32,)},
+        ndims={"q": 4, "k": 4, "v": 4, "out": 4, "dout": 4, "lse": 3},
+        rows16=("q", "k", "v", "out", "dout"))
+    _check_shapes("flash_attention_bwd", q, k, v, window)
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (b, h, s) or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)} and contiguous lse "
+                         f"{tuple(lse.shape)} must fit q {tuple(q.shape)}")
+    dq = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, kh, s, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    err = lib.flash_attention_bwd_launch(
+        q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, kh, s, d, *_strides(q), *_strides(k), *_strides(v),
+        *_strides(out), *_strides(dout), *_strides(dq), *_strides(dk),
+        *_strides(dv), int(bool(causal)),
+        int(window), d ** -0.5, build.stream_of(q))
+    build.check(lib, err, "flash_attention_bwd")
+    counter_bwd.add(d)
+    return dq, dk, dv

@@ -1,1 +1,1 @@
-"""Entry points (port of ``repro.launch``): ``serve``."""
+"""Entry points (port of ``repro.launch``): ``serve`` and ``train``."""

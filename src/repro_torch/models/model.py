@@ -1,7 +1,6 @@
-"""The public Model API the serve entry point calls (port of
-``repro.models.model``): ``init``, ``prefill``, ``decode_step`` and
-``init_decode_state`` for every family.  ``loss_fn`` and ``cross_entropy``
-arrive with the training slice."""
+"""The public Model API the serve and train entry points call (port of
+``repro.models.model``): ``init``, ``loss_fn`` (with ``cross_entropy``),
+``prefill``, ``decode_step`` and ``init_decode_state`` for every family."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +9,21 @@ from repro_torch.core.types import as_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Model"]
+__all__ = ["Model", "cross_entropy"]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token cross-entropy in f32 through logsumexp; with ``mask``, the
+    masked mean (over at least one token), else the mean."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 class Model:
@@ -28,6 +41,21 @@ class Model:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         return tfm.init_params(self.cfg, generator)
+
+    def loss_fn(self, params, batch: dict):
+        """``(loss, {"ce", "aux"})`` of ``batch`` (``tokens``, ``targets``
+        and optionally ``frontend`` and ``mask``): the vlm's image-prefix
+        positions carry no next-token loss, and the MoE adds 0.01 times its
+        auxiliary loss."""
+        cfg = self.cfg
+        logits, aux, _ = tfm.forward(cfg, params, batch["tokens"],
+                                     batch.get("frontend"))
+        if cfg.frontend and cfg.family != "encoder":
+            logits = logits[:, cfg.n_patches:, :]
+        loss = cross_entropy(logits, batch["targets"], batch.get("mask"))
+        if cfg.family == "moe":
+            loss = loss + 0.01 * aux
+        return loss, {"ce": loss, "aux": aux}
 
     def prefill(self, params, tokens: torch.Tensor, frontend=None):
         """Last-position logits (B, 1, V) and the attention layers'

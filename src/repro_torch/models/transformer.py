@@ -12,8 +12,11 @@ family (port of ``repro.models.transformer``):
 A parameter tree is a nested dict of tensors with the reference's keys,
 shapes and dtypes (bf16 weights, f32 norms, biases and recurrence
 constants); the stacked layer weights keep their leading ``layers`` axis,
-and a Python loop over it stands in for ``lax.scan`` (remat does not apply
-to inference).
+and a Python loop over it stands in for ``lax.scan``.  Under grad,
+``cfg.remat == "block"`` checkpoints each block (each triple of the hybrid),
+as the reference's ``jax.checkpoint`` does: a block keeps only its inputs
+for the backward and recomputes its activations there.  The forward writes
+in place into no tensor that autograd saves.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssm as ssd
@@ -239,6 +243,22 @@ def _rec_fwd(cfg: ModelConfig, x, blk):
     return _mlp_fwd(cfg, x, blk)
 
 
+def _requires_grad(tree) -> bool:
+    return any(_requires_grad(v) if isinstance(v, dict) else v.requires_grad
+               for v in tree.values())
+
+
+def _remat(cfg: ModelConfig, fn, params):
+    """``fn`` under ``cfg.remat``: with "block", grad enabled and a
+    parameter that requires it, each call is checkpointed (non-reentrant),
+    as the reference's ``_scan`` wraps its block in ``jax.checkpoint``;
+    otherwise (serving) ``fn`` itself."""
+    if cfg.remat == "block" and torch.is_grad_enabled() \
+            and _requires_grad(params):
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return fn
+
+
 def _logits(cfg: ModelConfig, params, x):
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]
@@ -246,12 +266,12 @@ def _logits(cfg: ModelConfig, params, x):
 
 
 # ===========================================================================
-# Full forward (prefill)
+# Full forward (training / prefill)
 # ===========================================================================
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             frontend_feats=None, positions=None, return_cache: bool = False):
-    """Prefill forward.  tokens: (B, S_text) int; frontend_feats: (B,
+    """Training / prefill forward.  tokens: (B, S_text) int; frontend_feats: (B,
     S_front, F) audio or vision stub features (the encoder's input alone;
     prepended to the vlm's text).  Returns ``(logits (B, S, V), aux,
     caches)``: aux is the f32 sum of the MoE layers' auxiliary losses (0
@@ -269,28 +289,38 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     if cfg.family in _ATTN_FAMILIES:
-        for blk in _layers(params["blocks"], cfg.n_layers):
+        def block(x, blk):
             x, (k, v) = _attn_fwd(cfg, x, blk, sin, cos)
             if cfg.family == "moe":
                 x, a = _moe_fwd(cfg, x, blk)
+                return x, a, k, v
+            return _mlp_fwd(cfg, x, blk), None, k, v
+
+        block = _remat(cfg, block, params)
+        for blk in _layers(params["blocks"], cfg.n_layers):
+            x, a, k, v = block(x, blk)
+            if a is not None:
                 aux = aux + a
-            else:
-                x = _mlp_fwd(cfg, x, blk)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
     elif cfg.family == "ssm":
+        block = _remat(cfg, lambda x, blk: _ssm_fwd(cfg, x, blk), params)
         for blk in _layers(params["blocks"], cfg.n_layers):
-            x = _ssm_fwd(cfg, x, blk)
+            x = block(x, blk)
     elif cfg.family == "hybrid":
+        def triple(x, b1, b2, b3):
+            x = _rec_fwd(cfg, x, b1)
+            x = _rec_fwd(cfg, x, b2)
+            x, (k, v) = _attn_fwd(cfg, x, b3, sin, cos, window=cfg.window)
+            return _mlp_fwd(cfg, x, b3), k, v
+
+        triple = _remat(cfg, triple, params)
         nt = cfg.n_layers // 3
         bl = params["blocks"]
         for b1, b2, b3 in zip(_layers(bl["rec1"], nt), _layers(bl["rec2"], nt),
                               _layers(bl["attn"], nt)):
-            x = _rec_fwd(cfg, x, b1)
-            x = _rec_fwd(cfg, x, b2)
-            x, (k, v) = _attn_fwd(cfg, x, b3, sin, cos, window=cfg.window)
-            x = _mlp_fwd(cfg, x, b3)
+            x, k, v = triple(x, b1, b2, b3)
             if return_cache:
                 ks.append(k)
                 vs.append(v)

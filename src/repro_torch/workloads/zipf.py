@@ -3,7 +3,12 @@ of ``repro.workloads.zipf``: identical draws from identical seeds).
 
 * ``ZipfSampler`` — Hörmann & Derflinger rejection-inversion, O(1) per
   sample and O(1) setup, usable for 60M-key universes;
-* ``zipf_cdf_table`` — a truncated-CDF table (explicit head + uniform tail).
+* ``zipf_cdf_table`` — a truncated-CDF table (explicit head + uniform tail);
+* ``sample_zipf_torch`` — draws from that table on any device with a
+  ``torch.Generator`` (the counterpart of the reference's
+  ``sample_zipf_jax``: the same table, uniform tail bucket and 32-bit
+  scramble; other random bits than JAX's, so the same distribution, not
+  the same draws).
 
 References: W. Hörmann, G. Derflinger, "Rejection-inversion to generate
 variates from monotone discrete distributions", TOMACS 6(3), 1996; YCSB
@@ -14,8 +19,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["ZipfSampler", "zipf_cdf_table", "scramble"]
+__all__ = ["ZipfSampler", "zipf_cdf_table", "scramble", "scramble32",
+           "sample_zipf_torch"]
 
 _GOLDEN64 = np.uint64(0x9E3779B97F4A7C15)
 
@@ -101,3 +108,39 @@ def zipf_cdf_table(n: int, theta: float, head: int = 8192) -> np.ndarray:
     total = w.sum() + tail
     cdf = np.concatenate([np.cumsum(w), [w.sum() + tail]]) / total
     return cdf.astype(np.float32)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c`` modulo 2^32 for int64 ``x`` in [0, 2^32): two 16-bit
+    halves of ``c``, so that no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def scramble32(ranks: torch.Tensor, n: int) -> torch.Tensor:
+    """The 32-bit rank scramble of ``sample_zipf_jax`` (uint32 arithmetic,
+    carried in int64): int32 key ids in [0, n)."""
+    x = (ranks.to(torch.int64) + 1) & _M32
+    x = _mul32(x, 0x9E3779B9)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    return (x % n).to(torch.int32)
+
+
+def sample_zipf_torch(gen: torch.Generator, shape: tuple, cdf: torch.Tensor,
+                      n: int, head: int | None = None) -> torch.Tensor:
+    """Zipf draws from a ``zipf_cdf_table`` (a f32 tensor on ``gen``'s
+    device): head ranks exact, the tail bucket uniform over [head, n), each
+    rank scrambled by ``scramble32``.  int32, ``shape``."""
+    if head is None:
+        head = cdf.shape[0] - 1
+    u = torch.rand(shape, generator=gen, device=cdf.device)
+    idx = torch.searchsorted(cdf, u)   # 0..head; == head: the tail bucket
+    tail = torch.randint(head, max(n, head + 1), shape, generator=gen,
+                         device=cdf.device)
+    return scramble32(torch.where(idx >= head, tail, idx), n)

@@ -976,3 +976,129 @@ def test_sim_race_check_conformance_on_card(cuda_device):
     assert "on cuda" in notes[0]
     # two runs of 400 ticks: 6 replays of 64 ticks and one graph of 16
     assert [(g.n, g.replays) for g in record] == [(64, 6), (16, 1)] * 2
+
+
+# the backward kernel against its plain version, both fed the kernel
+# forward's output and lse: (rtol, atol as a share of the largest |want|,
+# or of 1 where that is smaller: dS = P (dP - delta) cancels, to 0 at S = 1,
+# and the residue is f32 rounding of the unit-scale inputs' products).
+# f32: the two sum over up to S products in other orders; bf16: both work
+# in f32 from the same bf16 inputs and round once, so at most an ulp or two
+# apart (2^-7 relative each) beside f32 rounding
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 1e-4)}
+
+
+def assert_grads_close(got, want, dtype, what=""):
+    rtol, atol = BWD_TOL[dtype]
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, (what, name)
+        assert bool(torch.isfinite(g).all()), (what, name)
+        scale = max(float(w.float().abs().max()), 1.0)
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol * scale, msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
+    (1, 16, 8, 1024, 128, True, 0),      # the training shape, cut in B, S
+    (1, 16, 8, 1000, 128, True, 0),      # ragged S
+    (2, 4, 2, 1000, 64, False, 0),       # ragged S, no mask
+    (1, 16, 8, 2048, 128, True, 1024),   # sliding window
+    (2, 4, 1, 300, 32, False, 100),      # window without causality
+    (1, 4, 4, 200, 80, False, 0),        # hubert's head dim
+    (1, 8, 8, 130, 96, True, 0),         # phi-3-vision's
+    (1, 4, 1, 300, 256, True, 64),       # recurrentgemma's, windowed MQA
+    (1, 2, 2, 1, 32, True, 0)])          # one token
+def test_flash_attention_bwd_matches_plain_on_card(cuda_device, dt, b, h, kh,
+                                                   s, d, causal, window):
+    dtype, _ = ATT_DTYPES[dt]
+    q = _randn((b, h, s, d), dtype, cuda_device, 1)
+    k = _randn((b, kh, s, d), dtype, cuda_device, 2)
+    v = _randn((b, kh, s, d), dtype, cuda_device, 3)
+    do = _randn((b, h, s, d), dtype, cuda_device, 4)
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, lse_ref = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    c0 = fa.counter_bwd.count
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa.counter_bwd.count == c0 + 1
+    assert_grads_close(got, want, dtype, f"{dt} {b, h, kh, s, d}")
+    # (B, S, H, D) storage read through transposed views, as the model does
+    tr = [x.transpose(1, 2).contiguous().transpose(1, 2)
+          for x in (q, k, v, out, do)]
+    assert_grads_close(fa.flash_attention_bwd_cuda(*tr, lse, **kw), want,
+                       dtype, "views")
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    for x, y in zip(got, again):       # no atomics: the same bits
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("upstream", ["dense", "broadcast"])
+def test_flash_fn_on_card_matches_cpu(cuda_device, upstream):
+    """``gqa_attention``'s gradients through ``_FlashFn`` on the card (both
+    kernels) against the CPU's plain backward, f32; the output's gradient
+    dense, or broadcast from a sum (stride 0)."""
+    rng = np.random.default_rng(5)
+    arrs = [rng.standard_normal((2, 256, h, 64)).astype(np.float32)
+            for h in (8, 2, 2, 8)]
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_(True)
+                   for a in arrs[:3])
+        out = tatt.gqa_attention(q, k, v, causal=True, window=100, chunk=64)
+        if upstream == "dense":
+            out.backward(torch.from_numpy(arrs[3]).to(dev))
+        else:
+            out.sum().backward()
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
+    for g, w in zip(grads[str(cuda_device)], grads["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_training_step_on_card_matches_cpu(cuda_device):
+    """The smoke ``qwen3-0.6b``'s loss and every gradient leaf on the card
+    against the same weights on the CPU (bf16: the leaf norms within 2e-2,
+    the bound of tests/test_torch_train.py), every leaf's gradient present
+    and nonzero on the card, and both attention kernels launched once a
+    layer (the forward twice under remat)."""
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    pc = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 129)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = tree_map(lambda p: p.detach().to(dev).requires_grad_(True),
+                          pc)
+        f0, b0 = fa.counter.count, fa.counter_bwd.count
+        loss, _ = Model(cfg, device=dev).loss_fn(
+            params, {"tokens": toks[:, :-1].to(dev),
+                     "targets": toks[:, 1:].to(dev)})
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()),
+                         [p.grad for p in tree_leaves(params)])
+        if dev != "cpu":
+            assert fa.counter.count - f0 == 2 * cfg.n_layers
+            assert fa.counter_bwd.count - b0 == cfg.n_layers
+    lc, gc = out["cpu"]
+    lg, gg = out[str(cuda_device)]
+    assert abs(lg - lc) <= 2e-3 * abs(lc)
+    for g, w in zip(gg, gc):
+        assert g is not None and bool(g.abs().sum() > 0)
+        rel = float((g.float().cpu() - w.float()).norm() / w.float().norm())
+        assert rel <= 2e-2, rel
+
+
+def test_flash_attention_bwd_wrapper_checks_inputs_on_card(cuda_device):
+    q = torch.zeros((1, 2, 8, 32), device=cuda_device)
+    lse = torch.zeros((1, 2, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, q, q, q, q, lse.double())
+    with pytest.raises(ValueError, match="fit q"):
+        fa.flash_attention_bwd_cuda(q, q, q, q, q, lse[:, :, :4])
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros((1, 2, 8, 48), device=cuda_device)
+        fa.flash_attention_bwd_cuda(z, z, z, z, z, lse)

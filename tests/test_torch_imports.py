@@ -52,10 +52,14 @@ def test_port_sources_exist():
                 "workloads/recovery.py", "workloads/dynamic.py",
                 "workloads/openloop.py", "core/protocol.py", "core/sim.py",
                 "analysis/__init__.py", "analysis/race_check.py",
-                "analysis/bill_lint.py", "analysis/device_check.py"):
+                "analysis/bill_lint.py", "analysis/device_check.py",
+                "train/__init__.py", "train/optimizer.py",
+                "data/__init__.py", "data/pipeline.py", "dist/compress.py",
+                "ckpt/__init__.py", "ckpt/checkpoint.py", "ft/__init__.py",
+                "ft/failures.py", "launch/train.py"):
         assert rel in mods, rel
     for cu in ("wc_combine.cu", "scan_probe.cu", "paged_attention.cu",
-               "flash_attention.cu"):
+               "flash_attention.cu", "flash_attention_bwd.cu"):
         assert (PORT / "kernels" / "csrc" / cu).is_file(), cu
 
 
