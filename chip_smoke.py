@@ -10,9 +10,9 @@ Phases (any mismatch raises, and the script exits non-zero):
    (``flash_attention_bwd`` among them); each kernel's registers and spills
    (``ptxas -v``; the sort sweeps must not spill), the attention kernels'
    shared memory per block at every head dim (paged: 1, 2 and 16 query
-   heads a kv head; the backward's dK/dV and dQ blocks), and a check that
-   ``cuobjdump -sass`` of the flash library holds ``HGMMA`` (bf16 runs on
-   the tensor cores).
+   heads a kv head; the backward's dK/dV and dQ blocks in bf16 and f32),
+   and a check that ``cuobjdump -sass`` of each flash library (forward and
+   backward) holds ``HGMMA`` (bf16 runs on the tensor cores).
 1. each kernel against its plain PyTorch version on the card: the two sort
    sweeps bit for bit over N in ``SWEEP_SIZES`` (1-3, 64, every tile edge of
    either kernel, ragged last tiles, the main path's sizes, 2^20) and four
@@ -34,7 +34,9 @@ Phases (any mismatch raises, and the script exits non-zero):
    held to the plain version's): the training shape (B 2, S 4096, H 16, KH
    8, D 128, causal) in bf16 and f32, no mask, a 1024-token window and a
    ragged S, and a small shape at each other head dim; kernel, plain, SDPA
-   backward and bound times.
+   backward and bound times, and the design each case ran, checked from
+   the profiler's kernel names (``BWD_ENTRIES``: the tensor-core entries
+   in bf16 at D 32/64/128, the CUDA-core ones otherwise).
 2. the ``engine_json`` configuration (65,536 slots, batch 4096, 16 windows,
    write-intensive Zipf 0.99, 16 CNs) in all four SyncModes: every verb
    counter and the modeled Mops/s and latency percentiles must equal the
@@ -119,7 +121,9 @@ Phases (any mismatch raises, and the script exits non-zero):
     weights and Zipf tokens from seeds): losses finite and the last below
     the first; flash forward and backward launches a step (the forward
     twice under ``remat="block"``); ms a step (host clock, synchronized),
-    tokens/s, peak memory and the idle share of one profiled step; the
+    tokens/s, peak memory and the idle share of one profiled step, in
+    whose profile the backward must be the tensor-core entries, once a
+    layer each, and no CUDA-core one (its device time and share printed); the
     loss and every gradient leaf on the card against the CPU on the same
     weights at 2 layers of full width, B 1 x S 256 (``TRAIN_TOL``), every
     leaf's gradient present and nonzero on the card; two steps with
@@ -249,6 +253,7 @@ def card_line() -> str:
 
 
 _ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cc|flash_bwd_delta|"
+                    r"flash_bwd_dkdv_bf16|flash_bwd_dq_bf16|"
                     r"flash_bwd_dkdv|flash_bwd_dq|paged_split_kernel|"
                     r"paged_merge_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
 _SWEEP_ENTRY = re.compile(r"(wc_combine_kernel|scan_probe_kernel)")
@@ -295,14 +300,15 @@ def attention_smem() -> None:
     from repro_torch.kernels.paged_attention.ops import HEAD_DIMS as PAGED_D
     bwd = ctypes.CDLL(str(build.library_path("flash_attention_bwd")))
     bwd.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
-    bwd.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    for which, block in ((0, "dK/dV"), (1, "dQ")):
-        sizes = {d: bwd.flash_attention_bwd_smem_bytes(d, which)
-                 for d in FLASH_D}
-        check(all(0 < b <= 232_448 for b in sizes.values()),
-              f"flash_attention_bwd shared memory {sizes} beyond 227 KB")
-        say(f"  dynamic shared memory per block, flash_attention_bwd "
-            f"{block} (f32 and bf16), by D: {sizes} B")
+    bwd.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    for dtype, label in ((1, "bf16"), (0, "f32")):
+        for which, block in ((0, "dK/dV"), (1, "dQ")):
+            sizes = {d: bwd.flash_attention_bwd_smem_bytes(dtype, d, which)
+                     for d in FLASH_D}
+            check(all(0 < b <= 232_448 for b in sizes.values()),
+                  f"flash_attention_bwd shared memory {sizes} beyond 227 KB")
+            say(f"  dynamic shared memory per block, flash_attention_bwd "
+                f"{block}, {label}, by D: {sizes} B")
     for dtype, label in ((1, "bf16"), (0, "f32")):
         flash = {d: fns["flash_attention"](dtype, d) for d in FLASH_D}
         check(all(0 < b <= 232_448 for b in flash.values()),
@@ -341,14 +347,15 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_device(fn, iters: int = 20):
+def profile_device(fn, iters: int = 20, n_top: int | None = 5):
     """Run ``fn`` ``iters`` times under ``torch.profiler``, tracing the
     device only (a trace of the CPU's operators would be most of the
     processing time of a long run, and no number here reads it).  Returns
     ``(device_ms_per_call, wall_ms_per_call, top)``: the summed self device
     time of every GPU event, the host wall time around the calls, and the
-    five events with the most device time.  The device time is None when
-    the profiler recorded no GPU events."""
+    ``n_top`` events (all for None) with the most device time, each as
+    (name, ms a call, count).  The device time is None when the profiler
+    recorded no GPU events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -362,24 +369,26 @@ def profile_device(fn, iters: int = 20):
     gpu = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in gpu) / 1e3 / iters
-    top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:5]
+    top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:n_top]
     top = [(e.key[:60], e.self_device_time_total / 1e3 / iters, e.count)
            for e in top]
     return (total if gpu else None), wall, top
 
 
-def timed(fn, iters: int):
+def timed(fn, iters: int, events: bool = False):
     """``(device ms, call ms)`` per call of ``fn``: the profiler's summed
     device time (a session that records no GPU events is run again, up to
     three times; then CUDA events), and the CUDA-event time of back-to-back
-    calls, which includes host overhead."""
+    calls, which includes host overhead; with ``events`` also the
+    profiler's five longest GPU events (``profile_device``'s ``top``;
+    empty when it recorded none)."""
     call = cuda_ms(fn, iters=iters, warmup=1)
     for _ in range(3):
-        dev = profile_device(fn, iters=iters)[0]
+        dev, _, top = profile_device(fn, iters=iters)
         if dev is not None:
-            return dev, call
+            return (dev, call, top) if events else (dev, call)
     say("  (the profiler recorded no GPU events: device time by CUDA events)")
-    return call, call
+    return (call, call, []) if events else (call, call)
 
 
 # ---------------------------------------------------------------------------
@@ -793,11 +802,42 @@ BWD_CASES = (("train", 2, 4096, 16, 8, 128, True, 0),
              ("d256", 1, 1024, 4, 1, 256, True, 256))
 
 
+# the entry functions of each backward design, as the profiler names them
+BWD_ENTRIES = {"tensor cores": ("flash_bwd_delta", "flash_bwd_dkdv_bf16",
+                                "flash_bwd_dq_bf16"),
+               "CUDA cores": ("flash_bwd_delta", "flash_bwd_dkdv<",
+                              "flash_bwd_dq<")}
+
+
+def bwd_design(dtype_name: str, d: int) -> str:
+    """The backward design the launcher runs for a dtype and head dim."""
+    from repro_torch.kernels.flash_attention.ops import TENSOR_CORE_DIMS
+    return ("tensor cores" if dtype_name == "bfloat16"
+            and d in TENSOR_CORE_DIMS else "CUDA cores")
+
+
+def check_bwd_entries(top, design: str, what: str) -> dict:
+    """Check that the profiled GPU events ``top`` (``profile_device``'s)
+    are the three entries of ``design`` and nothing else; returns
+    ``{entry: ms a call}``."""
+    want = BWD_ENTRIES[design]
+    found = {w: sum(ms for name, ms, _ in top if w in name) for w in want}
+    others = [name for name, _, _ in top
+              if not any(w in name for w in want)]
+    check(all(n in " ".join(name for name, _, _ in top) for n in want)
+          and not others,
+          f"flash_attention_bwd {what}: expected the {design} entries "
+          f"{want}, the profiler saw {top}")
+    return found
+
+
 def phase1_backward(dev, card: str, out: dict) -> None:
     """``flash_attention_bwd`` against ``flash_attention_bwd_ref`` at
     ``BWD_CASES`` in bf16 and f32 (and the forward's ``lse`` against the
-    plain version's), with kernel, plain, SDPA-backward and bound times;
-    fills ``out["flash_attention_bwd"]``."""
+    plain version's), with kernel, plain, SDPA-backward and bound times
+    and the design each ran (its entries checked in the profile: the
+    tensor cores in bf16 at D 32/64/128, the CUDA cores otherwise); fills
+    ``out["flash_attention_bwd"]``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -841,8 +881,12 @@ def phase1_backward(dev, card: str, out: dict) -> None:
             row_out["max_abs_err"] = max(row_out["max_abs_err"], err)
             del got, want
             args = (q, k, v, o, do, lse)
-            ms, call = timed(lambda: fa.flash_attention_bwd_cuda(*args, **kw),
-                             3)
+            ms, call, top = timed(
+                lambda: fa.flash_attention_bwd_cuda(*args, **kw), 3,
+                events=True)
+            design = bwd_design(dname, d)
+            entries = (check_bwd_entries(top, design, f"{label} {dname}")
+                       if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_bwd_ref(*args, **kw), 2)
             lib = lib_call = None        # SDPA has no sliding window
@@ -864,11 +908,13 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                        bound_by="bytes" if bytes_ms >= ops_ms
                        else "operations", call_ms=call,
                        plain_call_ms=plain_call, library_call_ms=lib_call,
-                       bound_f32_ms=flops / FLOPS["float32"] * 1e3)
+                       bound_f32_ms=flops / FLOPS["float32"] * 1e3,
+                       design=design, ms_by_entry=entries)
             if label == "train" and dtype == torch.bfloat16:
                 row_out.update(row)
             say(f"  flash_attention_bwd {label} B{b} S{s} H{h} KH{kh} D{d} "
-                f"causal={causal} window={window}, {dname}: max |diff| "
+                f"causal={causal} window={window}, {dname} on the {design} "
+                f"(ms a call by entry {entries}): max |diff| "
                 f"{err:.3g} (lse {lse_err:.3g}); device: kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
                 f"SDPA backward {lib} ms; per call: {call:.4f} / "
@@ -3404,6 +3450,7 @@ def phase15_train(dev, card: str) -> dict:
     cfg = get_config(TRAIN["arch"])
     out = {}
     f0, b0 = fa.counter.count, fa.counter_bwd.count
+    tc0 = fa.counter_bwd_tc.count
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3414,14 +3461,18 @@ def phase15_train(dev, card: str) -> dict:
     steps = TRAIN["steps"]
     fwd = (fa.counter.count - f0) / steps
     bwd = (fa.counter_bwd.count - b0) / steps
+    bwd_tc = (fa.counter_bwd_tc.count - tc0) / steps
     check(len(losses) == steps and all(map(math.isfinite, losses)),
           f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
     check(bwd == cfg.n_layers and fwd == 2 * cfg.n_layers,
           f"flash launches a step: forward {fwd}, backward {bwd}")
+    check(bwd_tc == bwd, f"backwards a step on the tensor cores {bwd_tc} "
+                         f"of {bwd}, as the launcher reports them")
     say(f"  train.main {TRAIN}: losses {[round(x, 4) for x in losses]}; "
         f"{wall:.2f} s with init, peak {peak:.2f} GiB allocated; flash "
-        f"launches a step: forward {fwd:g}, backward {bwd:g} [{card}]")
+        f"launches a step: forward {fwd:g}, backward {bwd:g} (on the "
+        f"tensor cores: {bwd_tc:g}) [{card}]")
     out.update(losses=losses, peak_gib=peak, fwd_per_step=fwd,
                bwd_per_step=bwd)
 
@@ -3446,7 +3497,25 @@ def phase15_train(dev, card: str) -> dict:
     for i in range(3):
         float(one(1 + i))
     step_s = (time.perf_counter() - t0) / 3
-    busy, pwall, top = profile_device(lambda: one(4), iters=1)
+    entries = BWD_ENTRIES["tensor cores"] + BWD_ENTRIES["CUDA cores"][1:]
+
+    def bwd_by_entry(events):
+        n_by = {w: sum(n for key, _, n in events if w in key)
+                for w in entries}
+        ms_by = {w: sum(ms for key, ms, _ in events if w in key)
+                 for w in entries}
+        ok = all(n_by[w] == cfg.n_layers
+                 for w in BWD_ENTRIES["tensor cores"]) and not any(
+                     n_by[w] for w in BWD_ENTRIES["CUDA cores"][1:])
+        return ok, n_by, ms_by
+
+    # a session that records no GPU events, or drops some, is run again
+    for _ in range(3):
+        busy, pwall, events = profile_device(lambda: one(4), iters=1,
+                                             n_top=None)
+        ok, n_by, ms_by = bwd_by_entry(events)
+        if busy is not None and ok:
+            break
     tokens = TRAIN["batch"] * TRAIN["seq"]
     out.update(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
                busy_ms=busy,
@@ -3456,8 +3525,25 @@ def phase15_train(dev, card: str) -> dict:
         f"{tokens / step_s:.0f} tokens/s; profiled: device busy {busy} ms, "
         f"wall {pwall} ms profiled; idle share {out['idle_share']} (busy "
         f"over the unprofiled step) [{card}]")
-    for key, ms, count in top:
+    for key, ms, count in events[:5]:
         say(f"    {ms:9.4f} ms  x{count:5d}  {key}")
+    # the backward's device time ran in the tensor-core entries, once a
+    # layer each: held wherever the profiler recorded the step (late in a
+    # long process it may record nothing, or drop events: then no
+    # CUDA-core entry may show, and the launcher's tally above stands)
+    check(not any(n_by[w] for w in BWD_ENTRIES["CUDA cores"][1:]),
+          f"the profiled step ran CUDA-core backward entries: {n_by}")
+    if busy is None or not ok:
+        say(f"  (the profiler did not record the whole step in three "
+            f"sessions: backward entries seen {n_by}, device busy {busy})")
+    if busy is not None:
+        bwd_ms = sum(ms_by.values())
+        out.update(bwd_ms=bwd_ms, bwd_share=bwd_ms / busy,
+                   bwd_ms_by_entry=ms_by, bwd_launches_by_entry=n_by)
+        say(f"  backward a step: {bwd_ms:.2f} ms of device time, "
+            f"{bwd_ms / busy:.3f} of the busy time; by entry (ms, "
+            f"launches): {[(w, round(ms_by[w], 3), n_by[w]) for w in ms_by]}"
+            f" [{card}]")
     del state, params, opt, model
     torch.cuda.empty_cache()
 
@@ -3526,11 +3612,12 @@ def main() -> int:
         if name not in logs:
             say(f"  {name}: library cached, no ptxas report in this run")
     attention_smem()
-    n_hgmma = hgmma_count(build.library_path("flash_attention"))
-    say(f"  cuobjdump -sass: {n_hgmma} HGMMA instructions in "
-        f"{build.library_path('flash_attention').name}")
-    check(n_hgmma > 0, "flash_attention's SASS holds no HGMMA: its bf16 "
-                       "path does not run on the tensor cores")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        n_hgmma = hgmma_count(build.library_path(name))
+        say(f"  cuobjdump -sass: {n_hgmma} HGMMA instructions in "
+            f"{build.library_path(name).name}")
+        check(n_hgmma > 0, f"{name}'s SASS holds no HGMMA: its bf16 path "
+                           f"does not run on the tensor cores")
     counters = {"wc_combine": wcc.counter, "scan_probe": sp.counter,
                 "paged_attention": pa.counter, "flash_attention": fa.counter,
                 "flash_attention_bwd": fa.counter_bwd}
@@ -3545,7 +3632,7 @@ def main() -> int:
     say(f"  (t = {time.perf_counter() - t_start:.1f} s)")
     att = phase1_attention(dev, card)
 
-    for c in counters.values():
+    for c in (*counters.values(), fa.counter_bwd_tc):
         c.reset()              # the main paths' runs start here
     per_phase = {1: {n: 0 for n in counters}}
     steps = (
@@ -3669,9 +3756,14 @@ def main() -> int:
                "plain_call_ms": t["plain_call_ms"],
                "library_call_ms": t["library_call_ms"],
                "head_dim": meta["d"], "shape_of": meta["main"]}
+        for key in ("design", "ms_by_entry"):
+            if key in t:
+                row[key] = t[key]
         if kernel == name:
             row["launches_by_head_dim"] = dict(sorted(
                 counters[name].by_size.items()))
+        if name == "flash_attention_bwd":
+            row["launches_tensor_cores"] = fa.counter_bwd_tc.count
         rows.append(row)
     say(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))

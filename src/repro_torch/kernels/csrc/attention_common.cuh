@@ -1,11 +1,17 @@
 // Helpers shared by the attention kernels (flash_attention.cu,
-// paged_attention.cu): f32 <-> input-type conversion and 16-byte chunk
-// loads of one row of a (.., D) tensor with a contiguous, 16-byte aligned
-// D axis.
+// flash_attention_bwd.cu, paged_attention.cu): f32 <-> input-type
+// conversion and 16-byte chunk loads of one row of a (.., D) tensor with a
+// contiguous, 16-byte aligned D axis; and the Hopper machinery of the bf16
+// tensor-core kernels (sm_90a): mbarriers, TMA tile loads through 4-D
+// tensor maps over (D, S, heads, B) views, wgmma shared-memory descriptors
+// for 64-column (128-byte swizzle) or 32-column (64-byte swizzle) boxes,
+// the m64nNk16 bf16 products, and register shares by setmaxnreg.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace attn {
 
@@ -31,6 +37,327 @@ __device__ __forceinline__ void load_chunk(const T* src, float* out) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < V; ++i) out[i] = to_f32(e[i]);
+}
+
+struct Strides {  // element strides of a (B, S, heads, D) view
+  long long b, s, h;
+};
+
+constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
+
+// ---------------------------------------------------------------------------
+// Hopper: tiles in shared memory, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+// the head dims the bf16 tensor-core kernels take (forward and backward)
+template <int D>
+constexpr bool kTensorCores = D == 32 || D == 64 || D == 128;
+
+// the key tiles [lo, hi) of `tile` keys that hold an unmasked key for some
+// query row of [r_lo, r_hi) (r_lo < r_hi <= S)
+template <int TILE>
+__device__ __forceinline__ void key_tiles(int r_lo, int r_hi, int S,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  hi = (S + TILE - 1) / TILE;
+  if (causal) hi = min(hi, (r_hi + TILE - 1) / TILE);
+  lo = window > 0 ? max(0, r_lo - window + 1) / TILE : 0;
+}
+
+// The box geometry of a bf16 tile with D columns: boxes of AC columns
+// (SW bytes a row, swizzled by SW), NB boxes a row; LAYOUT is the wgmma
+// descriptor's code for that swizzle.  A tile of R rows holds its boxes one
+// after another, R * SW bytes each, and starts on a 1024-byte boundary.
+template <int D>
+struct Swz {
+  static constexpr int SW = D == 32 ? 64 : 128;
+  static constexpr int AC = SW / 2;
+  static constexpr int NB = D / AC;
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the NB boxes of rows [row, row + rows) of (head, batch) into the tile at
+// `dst` (`rows` rows a box), completing on `bar`
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rows, int row,
+                                         int head, int batch) {
+  using W = Swz<D>;
+#pragma unroll
+  for (int c = 0; c < W::NB; ++c)
+    tma_load(dst + c * rows * W::SW, map, bar, c * W::AC, row, head, batch);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(layout) << 62;
+}
+
+// Columns 16 kk .. 16 kk + 15 of the 64 rows at `rows0` of a tile of
+// `rows` rows a box, as a K-major operand (the tile's rows are M or N, its
+// columns the reduction): 32-byte steps inside a box.
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t rows0, int rows,
+                                                int kk) {
+  using W = Swz<D>;
+  const int box = kk / (W::AC / 16);
+  const uint32_t off = box * rows * W::SW + (kk % (W::AC / 16)) * 32;
+  // the start address is the low field: an offset adds to it (shared
+  // memory addresses stay below 2^18), so the base descriptor is shared
+  return desc(rows0, 16, 8 * W::SW, W::LAYOUT) + (off >> 4);
+}
+
+// Rows 16 kk .. 16 kk + 15 of a tile of `rows` rows a box, as an N-major B
+// operand (the tile's rows are the reduction, its D columns N): boxes are
+// the 64-column atoms along N (LBO), 8-row groups along K (SBO).
+template <int D>
+__device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int rows,
+                                                int kk) {
+  using W = Swz<D>;
+  return desc(tile, rows * W::SW, 8 * W::SW, W::LAYOUT) + kk * W::SW;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are pending
+template <int N = 0>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads of wgmma accumulators above the wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// this warpgroup's registers a thread: raise (consumers) or lower
+// (producer) to N; every warp of the warpgroup executes it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// d[0..32) += A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[0..16) += A (64 x 16, registers) * B (16 x 32, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..32) += A (64 x 16, registers) * B (16 x 64, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..64) += A (64 x 16, registers) * B (16 x 128, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..D/2) += A (64 x 16, registers) * B (16 x D, shared, N-major)
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 (neighbouring columns of an accumulator row) as a register
+// operand of bf16 hi = bf16(x) and lo = bf16(x - hi), summed by multiplying
+// both into one f32 accumulator
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = pack_bf16(x0 - __low2float(h2), x1 - __high2float(h2));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime, so that
+// the library links without -lcuda
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D map over the bf16 (D, S, heads, B) view at `ptr`, read in boxes of
+// (AC columns, `rows` rows) with the tile's swizzle; rows past S read as
+// zeros
+template <int D>
+bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
+            Strides st, int rows) {
+  using W = Swz<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  // the stride of an axis of length 1 is never stepped (PyTorch may give
+  // it as 0); TMA wants a nonzero one
+  auto stride = [](long long s, int n) {
+    return static_cast<cuuint64_t>(n == 1 && s == 0 ? 16 : 2 * s);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {stride(st.s, S), stride(st.h, heads),
+                                 stride(st.b, B)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(W::AC),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            W::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace attn

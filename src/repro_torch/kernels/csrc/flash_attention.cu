@@ -68,7 +68,6 @@
 // of its scaled, masked scores in natural-log units, m + log(l): the
 // residual that the backward (flash_attention_bwd.cu) recomputes P from.
 
-#include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,14 +78,13 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 
+using attn::encode;
 using attn::from_f32;
+using attn::kErrTensorMap;
 using attn::load_chunk;
 
-struct Strides {  // element strides of a (B, S, heads, D) view
-  long long b, s, h;
-};
+using attn::Strides;
 
 // ---------------------------------------------------------------------------
 // CUDA cores: f32, and bf16 at D 80, 96 and 256
@@ -264,6 +262,8 @@ flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace tc {
 
+using namespace attn;  // the Hopper helpers
+
 constexpr int kBQ = 128;                     // query rows per block
 constexpr int kBK = 64;                      // keys per K/V tile
 constexpr int kStages = 3;                   // K/V ring
@@ -271,11 +271,7 @@ constexpr int kConsumers = 256;              // two warpgroups
 constexpr int kThreads = kConsumers + 32;    // and one producer warp
 
 template <int D>
-struct Geom {
-  static constexpr int SW = D == 32 ? 64 : 128;   // swizzle = box row bytes
-  static constexpr int AC = SW / 2;               // columns per box
-  static constexpr int NB = D / AC;               // boxes per row
-  static constexpr int LAYOUT = SW == 128 ? 1 : 2;  // descriptor swizzle
+struct Geom : Swz<D> {  // SW, AC, NB, LAYOUT: the box geometry
   static constexpr int Q_BYTES = kBQ * D * 2;
   static constexpr int KV_BYTES = kBK * D * 2;    // one of K, V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -284,183 +280,6 @@ struct Geom {
   static constexpr int SMEM = 1024 + Q_BYTES + kStages * STAGE_BYTES +
                               BAR_BYTES;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle mode
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(layout) << 62;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads of wgmma accumulators above the wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[0..32) += A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[0..16) += A (64 x 16, registers) * B (16 x 32, shared, N-major)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[0..32) += A (64 x 16, registers) * B (16 x 64, shared, N-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[0..64) += A (64 x 16, registers) * B (16 x 128, shared, N-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, db);
-  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  if constexpr (D == 128) wgmma_rs_n128(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the key tiles [lo, hi) that hold an unmasked key for some row of
-// [r_lo, r_hi) (r_lo < r_hi <= S)
-__device__ __forceinline__ void key_tiles(int r_lo, int r_hi, int S,
-                                          int causal, int window, int& lo,
-                                          int& hi) {
-  hi = (S + kBK - 1) / kBK;
-  if (causal) hi = min(hi, (r_hi + kBK - 1) / kBK);
-  lo = window > 0 ? max(0, r_lo - window + 1) / kBK : 0;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -485,7 +304,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   const int h = hb % H, b = hb / H, hk = h / (H / KH);
   const int q0 = qt * kBQ;
   int lo, hi;
-  key_tiles(q0, min(q0 + kBQ, S), S, causal, window, lo, hi);
+  key_tiles<kBK>(q0, min(q0 + kBQ, S), S, causal, window, lo, hi);
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -501,19 +320,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   if (tid >= kConsumers) {  // producer warp: one lane issues every load
     if (tid == kConsumers) {
       mbar_expect_tx(bar_q, G::Q_BYTES);
-      for (int c = 0; c < G::NB; ++c)
-        tma_load(sQ + c * kBQ * G::SW, &tq, bar_q, c * G::AC, q0, h, b);
+      tma_tile<D>(sQ, &tq, bar_q, kBQ, q0, h, b);
       for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
         const int s = i % kStages;
         mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), G::STAGE_BYTES);
         const uint32_t sk = sKV + s * G::STAGE_BYTES, sv = sk + G::KV_BYTES;
-        for (int c = 0; c < G::NB; ++c) {
-          tma_load(sk + c * kBK * G::SW, &tk, full(s), c * G::AC, kt * kBK,
-                   hk, b);
-          tma_load(sv + c * kBK * G::SW, &tv, full(s), c * G::AC, kt * kBK,
-                   hk, b);
-        }
+        tma_tile<D>(sk, &tk, full(s), kBK, kt * kBK, hk, b);
+        tma_tile<D>(sv, &tv, full(s), kBK, kt * kBK, hk, b);
       }
     }
     return;
@@ -526,7 +340,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   const int wr_lo = q0 + 64 * wg, wr_hi = min(wr_lo + 64, S);
   const int r0 = wr_lo + 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
   int wlo = 0, whi = 0;  // this warpgroup's key tiles (none past S)
-  if (wr_lo < S) key_tiles(wr_lo, wr_hi, S, causal, window, wlo, whi);
+  if (wr_lo < S) key_tiles<kBK>(wr_lo, wr_hi, S, causal, window, wlo, whi);
 
   float acc[D / 2];
 #pragma unroll
@@ -545,18 +359,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < 32; ++j) sc[j] = 0.f;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // columns 16 kk .. 16 kk + 15 of D: 32-byte steps inside a box
-        const int box = kk / (G::AC / 16);
-        const uint32_t off = (kk % (G::AC / 16)) * 32;
-        wgmma_ss_n64(sc,
-                     desc(qa + box * kBQ * G::SW + off, 16, 8 * G::SW,
-                          G::LAYOUT),
-                     desc(sk + box * kBK * G::SW + off, 16, 8 * G::SW,
-                          G::LAYOUT));
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_kmajor<D>(qa, kBQ, kk),
+                     desc_kmajor<D>(sk, kBK, kk));
       wg_commit();
-      wg_wait_all();
+      wg_wait();
       reg_fence(sc);
 
       const int k0 = kt * kBK;
@@ -596,9 +403,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         const int r = (j >> 1) & 1;
         const float p0 = exp2f(sc[j] - m[r]), p1 = exp2f(sc[j + 1] - m[r]);
         rs[r] += p0 + p1;
-        const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
-        phi[j / 2] = *reinterpret_cast<const uint32_t*>(&h2);
-        plo[j / 2] = pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
+        split_bf16(p0, p1, phi[j / 2], plo[j / 2]);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
@@ -608,15 +413,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        // keys 16 kk .. 16 kk + 15: 16 rows of every box; boxes are the
-        // 64-column atoms along N (LBO), 8-row groups along K (SBO)
-        const uint64_t dv = desc(sv + kk * 16 * G::SW, kBK * G::SW,
-                                 8 * G::SW, G::LAYOUT);
-        wgmma_pv<D>(acc, phi + 4 * kk, dv);
-        wgmma_pv<D>(acc, plo + 4 * kk, dv);
+        // keys 16 kk .. 16 kk + 15
+        const uint64_t dv = desc_nmajor<D>(sv, kBK, kk);
+        wgmma_rs<D>(acc, phi + 4 * kk, dv);
+        wgmma_rs<D>(acc, plo + 4 * kk, dv);
       }
       wg_commit();
-      wg_wait_all();
+      wg_wait();
       reg_fence(acc);
     }
     mbar_arrive(empty(s));
@@ -656,9 +459,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 // host
 // ---------------------------------------------------------------------------
 
-// the head dims the bf16 tensor-core tiles take
-template <int D>
-constexpr bool kTensorCores = D == 32 || D == 64 || D == 128;
+using attn::kTensorCores;
 
 template <typename T, int D>
 int launch_cc(const void* q, const void* k, const void* v, void* o,
@@ -676,64 +477,6 @@ int launch_cc(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, S, qs, ks, vs,
       os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime, so that
-// the library links without -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 4-D map over the (D, S, heads, B) view at `ptr`, read in boxes of
-// (AC columns, `rows` rows) with the kernel's swizzle; rows past S read as
-// zeros
-template <int D>
-bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
-            Strides st, int rows) {
-  using G = tc::Geom<D>;
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  // the stride of an axis of length 1 is never stepped (PyTorch may give
-  // it as 0); TMA wants a nonzero one
-  auto stride = [](long long s, int n) {
-    return static_cast<cuuint64_t>(n == 1 && s == 0 ? 16 : 2 * s);
-  };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {stride(st.s, S), stride(st.h, heads),
-                                 stride(st.b, B)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::AC),
-                             static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -26,26 +26,61 @@
 // 5.1 ms at 67 TFLOP/s (f32, CUDA cores); the bytes (q, k, v, o, dO and
 // the three gradients, about 0.1 GB in bf16) are far below that.
 //
-// Design (a first, simple one: f32 FMAs on the CUDA cores at every D, in
-// f32 and in bf16).  Three launches, no atomics, so the result does not
-// depend on the order the blocks run in:
-//  (a) flash_bwd_delta: one warp per row, delta = rowsum(dO * o) in f32.
-//  (b) flash_bwd_dkdv: one block per (64-key tile, kv head, batch), the key
-//      tiles whose queries see the most keys (the first ones under the
-//      causal mask) first.  K and V of the tile are staged once in shared
-//      memory as f32; the block loops over the query tiles its masks leave
-//      (from the diagonal on under the causal mask, up to the window's
-//      reach) and over the g query heads of the group, stages Q and dO of
-//      each, recomputes P^T and dS^T for the tile pair (stored in shared
-//      memory) and accumulates dK and dV in registers: a thread owns RK
-//      key rows x D/16 columns of each.
-//  (c) flash_bwd_dq: one block per (query tile, head, batch), the query
-//      tiles with the most keys first; Q, dO, lse and delta staged once;
-//      a loop over the key tiles its masks leave recomputes P and dP,
-//      stores dS in shared memory and accumulates dQ in registers.
-// At D 256 the query tile is 32 rows and a block 256 threads, so that the
+// Three launches, no atomics, so the result does not depend on the order
+// the blocks run in: (a) flash_bwd_delta, one warp per row, delta =
+// rowsum(dO * o) in f32; (b) a dK/dV pass, one block per (key tile, kv
+// head, batch) that loops over the query tiles its masks leave and the g
+// query heads of the group; (c) a dQ pass, one block per (query tile,
+// head, batch) that loops over the key tiles its masks leave.  S and dP
+// are recomputed in both passes: 7 products where an atomic dQ would take
+// 5, which keeps every output owned by one block.
+//
+// bf16 at D 32, 64 and 128 (the forward's tensor-core set): tensor cores.
+// Both passes have the forward's shape: blocks of 384 threads, two
+// consumer warpgroups that own 64 rows each of the block's 128 rows (keys
+// in (b), queries in (c)) and a producer warpgroup, one warp of which
+// issues the TMA loads (setmaxnreg: 240 registers a consumer thread, 24 a
+// producer thread, for the f32 accumulators); the block's two own tiles
+// (K and V, or Q and dO) are loaded once, and a ring of kStages stages
+// streams the other two in 64-row tiles (Q and dO with their lse and delta
+// rows, or K and V), each stage signalled by a "full" mbarrier that counts
+// the bytes and released by an "empty" one every consumer thread arrives
+// on.  Tiles use the forward's swizzled boxes (128-byte, 64-byte at D 32),
+// rows past S come in as zeros (TMA's out-of-bounds fill), blocks with the
+// most work start first, and tiles wholly outside a warpgroup's masks are
+// skipped; only those that cross the diagonal, the window's edge or S are
+// masked element by element.  Every product is a wgmma in one of the
+// forward's two forms:
+//   (b) S^T = K Q^T and dP^T = V dO^T, both operands K-major in shared
+//       memory (the forward's S = Q K^T); P^T = exp2(scale log2e S^T -
+//       log2e lse) and dS^T = P^T (dP^T - delta) in registers, where the
+//       accumulator layout of S^T is the A-fragment layout; dV += P^T dO
+//       and dK += dS^T Q with the A operand from registers and the same Q
+//       and dO tiles read N-major (the forward's O += P V).
+//   (c) S = Q K^T and dP = dO V^T, K-major; dS = P (dP - delta); dQ += dS K
+//       with K read N-major.
+// The two shared-memory products of an iteration are two wgmma groups: P
+// (P^T) is computed while dP (dP^T) is still on the tensor cores.
+// P and dS are split into bf16 hi = bf16(x) and lo = bf16(x - hi), both
+// multiplied into the same f32 accumulator: one bf16 P or dS puts hundreds
+// of elements of dV, or of dQ and dK, beyond BWD_TOL at the tests' shapes,
+// the split none (tests/test_torch_kernel_designs.py).  That doubles the
+// three register-operand products: 10 products' worth of tensor work,
+// about 690 GFLOP at the training shape, 0.70 ms at the tensor-core rate:
+// the design is held to that (and to its 0.35 ms bound) by keeping every
+// product on the tensor cores, every operand tile in shared memory once,
+// and P^T / dS^T in registers (PERF.md has its measured time).
+//
+// CUDA cores: f32 at every D, and bf16 at D 80, 96 and 256 (which the
+// tensor-core boxes do not take): the same three launches with f32 FMAs.
+// (b) one block per (64-key tile, kv head, batch) stages K and V as f32
+// once, then Q and dO of each query tile and head, recomputes P^T and dS^T
+// (in shared memory) and accumulates dK and dV in registers: a thread owns
+// RK key rows x D/16 columns of each; (c) one block per (query tile, head,
+// batch) stages Q, dO, lse and delta once, and per key tile recomputes P
+// and dP, stores dS in shared memory and accumulates dQ in registers.  At
+// D 256 the query tile is 32 rows and a block 256 threads, so that the
 // staged tiles fit in shared memory and the accumulators in registers.
-// The tensor cores (wgmma, with TMA-fed tiles) are left to a later design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,12 +91,11 @@
 
 namespace {
 
+using attn::encode;
 using attn::from_f32;
+using attn::kErrTensorMap;
 using attn::load_chunk;
-
-struct Strides {  // element strides of a (B, S, heads, D) view
-  long long b, s, h;
-};
+using attn::Strides;
 
 template <int D>
 struct Cfg {
@@ -444,40 +478,440 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at D 32, 64 and 128: tensor cores (wgmma), tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace attn;  // the Hopper helpers
+
+constexpr int kRows = 64;                   // rows a warpgroup, a streamed tile
+constexpr int kBlockRows = 2 * kRows;       // rows a block owns
+constexpr int kStages = 3;                  // ring of streamed tile pairs
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory of either pass: the block's two own tiles of kBlockRows
+// rows, kStages stages of two kRows-row tiles, kStages x (lse, delta) rows
+// (the dK/dV pass), the mbarriers
+template <int D>
+struct Geom : Swz<D> {
+  static constexpr int OWN_BYTES = kBlockRows * D * 2;
+  static constexpr int TILE_BYTES = kRows * D * 2;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int ROWS_BYTES = 2 * kRows * 4;
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * kStages);
+  // the tiles start on a 1024-byte boundary (the swizzle pattern's period)
+  static constexpr int SMEM = 1024 + 2 * OWN_BYTES +
+                              kStages * (STAGE_BYTES + ROWS_BYTES) + BAR_BYTES;
+};
+
+// The shared-memory map of a block: own tiles at `own0`, `own1`; stage s at
+// stage(s) (its two tiles one after the other) with its rows at rows(s);
+// the barrier of the own tiles, full(s) and empty(s).
+template <int D>
+struct Smem {
+  using G = Geom<D>;
+  uint32_t own0, own1, stage0, rows0, bar;
+  float* rows_ptr;
+  __device__ __forceinline__ explicit Smem(uint8_t* raw) {
+    const uint32_t base = smem_u32(raw);
+    own0 = (base + 1023) & ~1023u;
+    own1 = own0 + G::OWN_BYTES;
+    stage0 = own1 + G::OWN_BYTES;
+    rows0 = stage0 + kStages * G::STAGE_BYTES;
+    bar = rows0 + kStages * G::ROWS_BYTES;
+    rows_ptr = reinterpret_cast<float*>(raw + (rows0 - base));
+  }
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return stage0 + s * G::STAGE_BYTES;
+  }
+  __device__ __forceinline__ float* rows(int s) const {
+    return rows_ptr + s * 2 * kRows;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return bar + 8 * (1 + s);
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bar + 8 * (1 + kStages + s);
+  }
+  // thread 0: the barriers, `full_count` arrivals completing a full phase
+  __device__ __forceinline__ void init(int full_count) const {
+    mbar_init(bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), full_count);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// (b) dK and dV of one (128-key tile, kv head, batch)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int H, int KH, int B,
+                    int S, Strides dks, Strides dvs, int causal, int window,
+                    float scale, float scale_log2) {
+  using G = Geom<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);  // own tiles K, V; stages Q, dO
+
+  // key tile 0 first: under the causal mask it sees the most queries
+  const int kt = static_cast<int>(blockIdx.x) / (KH * B);
+  const int rem = static_cast<int>(blockIdx.x) % (KH * B);
+  const int hk = rem % KH, b = rem / KH, g = H / KH;
+  const int k0 = kt * kBlockRows;
+  // the query tiles holding a query that sees a key of the block, each
+  // once for every query head of the group
+  const int kmax = min(k0 + kBlockRows, S) - 1;
+  const int qt_lo = (causal ? k0 : 0) / kRows;
+  const int qt_hi =
+      ((window > 0 ? min(S, kmax + window) : S) + kRows - 1) / kRows;
+  const int n_iter = (qt_hi - qt_lo) * g;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) sm.init(32);  // every lane of the producer warp arrives
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // producer warpgroup: its first warp loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid >= kConsumers + 32) return;
+    const int lane = tid - kConsumers;
+    if (lane == 0) {
+      mbar_expect_tx(sm.bar, 2 * G::OWN_BYTES);
+      tma_tile<D>(sm.own0, &tk, sm.bar, kBlockRows, k0, hk, b);
+      tma_tile<D>(sm.own1, &tv, sm.bar, kBlockRows, k0, hk, b);
+    }
+    for (int i = 0; i < n_iter; ++i) {
+      const int s = i % kStages;
+      const int q0 = (qt_lo + i / g) * kRows, h = hk * g + i % g;
+      const long long row0 = (static_cast<long long>(b) * H + h) * S + q0;
+      mbar_wait(sm.empty(s), ((i / kStages) & 1) ^ 1);
+      // lse (in log2 units) and delta of the tile's rows; rows past S as 0
+      float* rows = sm.rows(s);
+      for (int r = lane; r < kRows; r += 32) {
+        const bool in = q0 + r < S;
+        rows[r] = in ? lse[row0 + r] * kLog2e : 0.f;
+        rows[kRows + r] = in ? delta[row0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(sm.full(s), G::STAGE_BYTES);
+        tma_tile<D>(sm.stage(s), &tq, sm.full(s), kRows, q0, h, b);
+        tma_tile<D>(sm.stage(s) + G::TILE_BYTES, &tdo, sm.full(s), kRows, q0,
+                    h, b);
+      } else {
+        mbar_arrive(sm.full(s));
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  // warpgroup wg owns keys [wk0, wk0 + 64); in the accumulator layout a
+  // thread holds rows kr0 and kr0 + 8, columns 8 j + c0 and 8 j + c0 + 1
+  // of each 8-column group j
+  const int wg = tid / 128, t = tid % 128, lane = t % 32;
+  const int wk0 = k0 + kRows * wg, wk_hi = min(wk0 + kRows, S);
+  const int kr0 = wk0 + 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
+  const uint32_t ka = sm.own0 + wg * kRows * G::SW;
+  const uint32_t va = sm.own1 + wg * kRows * G::SW;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
+  mbar_wait(sm.bar, 0);
+
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % kStages;
+    const int q0 = (qt_lo + i / g) * kRows;
+    mbar_wait(sm.full(s), (i / kStages) & 1);
+    // skip a tile whose pairs the masks cover wholly: keys past S, every
+    // query before every key, or every query past its keys' window
+    const bool skip = wk0 >= S || (causal && q0 + kRows - 1 < wk0) ||
+                      (window > 0 && q0 >= wk_hi - 1 + window);
+    if (!skip) {
+      const uint32_t sq = sm.stage(s), sdo = sq + G::TILE_BYTES;
+      float st[32], dpt[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(st, desc_kmajor<D>(ka, kBlockRows, kk),
+                     desc_kmajor<D>(sq, kRows, kk));
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dpt, desc_kmajor<D>(va, kBlockRows, kk),
+                     desc_kmajor<D>(sdo, kRows, kk));
+      wg_commit();
+      wg_wait<1>();  // S^T is in; dP^T runs on while P^T is computed
+      reg_fence(st);
+
+      const bool edge = (causal && q0 < wk0 + kRows - 1) ||
+                        (window > 0 && q0 + kRows - 1 >= wk0 + window) ||
+                        q0 + kRows > S || wk0 + kRows > S;
+      const float* rows = sm.rows(s);
+      // P^T in place of S^T; column j of the accumulator is query column
+      // 8 (j / 4) + c0 + (j & 1) of the tile
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int col = 8 * (j / 4) + c0;
+        const float2 l2 = *reinterpret_cast<const float2*>(rows + col);
+        st[j] = exp2f(fmaf(st[j], scale_log2, -l2.x));
+        st[j + 1] = exp2f(fmaf(st[j + 1], scale_log2, -l2.y));
+        if (edge) {
+          const int kpos = kr0 + 8 * ((j >> 1) & 1), qpos = q0 + col;
+          if (!unmasked(qpos, kpos, S, causal, window)) st[j] = 0.f;
+          if (!unmasked(qpos + 1, kpos, S, causal, window)) st[j + 1] = 0.f;
+        }
+      }
+      wg_wait();
+      reg_fence(dpt);
+      // P^T and dS^T in the A-fragment layout: pair j / 2 holds columns
+      // (j, j + 1)
+      uint32_t phi[16], plo[16], shi[16], slo[16];
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const float2 d2 = *reinterpret_cast<const float2*>(
+            rows + kRows + 8 * (j / 4) + c0);
+        split_bf16(st[j], st[j + 1], phi[j / 2], plo[j / 2]);
+        split_bf16(st[j] * (dpt[j] - d2.x), st[j + 1] * (dpt[j + 1] - d2.y),
+                   shi[j / 2], slo[j / 2]);
+      }
+
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        // queries 16 kk .. 16 kk + 15 of the Q and dO tiles, read N-major
+        const uint64_t do_n = desc_nmajor<D>(sdo, kRows, kk);
+        const uint64_t q_n = desc_nmajor<D>(sq, kRows, kk);
+        wgmma_rs<D>(acc_v, phi + 4 * kk, do_n);
+        wgmma_rs<D>(acc_v, plo + 4 * kk, do_n);
+        wgmma_rs<D>(acc_k, shi + 4 * kk, q_n);
+        wgmma_rs<D>(acc_k, slo + 4 * kk, q_n);
+      }
+      wg_commit();
+      wg_wait();
+      reg_fence(acc_k);
+      reg_fence(acc_v);
+    }
+    mbar_arrive(sm.empty(s));
+  }
+
+  if (wk0 >= S) return;
+  __nv_bfloat16* dkb = dk + b * dks.b + hk * dks.h;
+  __nv_bfloat16* dvb = dv + b * dvs.b + hk * dvs.h;
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int row = kr0 + 8 * ((j >> 1) & 1), col = 8 * (j / 4) + c0;
+    if (row < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + row * dks.s + col) =
+          __floats2bfloat162_rn(acc_k[j] * scale, acc_k[j + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + row * dvs.s + col) =
+          __floats2bfloat162_rn(acc_v[j], acc_v[j + 1]);
+    }
+  }
+}
+
+// (c) dQ of one (128-query tile, head, batch)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int H, int KH, int B, int S,
+                  Strides dqs, int causal, int window, float scale,
+                  float scale_log2) {
+  using G = Geom<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);  // own tiles Q, dO; stages K, V
+
+  // longest query tiles first: the query tile is the slowest-varying index
+  const int n_qt = (S + kBlockRows - 1) / kBlockRows;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / (H * B);
+  const int hb = static_cast<int>(blockIdx.x) % (H * B);
+  const int h = hb % H, b = hb / H, hk = h / (H / KH);
+  const int q0 = qt * kBlockRows;
+  int lo, hi;  // the 64-key tiles of the block
+  key_tiles<kRows>(q0, min(q0 + kBlockRows, S), S, causal, window, lo, hi);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) sm.init(1);
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // producer warpgroup: one lane loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      mbar_expect_tx(sm.bar, 2 * G::OWN_BYTES);
+      tma_tile<D>(sm.own0, &tq, sm.bar, kBlockRows, q0, h, b);
+      tma_tile<D>(sm.own1, &tdo, sm.bar, kBlockRows, q0, h, b);
+      for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
+        const int s = i % kStages;
+        mbar_wait(sm.empty(s), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(sm.full(s), G::STAGE_BYTES);
+        tma_tile<D>(sm.stage(s), &tk, sm.full(s), kRows, kt * kRows, hk, b);
+        tma_tile<D>(sm.stage(s) + G::TILE_BYTES, &tv, sm.full(s), kRows,
+                    kt * kRows, hk, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  // warpgroup wg owns queries [wr_lo, wr_hi); a thread holds rows r0 and
+  // r0 + 8 of the accumulators
+  const int wg = tid / 128, t = tid % 128, lane = t % 32;
+  const int wr_lo = q0 + kRows * wg, wr_hi = min(wr_lo + kRows, S);
+  const int r0 = wr_lo + 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
+  int wlo = 0, whi = 0;  // this warpgroup's key tiles (none past S)
+  if (wr_lo < S) key_tiles<kRows>(wr_lo, wr_hi, S, causal, window, wlo, whi);
+  const long long row0 = (static_cast<long long>(b) * H + h) * S;
+  float lse2[2], dl[2];  // lse (log2 units) and delta of rows r0, r0 + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    lse2[r] = row < S ? lse[row0 + row] * kLog2e : 0.f;
+    dl[r] = row < S ? delta[row0 + row] : 0.f;
+  }
+  const uint32_t qa = sm.own0 + wg * kRows * G::SW;
+  const uint32_t doa = sm.own1 + wg * kRows * G::SW;
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  mbar_wait(sm.bar, 0);
+
+  for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
+    const int s = i % kStages;
+    mbar_wait(sm.full(s), (i / kStages) & 1);
+    if (kt >= wlo && kt < whi) {
+      const uint32_t sk = sm.stage(s), sv = sk + G::TILE_BYTES;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_kmajor<D>(qa, kBlockRows, kk),
+                     desc_kmajor<D>(sk, kRows, kk));
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_kmajor<D>(doa, kBlockRows, kk),
+                     desc_kmajor<D>(sv, kRows, kk));
+      wg_commit();
+      wg_wait<1>();  // S is in; dP runs on while P is computed
+      reg_fence(sc);
+
+      const int k0 = kt * kRows;
+      const bool edge = (causal && k0 + kRows - 1 > wr_lo) ||
+                        (window > 0 && k0 <= wr_hi - 1 - window) ||
+                        k0 + kRows > S;
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {  // P in place of S
+        const int r = (j >> 1) & 1;
+        sc[j] = exp2f(fmaf(sc[j], scale_log2, -lse2[r]));
+        sc[j + 1] = exp2f(fmaf(sc[j + 1], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kpos = k0 + 8 * (j / 4) + c0, qpos = r0 + 8 * r;
+          if (!unmasked(qpos, kpos, S, causal, window)) sc[j] = 0.f;
+          if (!unmasked(qpos, kpos + 1, S, causal, window)) sc[j + 1] = 0.f;
+        }
+      }
+      wg_wait();
+      reg_fence(dp);
+      uint32_t shi[16], slo[16];  // dS in the A-fragment layout
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int r = (j >> 1) & 1;
+        split_bf16(sc[j] * (dp[j] - dl[r]), sc[j + 1] * (dp[j + 1] - dl[r]),
+                   shi[j / 2], slo[j / 2]);
+      }
+
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        // keys 16 kk .. 16 kk + 15 of the K tile, read N-major
+        const uint64_t k_n = desc_nmajor<D>(sk, kRows, kk);
+        wgmma_rs<D>(acc, shi + 4 * kk, k_n);
+        wgmma_rs<D>(acc, slo + 4 * kk, k_n);
+      }
+      wg_commit();
+      wg_wait();
+      reg_fence(acc);
+    }
+    mbar_arrive(sm.empty(s));
+  }
+
+  if (wr_lo >= S) return;
+  __nv_bfloat16* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int row = r0 + 8 * ((j >> 1) & 1), col = 8 * (j / 4) + c0;
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + row * dqs.s + col) =
+          __floats2bfloat162_rn(acc[j] * scale, acc[j + 1] * scale);
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // host
 // ---------------------------------------------------------------------------
+
+using attn::kTensorCores;
 
 struct Views {
   Strides q, k, v, o, dout, dq, dk, dv;
 };
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int B, int H, int KH, int S, const Views& st,
-           int causal, int window, float scale, cudaStream_t stream) {
+int launch_delta(const void* o, const void* dout, float* delta, int B, int H,
+                 int S, const Views& st, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * H * S;
+  const long long blocks = (rows + 3) / 4;
+  if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_delta<T, D><<<static_cast<unsigned>(blocks), 128, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, S,
+      rows, st.o, st.dout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_cc(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, float* delta, void* dq,
+              void* dk, void* dv, int B, int H, int KH, int S,
+              const Views& st, int causal, int window, float scale,
+              cudaStream_t stream) {
   using C = Cfg<D>;
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
-  const long long rows = static_cast<long long>(B) * H * S;
-  const long long n_delta = (rows + 3) / 4;
   const long long n_dkdv = static_cast<long long>((S + C::BK - 1) / C::BK) *
                            KH * B;
   const long long n_dq = static_cast<long long>((S + C::BQ - 1) / C::BQ) * H *
                          B;
-  if (n_delta >= (1ll << 31) || n_dq >= (1ll << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_dq >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
 
-  flash_bwd_delta<T, D><<<static_cast<unsigned>(n_delta), 128, 0, stream>>>(
-      static_cast<const T*>(o), tdo, delta, H, S, rows, st.o, st.dout);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int code = launch_delta<T, D>(o, dout, delta, B, H, S, st, stream);
+  if (code != 0) return code;
 
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM_DKDV);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM_DKDV);
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkdv<T, D><<<static_cast<unsigned>(n_dkdv), C::NT, C::SMEM_DKDV,
                          stream>>>(
@@ -499,19 +933,81 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <int D>
-int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 const void* o, const void* dout, const float* lse,
-                 float* delta, void* dq, void* dk, void* dv, int B, int H,
-                 int KH, int S, const Views& st, int causal, int window,
-                 float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, float* delta, void* dq,
+              void* dk, void* dv, int B, int H, int KH, int S,
+              const Views& st, int causal, int window, float scale,
+              cudaStream_t stream) {
+  using tc::kBlockRows;
+  using tc::kRows;
+  // the dK/dV pass streams 64-row Q and dO tiles past 128-row K and V
+  // tiles; the dQ pass the other way round
+  CUtensorMap q_s, do_s, k_own, v_own, q_own, do_own, k_s, v_s;
+  if (!encode<D>(&q_s, q, S, H, B, st.q, kRows) ||
+      !encode<D>(&do_s, dout, S, H, B, st.dout, kRows) ||
+      !encode<D>(&k_own, k, S, KH, B, st.k, kBlockRows) ||
+      !encode<D>(&v_own, v, S, KH, B, st.v, kBlockRows) ||
+      !encode<D>(&q_own, q, S, H, B, st.q, kBlockRows) ||
+      !encode<D>(&do_own, dout, S, H, B, st.dout, kBlockRows) ||
+      !encode<D>(&k_s, k, S, KH, B, st.k, kRows) ||
+      !encode<D>(&v_s, v, S, KH, B, st.v, kRows))
+    return kErrTensorMap;
+  const long long n_tiles = (S + kBlockRows - 1) / kBlockRows;
+  if (n_tiles * H * B >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  int code = launch_delta<__nv_bfloat16, D>(o, dout, delta, B, H, S, st,
+                                            stream);
+  if (code != 0) return code;
+
+  const int bytes = tc::Geom<D>::SMEM;
+  const float scale_log2 = scale * tc::kLog2e;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc::flash_bwd_dkdv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tc::flash_bwd_dkdv_bf16<D>
+      <<<static_cast<unsigned>(n_tiles * KH * B), tc::kThreads, bytes,
+         stream>>>(q_s, k_own, v_own, do_s, lse, delta,
+                   static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), H, KH, B, S, st.dk, st.dv,
+                   causal, window, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(tc::flash_bwd_dq_bf16<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tc::flash_bwd_dq_bf16<D>
+      <<<static_cast<unsigned>(n_tiles * H * B), tc::kThreads, bytes,
+         stream>>>(q_own, k_s, v_s, do_own, lse, delta,
+                   static_cast<__nv_bfloat16*>(dq), H, KH, B, S, st.dq,
+                   causal, window, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// *design: 1 for the tensor-core kernels, 0 for the CUDA-core ones
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const float* lse, float* delta,
+           void* dq, void* dk, void* dv, int B, int H, int KH, int S,
+           const Views& st, int causal, int window, float scale,
+           int* design, cudaStream_t stream) {
+  *design = 0;
   if (dtype == 0)
-    return launch<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                            KH, S, st, causal, window, scale, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, H, KH, S, st, causal, window, scale,
-                                    stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_cc<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               H, KH, S, st, causal, window, scale, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kTensorCores<D>) {
+    *design = 1;
+    return launch_tc<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KH,
+                        S, st, causal, window, scale, stream);
+  } else {
+    return launch_cc<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, B, H, KH, S, st, causal, window,
+                                       scale, stream);
+  }
 }
 
 }  // namespace
@@ -520,6 +1016,8 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 // share it).  Strides are in elements, each view's (batch, position, head);
 // the D axis is contiguous and every row starts on a 16-byte boundary.  lse
 // (the forward's) and delta (scratch) are f32 (B, H, S) contiguous.
+// *design is set to the design launched: 1 = the tensor-core kernels
+// (bf16 at D 32, 64, 128), 0 = the CUDA-core ones.
 extern "C" int flash_attention_bwd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     const void* o, const void* dout, const float* lse, float* delta,
@@ -529,7 +1027,7 @@ extern "C" int flash_attention_bwd_launch(
     long long oss, long long osh, long long dsb, long long dss, long long dsh,
     long long dqsb, long long dqss, long long dqsh, long long dksb,
     long long dkss, long long dksh, long long dvsb, long long dvss,
-    long long dvsh, int causal, int window, float scale,
+    long long dvsh, int causal, int window, float scale, int* design,
     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -538,10 +1036,10 @@ extern "C" int flash_attention_bwd_launch(
                  {osb, oss, osh},    {dsb, dss, dsh},    {dqsb, dqss, dqsh},
                  {dksb, dkss, dksh}, {dvsb, dvss, dvsh}};
   switch (D) {
-#define BWD_CASE(DD)                                                         \
-  case DD:                                                                   \
-    return launch_dtype<DD>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, \
-                            B, H, KH, S, st, causal, window, scale, stream);
+#define BWD_CASE(DD)                                                       \
+  case DD:                                                                 \
+    return launch<DD>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, \
+                      H, KH, S, st, causal, window, scale, design, stream);
     BWD_CASE(32)
     BWD_CASE(64)
     BWD_CASE(80)
@@ -554,12 +1052,14 @@ extern "C" int flash_attention_bwd_launch(
   }
 }
 
-// dynamic shared memory of one block of the dK/dV (which = 0) or the dQ
-// (which = 1) kernel, 0 for an unknown D
-extern "C" int flash_attention_bwd_smem_bytes(int D, int which) {
+// dynamic shared memory of one block (dtype as above) of the dK/dV
+// (which = 0) or the dQ (which = 1) kernel, 0 for an unknown D
+extern "C" int flash_attention_bwd_smem_bytes(int dtype, int D, int which) {
   switch (D) {
-#define BWD_SMEM(DD) \
-  case DD:           \
+#define BWD_SMEM(DD)                                          \
+  case DD:                                                    \
+    if constexpr (kTensorCores<DD>)                           \
+      if (dtype) return tc::Geom<DD>::SMEM;                   \
     return which ? Cfg<DD>::SMEM_DQ : Cfg<DD>::SMEM_DKDV;
     BWD_SMEM(32)
     BWD_SMEM(64)
@@ -574,5 +1074,6 @@ extern "C" int flash_attention_bwd_smem_bytes(int D, int which) {
 }
 
 extern "C" const char* kernel_error_string(int err) {
+  if (err == kErrTensorMap) return "cuTensorMapEncodeTiled refused a map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

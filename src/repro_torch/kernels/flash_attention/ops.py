@@ -30,20 +30,31 @@ tallied by head dim.  With ``return_lse`` the forward also writes each
 row's log-sum-exp of its scaled scores (f32, natural log), the residual of
 the backward.
 
-``flash_attention_bwd_cuda`` launches the backward kernel
-(``csrc/flash_attention_bwd.cu``), which replaces the jnp FlashAttention
+``flash_attention_bwd_cuda`` launches the backward kernels
+(``csrc/flash_attention_bwd.cu``), which replace the jnp FlashAttention
 backward ``_flash_vjp_bwd`` of ``src/repro/models/attention.py`` (:95, the
 ``custom_vjp`` backward of ``_flash``; not a Pallas kernel).  Bound on an
 H100 SXM: five products of 2 * B * H * D * (unmasked pairs) operations, at
 the training shape (B 2, S 4096, H 16, KH 8, D 128, causal) about 344
 GFLOP: 0.35 ms in bf16 on the tensor cores, 5.1 ms in f32 on the CUDA
-cores, against which this design (f32 FMAs) is measured.  Three launches:
-``delta = rowsum(dO * O)``; one block per (64-key tile, kv head, batch)
-that loops over the query tiles its masks leave and the query heads of
-its group, recomputing P from ``lse`` and accumulating dK and dV in
-registers; one block per (query tile, head, batch) for dQ.  No atomics:
-the result is deterministic.  ``counter_bwd`` counts one per backward
-(three kernel launches), tallied by head dim.
+cores.  Three launches, no atomics, so the result is the same bits every
+run: ``delta = rowsum(dO * O)``; a dK/dV pass, one block per (key tile, kv
+head, batch) looping over the query tiles its masks leave and the query
+heads of its group; a dQ pass, one block per (query tile, head, batch).
+Both recompute P from ``lse``, so S and dP are computed twice (7 products
+for 5).  In bf16 at D ``TENSOR_CORE_DIMS`` (the forward's set) both passes
+have the forward's design: a TMA producer warp streams 64-row tiles past
+the block's own 128 rows, and two consumer warpgroups run every product
+as ``wgmma`` -- S^T = K Q^T and dP^T = V dO^T with both operands in shared
+memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers (and
+S = Q K^T, dP = dO V^T, dQ += dS K in the dQ pass) -- with P and dS split
+into bf16 hi + lo, as one bf16 P or dS misses the backward's tolerance.
+In f32 at every D and in bf16 at D 80, 96 and 256: the same three launches
+with f32 FMAs on the CUDA cores.  The dispatch is fixed by dtype and D in
+the C launcher, which reports the design it launched; a failure raises.
+``counter_bwd`` counts one per backward (three kernel launches), tallied
+by head dim, and ``counter_bwd_tc`` the backwards the launcher ran on the
+tensor-core kernels.
 """
 from __future__ import annotations
 
@@ -57,11 +68,15 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "flash_attention_ref", "flash_attention_bwd_ref", "counter",
-           "counter_bwd", "HEAD_DIMS"]
+           "counter_bwd", "counter_bwd_tc", "HEAD_DIMS", "TENSOR_CORE_DIMS"]
 
 counter = build.LaunchCounter("flash_attention")
 counter_bwd = build.LaunchCounter("flash_attention_bwd")
+counter_bwd_tc = build.LaunchCounter("flash_attention_bwd_tc")
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+# the head dims at which bf16 runs the tensor-core (wgmma) kernels, both
+# directions; f32, and bf16 at the others, run the CUDA-core kernels
+TENSOR_CORE_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -72,7 +87,7 @@ _SIGNATURES = {"flash_attention_launch": (
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": (
     ctypes.c_int,
     [_I, _I] + [_P] * 10 + [_I] * 5 + [_L] * 24
-    + [_I, _I, ctypes.c_float, _P])}
+    + [_I, _I, ctypes.c_float, ctypes.POINTER(ctypes.c_int), _P])}
 
 
 def _check_shapes(what: str, q, k, v, window: int) -> None:
@@ -159,6 +174,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    design = ctypes.c_int(-1)
     err = lib.flash_attention_bwd_launch(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -166,7 +182,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         b, h, kh, s, d, *_strides(q), *_strides(k), *_strides(v),
         *_strides(out), *_strides(dout), *_strides(dq), *_strides(dk),
         *_strides(dv), int(bool(causal)),
-        int(window), d ** -0.5, build.stream_of(q))
+        int(window), d ** -0.5, ctypes.byref(design), build.stream_of(q))
     build.check(lib, err, "flash_attention_bwd")
     counter_bwd.add(d)
+    if design.value == 1:
+        counter_bwd_tc.add(d)
     return dq, dk, dv

@@ -1011,7 +1011,13 @@ def assert_grads_close(got, want, dtype, what=""):
     (1, 2, 2, 1, 32, True, 0)])          # one token
 def test_flash_attention_bwd_matches_plain_on_card(cuda_device, dt, b, h, kh,
                                                    s, d, causal, window):
-    dtype, _ = ATT_DTYPES[dt]
+    _check_bwd_on_card(cuda_device, ATT_DTYPES[dt][0], b, h, kh, s, d,
+                       causal, window)
+
+
+def _check_bwd_on_card(cuda_device, dtype, b, h, kh, s, d, causal, window):
+    """The backward kernel against its plain version (``BWD_TOL``), through
+    dense tensors and through transposed views, and the same bits again."""
     q = _randn((b, h, s, d), dtype, cuda_device, 1)
     k = _randn((b, kh, s, d), dtype, cuda_device, 2)
     v = _randn((b, kh, s, d), dtype, cuda_device, 3)
@@ -1025,7 +1031,7 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda_device, dt, b, h, kh,
     want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
     assert fa.counter_bwd.count == c0 + 1
-    assert_grads_close(got, want, dtype, f"{dt} {b, h, kh, s, d}")
+    assert_grads_close(got, want, dtype, f"{dtype} {b, h, kh, s, d}")
     # (B, S, H, D) storage read through transposed views, as the model does
     tr = [x.transpose(1, 2).contiguous().transpose(1, 2)
           for x in (q, k, v, out, do)]
@@ -1034,6 +1040,69 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda_device, dt, b, h, kh,
     again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     for x, y in zip(got, again):       # no atomics: the same bits
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
+    (2, 16, 8, 4096, 128, True, 0),      # the training shape, in full
+    (1, 4, 4, 130, 128, False, 0),       # a 128-row tile of 2 rows (g = 1)
+    (2, 8, 2, 190, 64, True, 48)])       # of 62 rows, a window (g = 4)
+def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
+        cuda_device, b, h, kh, s, d, causal, window):
+    """bf16 at the shapes the tensor-core design's tiles meet: the training
+    shape, and an S whose last 128-row tile is partly filled, so that a
+    consumer warpgroup of the last tile has fewer than 64 rows or none."""
+    _check_bwd_on_card(cuda_device, torch.bfloat16, b, h, kh, s, d, causal,
+                       window)
+
+
+def _gpu_kernel_names(fn) -> list[str]:
+    """Names of the GPU kernels one call of ``fn()`` launches, by
+    ``torch.profiler`` with CPU and CUDA activities, after a warm-up call
+    (a session that records no GPU events is run again, up to five
+    times; late in a long process every session may record none, and the
+    list is then empty)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+@pytest.mark.parametrize("dt,d,design", [
+    ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 128, "tc"),
+    ("bf16", 80, "cc"), ("f32", 64, "cc"), ("f32", 128, "cc")])
+def test_flash_attention_bwd_design_on_card(cuda_device, dt, d, design):
+    """bf16 at D 32/64/128 runs the tensor-core entries; f32, and bf16 at
+    the other head dims, the CUDA-core ``flash_bwd_dkdv`` and
+    ``flash_bwd_dq``: the design the launcher reports (``counter_bwd_tc``)
+    and, where the profiler records the call, three kernels, one of each
+    of the design's entries."""
+    dtype = ATT_DTYPES[dt][0]
+    assert (d in fa.TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
+    q, do = (_randn((1, 4, 256, d), dtype, cuda_device, i) for i in (1, 2))
+    k, v = (_randn((1, 2, 256, d), dtype, cuda_device, i) for i in (3, 4))
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    c0, t0 = fa.counter_bwd.count, fa.counter_bwd_tc.count
+    fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    assert fa.counter_bwd.count == c0 + 1
+    assert fa.counter_bwd_tc.count == t0 + (design == "tc")
+    names = _gpu_kernel_names(
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse))
+    want = (("flash_bwd_delta", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")
+            if design == "tc" else
+            ("flash_bwd_delta", "flash_bwd_dkdv<", "flash_bwd_dq<"))
+    if names:
+        assert len(names) == 3, names
+        for w in want:
+            assert sum(w in n for n in names) == 1, (w, names)
 
 
 @pytest.mark.parametrize("upstream", ["dense", "broadcast"])

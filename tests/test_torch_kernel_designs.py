@@ -9,6 +9,20 @@ JAX reference, so that it is held to the reference before it runs on a card.
   ``chip_smoke.py``) of the port's and the JAX package's
   ``flash_attention_ref``.  The same emulation with one bf16 P does not, on
   the same inputs: that is why the kernel splits P.
+* ``flash_attention_bwd`` (bf16, tensor cores): a plain emulation of the
+  two passes' arithmetic -- bf16 q, k, v, dO and forward output; f32 S and
+  dP; P = exp2(S scale log2 e - lse log2 e) under the masks; dS = P (dP -
+  delta); P and dS rounded to bf16 as hi + lo, both multiplied into f32
+  accumulators, dK and dV over 64-row query tiles and the group's heads,
+  dQ over 64-key tiles; the scale at the store -- stays within the
+  backward's bf16 tolerance (``BWD_TOL``: rtol 2^-6, atol 1e-4 x max(1,
+  max |want|)) of the port's ``flash_attention_bwd_ref`` (both fed the
+  forward's bf16 output) and of the JAX reference's ``jax.vjp`` of
+  ``gqa_attention`` in f32 on the same bf16 values (the emulation fed that
+  forward's own f32 output: the bf16 one moves delta by its rounding, and
+  the port's plain backward then misses the f32 gradient by as much).
+  With one bf16 P, dV misses it; with one bf16 dS, dQ and dK do: that is
+  why the kernel splits both.
 * ``paged_attention`` (flash decoding): ``paged_attention_split_ref``, the
   split-and-merge the kernel computes, equals ``paged_attention_ref``, the
   JAX reference and the Pallas kernel in interpret mode, at splits and
@@ -43,11 +57,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref as j_flash_ref)
+from repro.models import attention as jatt  # noqa: E402
 from repro.kernels.paged_attention.ops import paged_attention_op  # noqa: E402
 from repro.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref as j_paged_ref)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    NEG_INF, flash_attention_ref)
+    NEG_INF, flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.kernels.paged_attention import ops as pa  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref, paged_attention_split_ref)
@@ -146,6 +161,125 @@ def test_flash_split_p_within_two_ulps_single_p_not(b, h, kh, s, d, causal,
     single = flash_tensor_core_emulation(qt, kt, vt, split_p=False, **kw)
     assert _beyond_two_ulps(single, want_t) > 0
     assert _beyond_two_ulps(single, want_j) > 0
+
+
+def _bf16_parts(x: torch.Tensor, split: bool) -> list[torch.Tensor]:
+    """``x`` (f32) as the bf16 operands the kernel multiplies: hi =
+    bf16(x), and lo = bf16(x - hi) when ``split``."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
+
+
+def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
+                                    window, split_p, split_ds, tile=64):
+    """The bf16 tensor-core backward's arithmetic in plain PyTorch: q, out,
+    dout (B, H, S, D), k/v (B, KH, S, D) in bf16, lse (B, H, S) f32.  delta
+    = rowsum(dout * out) in f32; S and dP in f32; P = exp2(S scale log2 e -
+    lse log2 e), 0 where masked; dS = P (dP - delta); P and dS as bf16
+    operands (hi, or hi + lo); the dK/dV pass accumulates in f32 over
+    ``tile``-row query tiles and, inside each, the g query heads of a kv
+    head; the dQ pass over ``tile``-key tiles; dK and dQ scaled at the
+    store; each output rounded once to bf16."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    c = d ** -0.5 * math.log2(math.e)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = dout.float()
+    delta = (dof * out.float()).sum(-1)
+    lse2 = lse * math.log2(math.e)
+    pos = torch.arange(s)
+    ok = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window:
+        ok &= pos[None, :] > pos[:, None] - window
+
+    def p_ds(hh, qs, ks):
+        """P and dS of query head ``hh``'s rows ``qs`` and keys ``ks``."""
+        kv = hh // g
+        sc = qf[:, hh, qs] @ kf[:, kv, ks].transpose(-1, -2)
+        p = torch.where(ok[qs, ks], torch.exp2(
+            sc * c - lse2[:, hh, qs, None]), 0.0)
+        dp = dof[:, hh, qs] @ vf[:, kv, ks].transpose(-1, -2)
+        return p, p * (dp - delta[:, hh, qs, None])
+
+    dk = torch.zeros((b, kh, s, d))
+    dv = torch.zeros((b, kh, s, d))
+    for q0 in range(0, s, tile):
+        qs = slice(q0, min(q0 + tile, s))
+        for hh in range(h):
+            p, ds = p_ds(hh, qs, slice(0, s))
+            for part in _bf16_parts(p, split_p):
+                dv[:, hh // g] += part.transpose(-1, -2) @ dof[:, hh, qs]
+            for part in _bf16_parts(ds, split_ds):
+                dk[:, hh // g] += part.transpose(-1, -2) @ qf[:, hh, qs]
+    dq = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, tile):
+        ks = slice(k0, min(k0 + tile, s))
+        for hh in range(h):
+            _, ds = p_ds(hh, slice(0, s), ks)
+            for part in _bf16_parts(ds, split_ds):
+                dq[:, hh] += part @ kf[:, hh // g, ks]
+    scale = d ** -0.5
+    return tuple(x.to(torch.bfloat16) for x in (dq * scale, dk * scale, dv))
+
+
+def _beyond_bwd_tol(got, want) -> int:
+    """Elements of ``got`` beyond the backward's bf16 tolerance of
+    ``want`` (``BWD_TOL`` of ``chip_smoke.py`` and tests/test_torch_cuda.py:
+    rtol 2^-6, atol 1e-4 x max(1, max |want|))."""
+    got, want = got.float(), want.float()
+    atol = 1e-4 * max(float(want.abs().max()), 1.0)
+    return int(((got - want).abs() > atol + 2.0 ** -6 * want.abs()).sum())
+
+
+BWD_EMU_CASES = [
+    (1, 4, 2, 512, 128, True, 0),    # the training shape, cut in B, H, S
+    (1, 4, 2, 512, 64, False, 0),    # no mask
+    (1, 4, 2, 512, 128, True, 100),  # a window that ends inside a tile
+    (1, 4, 2, 300, 64, True, 0),     # ragged S
+    (1, 4, 2, 512, 32, True, 0),     # D 32 (64-byte swizzle)
+]
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", BWD_EMU_CASES)
+def test_flash_bwd_split_p_and_ds_within_tolerance_single_not(
+        b, h, kh, s, d, causal, window):
+    rng = np.random.default_rng(11)
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (_bf16(rng, x) for x in (
+        (b, h, s, d), (b, kh, s, d), (b, kh, s, d), (b, h, s, d)))
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
+    want_t = flash_attention_bwd_ref(qt, kt, vt, out, dot, lse, **kw)
+    # the JAX reference's backward in f32 on the same bf16 values, in its
+    # (B, S, heads, D) layout
+    j32 = [x.astype(jnp.float32).transpose(0, 2, 1, 3)
+           for x in (qj, kj, vj, doj)]
+    chunk = 128 if s % 128 == 0 else s
+    j_out, vjp = jax.vjp(lambda q_, k_, v_: jatt.gqa_attention(
+        q_, k_, v_, chunk=chunk, **kw), *j32[:3])
+    want_j = [torch.from_numpy(np.array(x)).transpose(1, 2)
+              for x in vjp(j32[3])]
+    out_j = torch.from_numpy(np.array(j_out)).transpose(1, 2)
+
+    def emulate(split_p, split_ds):
+        got, got_j = (flash_bwd_tensor_core_emulation(
+            qt, kt, vt, o, dot, lse, split_p=split_p, split_ds=split_ds,
+            **kw) for o in (out, out_j))
+        for x, w in zip(got, want_t):
+            assert x.dtype == torch.bfloat16 and x.shape == w.shape
+        return [(_beyond_bwd_tol(x, w), _beyond_bwd_tol(xj, wj))
+                for x, xj, w, wj in zip(got, got_j, want_t, want_j)]
+
+    # (dq, dk, dv), each (beyond the port's ref, beyond the JAX vjp)
+    assert emulate(True, True) == [(0, 0)] * 3
+    single_p = emulate(False, True)
+    assert single_p[:2] == [(0, 0)] * 2
+    assert min(single_p[2]) > 0
+    single_ds = emulate(True, False)
+    assert min(single_ds[0]) > 0 and min(single_ds[1]) > 0
+    assert single_ds[2] == (0, 0)
 
 
 def _paged_case(rng, b, h, kh, d, page, np_, dtype):
