@@ -22,7 +22,9 @@ Phases (any mismatch raises, and the script exits non-zero):
    the integer helpers (``_backoff_polls``, ``credit_slot``);
    ``paged_attention`` at the serve shape (every length 1-40), at
    decode_32k and at its table shape with lengths 4,096, 32,768 and on the
-   split boundaries (0, 1, SPLIT - 1, SPLIT, SPLIT + 1, ...), and
+   split boundaries (0, 1, SPLIT - 1, SPLIT, SPLIT + 1, ...), and at the
+   split-sequence decode's launch (64 one-page sequences of 4,096 rows),
+   each also with its f32 log-sum-exp against the plain version's, and
    ``flash_attention`` at the prefill shape (B 2, S 4096),
    a ragged S, no mask and a 1024-token window, each in bf16 and f32 within
    the tolerances of ``tests/test_kernels.py`` (bf16 also within two ulps);
@@ -107,8 +109,10 @@ Phases (any mismatch raises, and the script exits non-zero):
     prefill (``DECODE_HELD_AT_DEPTH``: held to the tolerance at full depth
     for moe and vlm, printed for ssm and hybrid, and held for every family
     at 2 layers, the hybrid 6); the decode step's time and idle share;
-    ``serve.main`` of every decoder over the default 16 requests, its
-    stats equal to ``SERVE_STATS_14``; the card against the CPU at 2
+    ``serve.main`` of every decoder over the default 16 requests at 2
+    layers of full width (the hybrid 6: the stats depend on the request
+    stream alone), its stats equal to ``SERVE_STATS_14``; the card against
+    the CPU at 2
     layers (the hybrid two triples, 6; a forward of 4 x 32 positions and 4
     decode steps of 64 sequences); the hybrid's ring cache past a 32-token
     window (80 decode steps at 3 layers against its forward).
@@ -130,12 +134,34 @@ Phases (any mismatch raises, and the script exits non-zero):
     ``--int8-grads``; and 2 + 2 steps with a restart through ``--ckpt``
     against 4 straight steps (at B 1 x S 512; the state is the full
     model's, 6 GB with the moments), within ``TRAIN_TOL``'s loss rtol (the
-    embedding's backward adds by atomics, so not bit for bit).
+    embedding's backward adds by atomics, so not bit for bit).  The
+    attention backward takes delta from the forward's f32 output (phase 1
+    holds ``_FlashFn``'s gradients to the plain backward fed the plain f32
+    output at ``BWD_EMU_CASES``); peak and step time print beside those
+    measured with the bf16 residual (``BF16_RESIDUAL``).
+
+16. the distribution and dry-run layer: (a) ``decode_attention_spmd`` at
+    decode_32k (B 8, qwen3's H 16, KH 8, D 128, Smax 32,768, bf16,
+    ``SPLIT_LENGTHS`` on and around the parts' boundaries) split n = 1, 2,
+    4 and 8 ways on a local mesh (one ``paged_attention`` launch over
+    B x n parts, merged by their log-sum-exps), each within 2e-2 and two
+    bf16 ulps of the unsplit kernel, device times beside it; (b)
+    ``combined_embed_grad`` (run heads by ``wc_combine``) and
+    ``apply_sparse_grad`` at qwen3's vocab 151,936 x 1,024 in bf16, T
+    8,192 and 65,536 Zipf ids: ``hids`` and ``uniq`` equal to the CPU's,
+    rows within their f32 summation bound,
+    the SGD step within the dense f32 step's bound; unique ids and times;
+    (c) the dry-run of all 40 (arch x cell) on both production meshes on
+    the host (31 ok, 9 skipped a mesh), printed as ``report.table``; (d)
+    the dry-run's parameter and AdamW-state bytes of qwen3-0.6b equal to
+    the bytes of the tensors phase 15 created, and the allocator's growth
+    then within its rounding of them (512 bytes, and up to 1 MiB of
+    unsplit remainder, a block).
 
 Phases 7-12 print the wall time and peak device memory of their runs and
 the idle share of one profiled rerun each (phase 12: of its YCSB-A and
-hotspot runs only).  The launch counters are zeroed just before phase 2
-and read after phase 15; every kernel must have launched in that run, in
+hotspot runs only).  Every phase prints its time.  The launch counters
+are zeroed just before phase 2 and read after phase 16; every kernel must have launched in that run, in
 the phases that run it, and every head-dim instance of the attention
 kernels and ``wc_combine`` from the MoE dispatch (a launch tag) in phase
 14.  A kernel captured into a CUDA graph (phase 13) is counted once at capture, so its replays' launches
@@ -162,6 +188,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 16.7e12      # 132 SMs x 64 int32 lanes x 1.98 GHz
 FLOPS = {"bfloat16": 989e12,   # H100 SXM dense tensor-core bf16
          "float32": 67e12}     # H100 SXM f32 outside the tensor cores
+L2_BYTES = 50 * 2**20          # H100 SXM L2 cache
 ATT_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:39,61
 # and, in bf16, two ulps of the output: kernel and plain version both work
 # in f32 and round once to bf16, so they differ by at most one ulp
@@ -255,7 +282,7 @@ def card_line() -> str:
 _ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cc|flash_bwd_delta|"
                     r"flash_bwd_dkdv_bf16|flash_bwd_dq_bf16|"
                     r"flash_bwd_dkdv|flash_bwd_dq|paged_split_kernel|"
-                    r"paged_merge_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
+                    r"paged_merge_kernel)I((?:13__nv_bfloat16|f)*)Li(\d+)E")
 _SWEEP_ENTRY = re.compile(r"(wc_combine_kernel|scan_probe_kernel)")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
@@ -269,8 +296,11 @@ def ptxas_report(name: str, log: str) -> int:
         if "Compiling entry function" in line:
             m = _ENTRY.search(line)
             sweep = _SWEEP_ENTRY.search(line)
-            dtype = {"13__nv_bfloat16": "bf16, ", "f": "f32, "}.get(
-                m.group(2), "") if m else ""
+            # the template's type arguments (the delta kernel's out type,
+            # then its input type)
+            types = re.findall(r"13__nv_bfloat16|f", m.group(2)) if m else []
+            dtype = "".join({"13__nv_bfloat16": "bf16, ", "f": "f32, "}[t]
+                            for t in types)
             entry = (f"{m.group(1)}<{dtype}D={m.group(3)}>" if m
                      else sweep.group(1) if sweep
                      else line.split("'")[1][:72])
@@ -375,19 +405,35 @@ def profile_device(fn, iters: int = 20, n_top: int | None = 5):
     return (total if gpu else None), wall, top
 
 
-def timed(fn, iters: int, events: bool = False):
+def floor_ms(nbytes: int, flops: int = 0) -> float:
+    """The least device ms any call can take for work that moves ``nbytes``
+    and does ``flops`` operations: the bytes over the memory rate where
+    they exceed the L2 cache (smaller inputs may stay in L2 from one call
+    to the next), and the operations over the card's highest peak rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3 if nbytes > L2_BYTES else 0.0
+    return max(by_bytes, flops / FLOPS["bfloat16"] * 1e3)
+
+
+def timed(fn, iters: int, events: bool = False, floor: float = 0.0):
     """``(device ms, call ms)`` per call of ``fn``: the profiler's summed
-    device time (a session that records no GPU events is run again, up to
-    three times; then CUDA events), and the CUDA-event time of back-to-back
-    calls, which includes host overhead; with ``events`` also the
-    profiler's five longest GPU events (``profile_device``'s ``top``;
-    empty when it recorded none)."""
+    device time, and the CUDA-event time of back-to-back calls, which
+    includes host overhead; with ``events`` also the profiler's five
+    longest GPU events (``profile_device``'s ``top``; empty when it
+    recorded none).  A session that records no GPU events, or a device
+    time below ``floor`` (``floor_ms`` of the call's work: the session
+    dropped events), is run again, up to three times; then the CUDA-event
+    time stands for the device time, and is flagged."""
     call = cuda_ms(fn, iters=iters, warmup=1)
     for _ in range(3):
         dev, _, top = profile_device(fn, iters=iters)
-        if dev is not None:
+        if dev is not None and dev >= floor:
             return (dev, call, top) if events else (dev, call)
-    say("  (the profiler recorded no GPU events: device time by CUDA events)")
+        if dev is not None:
+            say(f"  (a profiled device time of {dev:.5f} ms is below the "
+                f"call's floor of {floor:.5f} ms: events dropped, run again)")
+    say(f"  (no profiled session gave a device time: device time by CUDA "
+        f"events, {call:.5f} ms"
+        + (f", BELOW the floor of {floor:.5f} ms)" if call < floor else ")"))
     return (call, call, []) if events else (call, call)
 
 
@@ -538,6 +584,41 @@ def _randn(shape, dtype, dev, seed):
                        dtype=torch.float32).to(dtype)
 
 
+def paged_lse_check(args, what: str) -> None:
+    """``paged_attention_cuda(..., return_lse=True)`` (a part of a split
+    sequence): where the length is positive, the f32 output rounds to the
+    bits of the output without it and stays within f32 rounding (2e-5 +
+    2e-5 |out|) of the plain version's, and each head's log-sum-exp within
+    1e-4 + 1e-5 |lse| of the plain one; where it is not, output 0 and lse
+    -inf."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa
+    q, kp, vp, bt, lens = args
+    out, lse = pa.paged_attention_cuda(*args, return_lse=True)
+    want, want_lse = pa.paged_attention_ref(*args, return_lse=True)
+    live = lens > 0
+    check(out.dtype == torch.float32 and lse.dtype == torch.float32,
+          f"paged_attention lse {what}: output {out.dtype}, lse {lse.dtype}")
+    check(torch.equal(out[live].to(q.dtype),
+                      pa.paged_attention_cuda(*args)[live]),
+          f"paged_attention lse {what}: the f32 output does not round to "
+          f"the output")
+    err = float((out - want).abs().max())
+    check(bool(((out - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()),
+          f"paged_attention lse {what}: f32 output max |diff| {err}")
+    lerr = float((lse - want_lse).abs()[live].max()) if bool(live.any()) \
+        else 0.0
+    check(lerr <= 1e-4 + 1e-5 * float(want_lse.abs()[live].max())
+          if bool(live.any()) else True,
+          f"paged_attention lse {what}: max |diff| {lerr}")
+    check(not bool(out[~live].any())
+          and bool((lse[~live] == -torch.inf).all()),
+          f"paged_attention lse {what}: a length-0 head read something")
+    say(f"  paged_attention lse {what}: f32 output max |diff| {err:.3g}, "
+        f"lse max |diff| {lerr:.3g} over {int(live.sum())} sequences with "
+        f"positions, {int((~live).sum())} empty (0, -inf)")
+
+
 def flash_pairs(s: int, causal: bool, window: int) -> int:
     """Unmasked (query, key) pairs of one head."""
     import numpy as np
@@ -591,14 +672,18 @@ def phase1_attention(dev, card: str) -> dict:
     # paged: the serve shape (one 40-row page per sequence, the identity
     # block table, lengths 1-40), and decode_32k (B 8, lengths up to 32,768,
     # 16-row pages, a permuted block table into a larger pool: 64 splits),
-    # also with every length 4,096, every length 32,768, and lengths on the
-    # split boundaries
+    # also with every length 4,096, every length 32,768, lengths on the
+    # split boundaries, and the split-sequence decode's one launch
+    # (phase 16: decode_32k's cache as 8 x 8 parts of 4,096 rows, one page
+    # each, at SPLIT_LENGTHS cut into parts); each also with its log-sum-exp
+    # (``return_lse``, which dist.decode_attn merges by) against the plain
+    # version's
     rng = np.random.default_rng(32)
     sp = pa.SPLIT
     for label, b, page, np_, extra in (
             ("serve", 1, 40, 1, 0), ("decode_32k", 8, 16, 2048, 64),
             ("len_4096", 8, 16, 2048, 64), ("len_32768", 8, 16, 2048, 64),
-            ("split_edges", 8, 16, 2048, 64)):
+            ("split_edges", 8, 16, 2048, 64), ("parts_8", 64, 4096, 1, 0)):
         h, kh, d = 16, 8, 128
         npool = b * np_ + extra
         bt_np = rng.permutation(npool)[: b * np_].reshape(b, np_)
@@ -610,6 +695,11 @@ def phase1_attention(dev, card: str) -> dict:
         elif label == "split_edges":
             lens_np = np.array([0, 1, sp - 1, sp, sp + 1, 2 * sp - 1,
                                 2 * sp, 2 * sp + 1], np.int32)
+        elif label == "parts_8":
+            bt_np = np.arange(b).reshape(b, 1)
+            lens_np = np.clip(np.array(SPLIT_LENGTHS)[:, None]
+                              - page * np.arange(8)[None, :], 0,
+                              page).reshape(b).astype(np.int32)
         else:
             lens_np = np.full(b, int(label[4:]), np.int32)
         bt = torch.as_tensor(bt_np.astype(np.int32), device=dev)
@@ -622,6 +712,7 @@ def phase1_attention(dev, card: str) -> dict:
             err = compare("paged_attention", pa.paged_attention_cuda(*args),
                           pa.paged_attention_ref(*args), dtype,
                           f"{label} {dtype}")
+            paged_lse_check(args, f"{label} {dtype}")
             if label == "serve":
                 # every other length the serve gives the kernel: the mask
                 # inside the page
@@ -631,20 +722,24 @@ def phase1_attention(dev, card: str) -> dict:
                             pa.paged_attention_cuda(q, kp, vp, bt, ln),
                             pa.paged_attention_ref(q, kp, vp, bt, ln), dtype,
                             f"serve length {n} {dtype}")
-            ms, call = timed(lambda: pa.paged_attention_cuda(*args), 20)
-            plain, plain_call = timed(lambda: pa.paged_attention_ref(*args), 5)
+            es = q.element_size()
+            n_rows = int(lens_np.clip(0, np_ * page).sum())
+            nbytes = (2 * n_rows * kh * d * es + 2 * b * h * d * es
+                      + 4 * int(np.ceil(lens_np / page).sum()) + 4 * b)
+            flops = 4 * n_rows * h * d
+            fl = floor_ms(nbytes, flops)
+            ms, call = timed(lambda: pa.paged_attention_cuda(*args), 20,
+                             floor=fl)
+            plain, plain_call = timed(lambda: pa.paged_attention_ref(*args), 5,
+                                      floor=fl)
             # yardstick: SDPA over the same rows as a dense cache
             dk = kp[bt.long()].reshape(b, np_ * page, kh, d).transpose(1, 2)
             dv = vp[bt.long()].reshape(b, np_ * page, kh, d).transpose(1, 2)
             mask = (torch.arange(np_ * page, device=dev)[None, :]
                     < lens[:, None])[:, None, None, :]
             lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], dk, dv, attn_mask=mask, enable_gqa=True), 20)
-            es = q.element_size()
-            n_rows = int(lens_np.clip(0, np_ * page).sum())
-            nbytes = (2 * n_rows * kh * d * es + 2 * b * h * d * es
-                      + 4 * int(np.ceil(lens_np / page).sum()) + 4 * b)
-            flops = 4 * n_rows * h * d
+                q[:, :, None], dk, dv, attn_mask=mask, enable_gqa=True), 20,
+                floor=fl)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / FLOPS[str(dtype).removeprefix("torch.")] * 1e3
             row = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -666,7 +761,8 @@ def phase1_attention(dev, card: str) -> dict:
             del q, kp, vp, dk, dv
 
     # flash: the prefill shape (B 2, S 4096, H 16, KH 8, D 128, causal), a
-    # ragged S, no mask, and a 1024-token sliding window
+    # ragged S, no mask, and a 1024-token sliding window (the f32 output
+    # for training is checked with the backward, phase1_backward)
     for label, s, causal, window in (("prefill", 4096, True, 0),
                                      ("ragged", 1000, True, 0),
                                      ("non_causal", 4096, False, 0),
@@ -681,16 +777,18 @@ def phase1_attention(dev, card: str) -> dict:
                           fa.flash_attention_cuda(q, k, v, **kw),
                           fa.flash_attention_ref(q, k, v, **kw), dtype,
                           f"{label} {dtype}")
-            ms, call = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw), 5)
-            plain, plain_call = timed(
-                lambda: fa.flash_attention_ref(q, k, v, **kw), 3)
-            lib = lib_call = None       # SDPA has no sliding window
-            if not window:
-                lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True), 5)
             es = q.element_size()
             nbytes = 2 * (b * h * s * d + b * kh * s * d) * es
             flops = 4 * b * h * d * flash_pairs(s, causal, window)
+            fl = floor_ms(nbytes, flops)
+            ms, call = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw), 5,
+                             floor=fl)
+            plain, plain_call = timed(
+                lambda: fa.flash_attention_ref(q, k, v, **kw), 3, floor=fl)
+            lib = lib_call = None       # SDPA has no sliding window
+            if not window:
+                lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True), 5, floor=fl)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / FLOPS[str(dtype).removeprefix("torch.")] * 1e3
             row = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -721,15 +819,17 @@ def phase1_attention(dev, card: str) -> dict:
             err = compare(name, fa.flash_attention_cuda(q, k, v, **kw),
                           fa.flash_attention_ref(q, k, v, **kw), dtype,
                           f"{model} {dtype}")
-            ms, call = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw), 5)
+            nbytes = 2 * (b * h * s * d + b * kh * s * d) * q.element_size()
+            flops = 4 * b * h * d * flash_pairs(s, causal, window)
+            fl = floor_ms(nbytes, flops)
+            ms, call = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw), 5,
+                             floor=fl)
             plain, plain_call = timed(
-                lambda: fa.flash_attention_ref(q, k, v, **kw), 3)
+                lambda: fa.flash_attention_ref(q, k, v, **kw), 3, floor=fl)
             lib = lib_call = None       # SDPA has no sliding window
             if not window:
                 lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True), 5)
-            nbytes = 2 * (b * h * s * d + b * kh * s * d) * q.element_size()
-            flops = 4 * b * h * d * flash_pairs(s, causal, window)
+                    q, k, v, is_causal=causal, enable_gqa=True), 5, floor=fl)
             row = row_of(ms, call, plain, plain_call, lib, lib_call, nbytes,
                          flops, dtype)
             if dtype == torch.bfloat16:
@@ -851,14 +951,21 @@ def phase1_backward(dev, card: str, out: dict) -> None:
             v = _randn((b, kh, s, d), dtype, dev, 23)
             do = _randn((b, h, s, d), dtype, dev, 24)
             kw = dict(causal=causal, window=window)
-            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-            _, lse_ref = fa.flash_attention_ref(q, k, v, return_lse=True,
-                                                **kw)
+            # the residuals training saves: lse and the f32 output, from
+            # which the backward takes delta (the reference's f32 out)
+            o16, lse, o = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+            check(o.dtype == torch.float32
+                  and torch.equal(o.to(dtype), o16),
+                  f"flash_attention {label} {dname}: the f32 output does "
+                  f"not round to the output")
+            _, lse_ref, _ = fa.flash_attention_ref(q, k, v,
+                                                   return_lse=True, **kw)
             lse_err = float((lse - lse_ref).abs().max())
             check(lse_err <= 1e-5 + 1e-5 * float(lse_ref.abs().max()),
                   f"flash_attention lse {label} {dname}: max |diff| "
                   f"{lse_err}")
-            del lse_ref
+            del lse_ref, o16
             got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
             want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
             torch.cuda.synchronize()
@@ -881,26 +988,29 @@ def phase1_backward(dev, card: str, out: dict) -> None:
             row_out["max_abs_err"] = max(row_out["max_abs_err"], err)
             del got, want
             args = (q, k, v, o, do, lse)
+            es = q.element_size()
+            # q, dO, dQ and K, V, dK, dV in the input's type, the f32
+            # output and lse
+            nbytes = (3 * b * h * s * d + 4 * b * kh * s * d) * es \
+                + 4 * b * h * s * d + 4 * b * h * s
+            flops = 10 * b * h * d * flash_pairs(s, causal, window)
+            fl = floor_ms(nbytes, flops)
             ms, call, top = timed(
                 lambda: fa.flash_attention_bwd_cuda(*args, **kw), 3,
-                events=True)
+                events=True, floor=fl)
             design = bwd_design(dname, d)
             entries = (check_bwd_entries(top, design, f"{label} {dname}")
                        if top else None)
             plain, plain_call = timed(
-                lambda: fa.flash_attention_bwd_ref(*args, **kw), 2)
+                lambda: fa.flash_attention_bwd_ref(*args, **kw), 2, floor=fl)
             lib = lib_call = None        # SDPA has no sliding window
             if not window:
                 leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
                 ref_out = F.scaled_dot_product_attention(
                     *leaves, is_causal=causal, enable_gqa=True)
                 lib, lib_call = timed(lambda: torch.autograd.grad(
-                    ref_out, leaves, do, retain_graph=True), 3)
+                    ref_out, leaves, do, retain_graph=True), 3, floor=fl)
                 del leaves, ref_out
-            es = q.element_size()
-            nbytes = (4 * b * h * s * d + 4 * b * kh * s * d) * es \
-                + 4 * b * h * s
-            flops = 10 * b * h * d * flash_pairs(s, causal, window)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / FLOPS[dname] * 1e3
             row = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -924,6 +1034,52 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                 f"{row['bound_f32_ms']:.4f} ms) [{card}]")
             del q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    flash_fn_backward(dev, card)
+
+
+# the cases of tests/test_torch_kernel_designs.py's backward emulation
+# (B, H, KH, S, D, causal, window), in which the bf16 residual put dq and
+# dk elements beyond BWD_TOL of the f32 gradient
+BWD_EMU_CASES = ((1, 4, 2, 512, 128, True, 0), (1, 4, 2, 512, 64, False, 0),
+                 (1, 4, 2, 512, 128, True, 100), (1, 4, 2, 300, 64, True, 0),
+                 (1, 4, 2, 512, 32, True, 0))
+
+
+def flash_fn_backward(dev, card: str) -> None:
+    """``gqa_attention``'s gradients through ``_FlashFn`` on the card (the
+    forward kernel's f32 output saved, delta taken from it) against the
+    plain backward fed the plain forward's f32 output, at
+    ``BWD_EMU_CASES`` in bf16: no element beyond ``BWD_TOL``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.attention import gqa_attention
+
+    rtol, atol = BWD_TOL["bfloat16"]
+    for b, h, kh, s, d, causal, window in BWD_EMU_CASES:
+        kw = dict(causal=causal, window=window)
+        q, do = (_randn((b, h, s, d), torch.bfloat16, dev, i)
+                 for i in (31, 34))
+        k, v = (_randn((b, kh, s, d), torch.bfloat16, dev, i)
+                for i in (32, 33))
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v)]
+        out = gqa_attention(*leaves, **kw)
+        got = [g.transpose(1, 2) for g in torch.autograd.grad(
+            out, leaves, do.transpose(1, 2))]
+        _, lse, o32 = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        want = fa.flash_attention_bwd_ref(q, k, v, o32, do, lse, **kw)
+        bad = []
+        for g, w in zip(got, want):
+            scale = max(float(w.float().abs().max()), 1.0)
+            bad.append(int(((g.float() - w.float()).abs()
+                            > atol * scale + rtol * w.float().abs()).sum()))
+        check(bad == [0, 0, 0], f"_FlashFn backward B{b} H{h} KH{kh} S{s} "
+                                f"D{d} causal={causal} window={window}: "
+                                f"(dq, dk, dv) elements beyond BWD_TOL of "
+                                f"the plain backward fed the f32 out: {bad}")
+        say(f"  _FlashFn backward B{b} H{h} KH{kh} S{s} D{d} causal={causal}"
+            f" window={window} (bf16, the f32 out saved): (dq, dk, dv) "
+            f"elements beyond BWD_TOL of the plain backward {bad} [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -3305,12 +3461,16 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
     torch.cuda.empty_cache()
 
     if cfg.has_decode:      # serve.main draws its own weights (seed 0)
+        # at the card-vs-CPU depth: the stats depend on the request stream
+        # alone, and the full depth's decode step is timed above
+        depth = CPU_LAYERS.get(cfg.family, 2)
+        n_attn = _n_attn(dataclasses.replace(cfg, n_layers=depth))
         p0 = dict(pa.counter.by_size)
         m0 = wcc.counter.by_tag.get("moe_dispatch", 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         n_req = SERVE_STATS_14[arch]["admitted"]   # the default 16
-        stats = serve.main(["--arch", arch])
+        stats = serve.main(["--arch", arch, "--layers", str(depth)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         check(stats == SERVE_STATS_14[arch],
@@ -3322,12 +3482,12 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
                                        f"paged_attention D {cfg.hd} {paged} "
                                        f"times, expected {steps * n_attn}")
         moe_launches = wcc.counter.by_tag.get("moe_dispatch", 0) - m0
-        check((moe_launches == steps * cfg.n_layers) == (cfg.family == "moe"),
+        check((moe_launches == steps * depth) == (cfg.family == "moe"),
               f"{arch} serve launched wc_combine {moe_launches} times from "
               f"the MoE dispatch")
         out["serve_s"] = wall
-        say(f"  serve {arch} ({n_req} requests, 4 slots, prompt 32, "
-            f"max-new 8): stats {stats} == the reference's; {wall:.3f} s "
+        say(f"  serve {arch} at {depth} layers of full width ({n_req} "
+            f"requests, 4 slots, prompt 32, max-new 8): stats {stats} == the reference's; {wall:.3f} s "
             f"(weights init included), {steps} decode steps = "
             f"{wall / steps * 1e3:.3f} ms a step, {n_req * 8 / wall:.1f} "
             f"generated tokens/s; launches: "
@@ -3368,6 +3528,10 @@ TRAIN = dict(arch="qwen3-0.6b", batch=2, seq=4096, steps=8)
 TRAIN_CPU = dict(n_layers=2, batch=1, seq=256)
 TRAIN_CKPT = dict(batch=1, seq=512)
 TRAIN_TOL = dict(loss_rtol=2e-3, grad_rel=2e-2)
+# measured by this script on an H100 80GB HBM3 at 700 W before the
+# backward's residual became the f32 attention output: train.main's peak
+# and a step by the host clock
+BF16_RESIDUAL = dict(peak_gib=29.32, step_ms=543.7)
 
 
 def _train_args(**over) -> list:
@@ -3445,7 +3609,7 @@ def phase15_train(dev, card: str) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import train
     from repro_torch.models.model import Model
-    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.optimizer import adamw_init, tree_leaves
 
     cfg = get_config(TRAIN["arch"])
     out = {}
@@ -3470,16 +3634,30 @@ def phase15_train(dev, card: str) -> dict:
     check(bwd_tc == bwd, f"backwards a step on the tensor cores {bwd_tc} "
                          f"of {bwd}, as the launcher reports them")
     say(f"  train.main {TRAIN}: losses {[round(x, 4) for x in losses]}; "
-        f"{wall:.2f} s with init, peak {peak:.2f} GiB allocated; flash "
-        f"launches a step: forward {fwd:g}, backward {bwd:g} (on the "
+        f"{wall:.2f} s with init, peak {peak:.2f} GiB allocated (with the "
+        f"bf16 attention residual: {BF16_RESIDUAL['peak_gib']} GiB); "
+        f"flash launches a step: forward {fwd:g}, backward {bwd:g} (on the "
         f"tensor cores: {bwd_tc:g}) [{card}]")
     out.update(losses=losses, peak_gib=peak, fwd_per_step=fwd,
                bwd_per_step=bwd)
 
-    # ms a step on the host clock (synchronized), and one profiled step
+    # ms a step on the host clock (synchronized), and one profiled step;
+    # the memory the parameters and the AdamW state take (phase 16 holds
+    # the dry-run's accounting to it)
     model = Model(cfg, device=dev)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
     opt = adamw_init(params)
+    torch.cuda.synchronize()
+    out.update(params_allocated=m1 - m0,
+               opt_allocated=torch.cuda.memory_allocated() - m1,
+               params_nbytes=sum(t.nbytes for t in tree_leaves(params)),
+               opt_nbytes=sum(t.nbytes for t in tree_leaves(
+                   {"m": opt.m, "v": opt.v})) + opt.step.nbytes,
+               n_leaves=len(list(_leaf_names(params))))
     pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
                                global_batch=TRAIN["batch"]), device=dev)
     state = [params, opt]
@@ -3521,8 +3699,10 @@ def phase15_train(dev, card: str) -> dict:
                busy_ms=busy,
                idle_share=None if busy is None else 1 - busy / (step_s * 1e3))
     say(f"  train step B {TRAIN['batch']} x S {TRAIN['seq']}: "
-        f"{step_s * 1e3:.1f} ms (host clock, 3 steps), "
-        f"{tokens / step_s:.0f} tokens/s; profiled: device busy {busy} ms, "
+        f"{step_s * 1e3:.1f} ms (host clock, 3 steps; with the bf16 "
+        f"residual {BF16_RESIDUAL['step_ms']} ms), {tokens / step_s:.0f} "
+        f"tokens/s; "
+        f"profiled: device busy {busy} ms, "
         f"wall {pwall} ms profiled; idle share {out['idle_share']} (busy "
         f"over the unprofiled step) [{card}]")
     for key, ms, count in events[:5]:
@@ -3573,6 +3753,238 @@ def phase15_train(dev, card: str) -> dict:
         f"(worst rtol {worst:.3g}, bound {TRAIN_TOL['loss_rtol']}); "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the distribution and dry-run layer
+# ---------------------------------------------------------------------------
+# (a) split-sequence decode at decode_32k with qwen3-0.6b's heads: one
+# length a sequence, on and around the parts' boundaries (4,096-row parts
+# at n = 8, 8,192 at 4, 16,384 at 2), 0 among them; SPLIT_NS the splits
+# (n = 1 is plain decode_attention, the reference's rule); the unsplit
+# kernel took 0.294 ms at this shape with random lengths (this script, an
+# H100 80GB HBM3 at 700 W)
+SPLIT_DECODE = dict(b=8, h=16, kh=8, d=128, smax=32768)
+SPLIT_LENGTHS = (32768, 16385, 16384, 8192, 4097, 4096, 1, 0)
+SPLIT_NS = (1, 2, 4, 8)
+UNSPLIT_MS_RANDOM = 0.294
+# (b) combined embedding gradient at qwen3-0.6b's vocab and width: phase
+# 15's step (2 x 4,096 tokens) and train_4k's tokens a data shard (256 x
+# 4,096 / 16), Zipf ids (theta 0.99)
+EMBED = dict(vocab=151_936, d=1024, tokens=(8192, 65536), theta=0.99,
+             lr=0.1)
+# (d) the CUDA caching allocator rounds every request up to a multiple of
+# 512 bytes, and a block cut from a large segment keeps a remainder of up
+# to 1 MiB that it does not split off (1,049,084 bytes over qwen3-0.6b's
+# 27 AdamW blocks on an H100), so a tree of n tensors takes its bytes plus
+# less than n (1 MiB + 512)
+ALLOC_ROUND = (1 << 20) + 512
+
+
+def split_decode(dev, card: str) -> dict:
+    """``decode_attention_spmd`` at ``SPLIT_DECODE`` in bf16 for each of
+    ``SPLIT_NS``, held to the unsplit kernel (``decode_attention``) within
+    ``ATT_TOL`` and two bf16 ulps (both round once from f32); device time
+    of each (n = 1 is the unsplit kernel)."""
+    import torch
+    from repro_torch.dist.decode_attn import decode_attention_spmd
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.attention import decode_attention
+
+    c = SPLIT_DECODE
+    b, h, kh, d, smax = c["b"], c["h"], c["kh"], c["d"], c["smax"]
+    q = _randn((b, 1, h, d), torch.bfloat16, dev, 41)
+    k = _randn((b, smax, kh, d), torch.bfloat16, dev, 42)
+    v = _randn((b, smax, kh, d), torch.bfloat16, dev, 43)
+    lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    want = decode_attention(q, k, v, lens)
+    tol = ATT_TOL["bfloat16"]
+    # the K and V rows every split reads (a length 0 reads every row)
+    n_rows = sum(smax if n <= 0 else min(n, smax) for n in SPLIT_LENGTHS)
+    fl = floor_ms(2 * n_rows * kh * d * 2, 4 * n_rows * h * d)
+    out = {}
+    for n in SPLIT_NS:
+        mesh = make_local_mesh(1, dev, model=n)
+        c0 = pa.counter.count
+        got = decode_attention_spmd(mesh, q, k, v, lens)
+        torch.cuda.synchronize()
+        check(pa.counter.count == c0 + 1,
+              f"split decode n {n}: {pa.counter.count - c0} paged launches")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        bad_ulp = int((diff > 1e-5 + BF16_ULPS2 * want.float().abs()).sum())
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and bad == 0 and bad_ulp == 0,
+              f"split decode n {n}: {bad} elements beyond {tol}, {bad_ulp} "
+              f"beyond two bf16 ulps of the unsplit kernel (max |diff| "
+              f"{err})")
+        ms, call = timed(lambda: decode_attention_spmd(mesh, q, k, v, lens),
+                         20, floor=fl)
+        out[n] = dict(ms=ms, call_ms=call, max_abs_err=err)
+        say(f"  decode_attention_spmd n {n} (parts of {smax // n} rows; "
+            f"B {b} H {h} KH {kh} D {d} Smax {smax}, bf16, lengths "
+            f"{list(SPLIT_LENGTHS)}): max |diff| {err:.3g} against the "
+            f"unsplit kernel (within two bf16 ulps); device {ms:.4f} ms, "
+            f"{call:.4f} ms a call (floor {fl:.4f} ms) "
+            f"(n = 1: the unsplit kernel; {UNSPLIT_MS_RANDOM} ms earlier at "
+            f"decode_32k's random lengths) [{card}]")
+    return out
+
+
+def embed_grad_paths(dev, card: str) -> dict:
+    """``combined_embed_grad`` and ``apply_sparse_grad`` at ``EMBED`` in
+    bf16 on Zipf ids, against the CPU (``hids`` and ``uniq`` bit for bit,
+    ``rows`` within each row's f32 summation bound) and the SGD-applied
+    table against the dense gradient's; unique ids and each path's time."""
+    import torch
+    from repro_torch.dist import embed_grad as eg
+    from repro_torch.kernels.wc_combine import ops as wcc
+    from repro_torch.workloads import zipf
+
+    c = EMBED
+    vocab, dim, lr = c["vocab"], c["d"], c["lr"]
+    cdf = torch.from_numpy(zipf.zipf_cdf_table(vocab, c["theta"])).to(dev)
+    table = (_randn((vocab, dim), torch.float32, dev, 51) * 0.02).to(
+        torch.bfloat16)
+    out = {}
+    for t in c["tokens"]:
+        ids = zipf.sample_zipf_torch(torch.Generator(device=dev).manual_seed(
+            t), (t,), cdf, vocab)
+        g = _randn((t, dim), torch.bfloat16, dev, t)
+        c0 = wcc.counter.count
+        hids, rows, uniq = eg.combined_embed_grad(ids, g)
+        torch.cuda.synchronize()
+        check(wcc.counter.count == c0 + 1,
+              f"combined_embed_grad T {t}: {wcc.counter.count - c0} "
+              f"wc_combine launches")
+        ch, cr, cu = eg.combined_embed_grad(ids.cpu(), g.cpu())
+        check(torch.equal(hids.cpu(), ch) and torch.equal(uniq.cpu(), cu),
+              f"combined_embed_grad T {t}: hids/uniq differ from the CPU's")
+        # each row: both sum its n tokens in f32 (in other orders) and round
+        # once to bf16: within 2^-8 |row| of each other, plus 2 n 2^-24
+        # sum |g| of f32 rounding
+        n_id = torch.zeros(vocab, device=dev).index_add_(
+            0, ids.long(), torch.ones(t, device=dev))
+        abs_id = torch.zeros((vocab, dim), device=dev).index_add_(
+            0, ids.long(), g.float().abs())
+        sel = uniq.nonzero().squeeze(1)
+        rid = hids[sel].long()
+        got, want = rows[sel].float(), cr.to(dev)[sel].float()
+        bound = 2.0 ** -8 * (got.abs() + want.abs()) \
+            + 2 * n_id[rid, None] * 2.0 ** -24 * abs_id[rid] + 1e-6
+        bad = int(((got - want).abs() > bound).sum())
+        check(bad == 0, f"combined_embed_grad T {t}: {bad} row elements "
+                        f"beyond the bound of the CPU's")
+        sparse = eg.apply_sparse_grad(table.clone(), hids, rows, uniq, lr)
+        dense32 = eg.dense_embed_grad(ids, g.float(), vocab)
+        dense = table - (lr * eg.dense_embed_grad(ids, g, vocab)).to(
+            torch.bfloat16)
+        exact = table.float() - lr * dense32
+        # the sparse step rounds three times in bf16 (the row, lr times
+        # it, the sum), each within 2^-8 of a magnitude below |table| +
+        # |step|, beside lr times the rows' f32 bound
+        tol = 2.0 ** -6 * (exact.abs() + table.float().abs()) \
+            + lr * 2 * n_id[:, None] * 2.0 ** -24 * abs_id + 1e-6
+        bad_s = int(((sparse.float() - exact).abs() > tol).sum())
+        check(bad_s == 0, f"apply_sparse_grad T {t}: {bad_s} elements "
+                          f"beyond the bound of the dense f32 step")
+        diff_d = float((sparse.float() - dense.float()).abs().max())
+        n_uniq = int(uniq.sum())
+        # floors: reading g and writing the rows; the representatives'
+        # rows read, added and written back; the dense gradient's zeroed
+        # (vocab, d) table written, the table read and the new one written
+        es = g.element_size()
+        comb_ms, _ = timed(lambda: eg.combined_embed_grad(ids, g), 10,
+                           floor=floor_ms(2 * t * dim * es))
+        work = table.clone()        # the step applied in place, repeatedly
+        apply_ms, _ = timed(lambda: eg.apply_sparse_grad(
+            work, hids, rows, uniq, lr), 10,
+            floor=floor_ms(3 * n_uniq * dim * es))
+        del work
+        dense_ms, _ = timed(lambda: table - (lr * eg.dense_embed_grad(
+            ids, g, vocab)).to(torch.bfloat16), 10,
+            floor=floor_ms(3 * vocab * dim * es))
+        out[t] = dict(unique=n_uniq, combined_ms=comb_ms, apply_ms=apply_ms,
+                      dense_ms=dense_ms)
+        say(f"  embed grad T {t} (vocab {vocab}, d {dim}, bf16, Zipf "
+            f"{c['theta']}): {n_uniq} unique ids, {t - n_uniq} row writes "
+            f"saved; hids/uniq == the CPU's, rows within their bound; SGD "
+            f"table within the dense f32 step's bound (max |diff| to the "
+            f"dense bf16 step {diff_d:.3g}); device: combined "
+            f"{comb_ms:.4f} ms + apply {apply_ms:.4f} ms, dense gradient "
+            f"and step {dense_ms:.4f} ms "
+            f"[{card}]")
+        del ids, g, hids, rows, uniq, sparse, dense, dense32, exact, abs_id
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_grid(card: str) -> dict:
+    """The dry-run of every (arch x cell) on both production meshes, on the
+    host: 31 ok and 9 skipped a mesh; the report's tables."""
+    from repro_torch.launch import dryrun
+    from repro_torch.rooflines import report
+    outdir = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(outdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    n = dryrun.main(["--out", str(outdir)])
+    wall = time.perf_counter() - t0
+    check(n == {"ok": 62, "skipped": 18}, f"dry-run grid {n}")
+    recs = report.load(str(outdir))
+    for mesh in ("16x16", "2x16x16"):
+        say(f"  dry-run {mesh} (host accounting, H100 constants):")
+        say(report.table(recs, mesh))
+    shutil.rmtree(outdir, ignore_errors=True)
+    say(f"  dry-run grid: {n} in {wall:.1f} s on the host [{card}]")
+    return {"wall_s": wall, **n}
+
+
+def memory_accounting(dev, card: str, mem15: dict) -> None:
+    """The dry-run's parameter and AdamW-state bytes of qwen3-0.6b on a 1 x
+    1 mesh against the bytes of the tensors phase 15 created, exactly; and
+    the growth of ``memory_allocated()`` when it created them against
+    those bytes, up to the allocator's rounding (``ALLOC_ROUND`` a
+    block)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.rooflines.counter import argument_bytes
+    acc = argument_bytes(Model(get_config(TRAIN["arch"]), "meta"), "train",
+                         TRAIN["seq"], TRAIN["batch"],
+                         make_local_mesh(1, "cpu"))
+    n = mem15["n_leaves"]
+    for key, nbytes, got, blocks in (
+            ("params", mem15["params_nbytes"], mem15["params_allocated"], n),
+            ("opt_state", mem15["opt_nbytes"], mem15["opt_allocated"],
+             2 * n + 1)):
+        check(acc[key] == nbytes,
+              f"memory accounting {key}: {acc[key]} bytes accounted, the "
+              f"tensors hold {nbytes}")
+        check(nbytes <= got < nbytes + ALLOC_ROUND * blocks,
+              f"memory accounting {key}: the tensors hold {nbytes} bytes, "
+              f"{got} allocated ({blocks} blocks of up to {ALLOC_ROUND} "
+              f"bytes of rounding)")
+        say(f"  memory: {key} of {TRAIN['arch']} {acc[key]} bytes by the "
+            f"dry-run's accounting (1 x 1 mesh) == the {nbytes} bytes of "
+            f"the tensors phase 15 created; {got} allocated: {got - nbytes}"
+            f" bytes of allocator rounding over {blocks} blocks [{card}]")
+
+
+def phase16_dist(dev, card: str, mem15: dict) -> dict:
+    """(a) split-sequence decode, (b) the combined embedding gradient, (c)
+    the dry-run grid, (d) the dry-run's memory accounting against the
+    card's allocator."""
+    out = {}
+    for key, fn in (("split_decode", lambda: split_decode(dev, card)),
+                    ("embed_grad", lambda: embed_grad_paths(dev, card)),
+                    ("dryrun", lambda: dryrun_grid(card)),
+                    ("memory", lambda: memory_accounting(dev, card, mem15))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        say(f"  phase 16 {key}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3666,7 +4078,11 @@ def main() -> int:
         (14, "the other model families at full width: "
              + ", ".join(PHASE14), lambda: phase14_families(dev, card)),
         (15, "training qwen3-0.6b at full width and depth",
-         lambda: phase15_train(dev, card)))
+         lambda: phase15_train(dev, card)),
+        (16, "the distribution and dry-run layer: split-sequence decode, "
+             "the combined embedding gradient, the dry-run grid, memory "
+             "accounting", lambda: phase16_dist(dev, card, results[15])))
+    results = {}
     # a graph's kernels are counted once, at capture: phase 13 returns its
     # replays' launches, added here
     replayed = {name: 0 for name in counters}
@@ -3675,9 +4091,13 @@ def main() -> int:
         per_phase[n] = {name: c.count + replayed[name]
                         for name, c in counters.items()}
 
+    phase_s = {}
     for n, what, fn in steps:
         phase(n, what)
-        result = fn()
+        t_phase = time.perf_counter()
+        result = results[n] = fn()
+        phase_s[n] = time.perf_counter() - t_phase
+        say(f"  phase {n} took {phase_s[n]:.1f} s")
         if n == 13:
             for (name, n_lanes), k in result.items():
                 replayed[name] += k
@@ -3685,7 +4105,8 @@ def main() -> int:
                 by_size[n_lanes] = by_size.get(n_lanes, 0) + k
             say(f"  phase 13 launches beyond the captures: {result}")
         mark(n)
-    launches = dict(per_phase[15])
+    launches = dict(per_phase[16])
+    say(f"  seconds by phase: {({n: round(t, 1) for n, t in phase_s.items()})}")
     say(f"  main-path launches: {launches}; cumulative after each phase: "
         f"{per_phase}")
     for name, n in launches.items():
@@ -3713,7 +4134,8 @@ def main() -> int:
                            (13, ("wc_combine",)),
                            (14, ("wc_combine", "paged_attention",
                                  "flash_attention")),
-                           (15, ("flash_attention", "flash_attention_bwd"))):
+                           (15, ("flash_attention", "flash_attention_bwd")),
+                           (16, ("wc_combine", "paged_attention"))):
         for name in names:
             check(per_phase[phase_n][name] > per_phase[phase_n - 1][name],
                   f"{name} was not launched in phase {phase_n}")
@@ -3764,6 +4186,15 @@ def main() -> int:
                 counters[name].by_size.items()))
         if name == "flash_attention_bwd":
             row["launches_tensor_cores"] = fa.counter_bwd_tc.count
+            row["note"] = "delta from the forward's f32 output"
+        elif kernel == "flash_attention":
+            row["note"] = ("with return_lse (training) also writes the "
+                           "f32 output and each row's log-sum-exp")
+        elif kernel == "paged_attention":
+            row["note"] = ("with return_lse (the split-sequence decode's "
+                           "parts) writes the f32 output and each head's "
+                           "log-sum-exp, and reads nothing for a length "
+                           "<= 0")
         rows.append(row)
     say(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))

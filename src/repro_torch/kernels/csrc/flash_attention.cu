@@ -67,11 +67,17 @@
 // contiguous; nullptr for none, as serving passes), each row's log-sum-exp
 // of its scaled, masked scores in natural-log units, m + log(l): the
 // residual that the backward (flash_attention_bwd.cu) recomputes P from.
+// In bf16, when given an `o32` buffer (f32, the output's element strides;
+// nullptr for none, as serving passes), they also write the output before
+// its rounding to bf16: the backward's delta = rowsum(dO * O) is taken from
+// it, as the reference takes it from its f32 forward output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -103,7 +109,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o,
-             float* __restrict__ lse, int H, int KH, int S, Strides qs,
+             float* __restrict__ o32, float* __restrict__ lse, int H, int KH,
+             int S, Strides qs,
              Strides ks, Strides vs, Strides os, int causal, int window,
              float scale) {
   constexpr int LQ = D + 1, LK = D + 1, LV = D, LP = kBK + 1;
@@ -241,14 +248,22 @@ flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   T* ob = o + b * os.b + h * os.h;
+  // in f32 the output is the f32 output: no second store is compiled
+  constexpr bool kRounds = !std::is_same<T, float>::value;
+  float* o32b = kRounds && o32 != nullptr ? o32 + b * os.b + h * os.h
+                                          : nullptr;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qpos = q0 + ty * 8 + i;
     if (qpos < S) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        ob[qpos * os.s + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+      for (int j = 0; j < NJ; ++j) {
+        const float x = acc[i][j] / denom;
+        ob[qpos * os.s + tx + 16 * j] = from_f32<T>(x);
+        if constexpr (kRounds)
+          if (o32b != nullptr) o32b[qpos * os.s + tx + 16 * j] = x;
+      }
       if (lse != nullptr && tx == 0)
         lse[(static_cast<long long>(b) * H + h) * S + qpos] =
             m[i] + logf(denom);
@@ -286,8 +301,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
-               int KH, int B, int S, Strides os, int causal, int window,
+               __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
+               float* __restrict__ lse, int H, int KH, int B, int S,
+               Strides os, int causal, int window,
                float scale_log2) {
   using G = Geom<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -441,14 +457,16 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
             m[r] * 0.6931471805599453f + logf(l[r]);
   }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  float* o32b = o32 == nullptr ? nullptr : o32 + b * os.b + h * os.h;
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {
     const int r = (j >> 1) & 1, row = r0 + 8 * r;
     if (row < S) {
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn(acc[j] / l[r], acc[j + 1] / l[r]);
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * os.s + 8 * (j / 4) +
-                                         c0) = v;
+      const float2 x = make_float2(acc[j] / l[r], acc[j + 1] / l[r]);
+      const long long at = row * os.s + 8 * (j / 4) + c0;
+      *reinterpret_cast<__nv_bfloat162*>(ob + at) =
+          __floats2bfloat162_rn(x.x, x.y);
+      if (o32b != nullptr) *reinterpret_cast<float2*>(o32b + at) = x;
     }
   }
 }
@@ -463,7 +481,7 @@ using attn::kTensorCores;
 
 template <typename T, int D>
 int launch_cc(const void* q, const void* k, const void* v, void* o,
-              float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
+              float* o32, float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
               Strides vs, Strides os, int causal, int window, float scale,
               cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
@@ -474,14 +492,14 @@ int launch_cc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fwd_cc<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, S, qs, ks, vs,
-      os, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), o32, lse, H, KH, S, qs,
+      ks, vs, os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int H, int KH, int S, Strides qs,
+                float* o32, float* lse, int B, int H, int KH, int S, Strides qs,
                 Strides ks, Strides vs, Strides os, int causal, int window,
                 float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -499,39 +517,42 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   tc::flash_fwd_bf16<D><<<static_cast<unsigned>(blocks), tc::kThreads, bytes,
                           stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KH, B, S, os,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), o32, lse, H, KH, B, S, os,
       causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
+           float* o32, float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
            Strides vs, Strides os, int causal, int window, float scale,
            cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_cc<float, D>(q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os,
-                               causal, window, scale, stream);
+  if (dtype == 0)  // the output is f32 itself
+    return launch_cc<float, D>(q, k, v, o, nullptr, lse, B, H, KH, S, qs, ks,
+                               vs, os, causal, window, scale, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kTensorCores<D>)
-    return launch_bf16<D>(q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os,
+    return launch_bf16<D>(q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, os,
                           causal, window, scale, stream);
   else
-    return launch_cc<__nv_bfloat16, D>(q, k, v, o, lse, B, H, KH, S, qs, ks,
-                                       vs, os, causal, window, scale, stream);
+    return launch_cc<__nv_bfloat16, D>(q, k, v, o, o32, lse, B, H, KH, S, qs,
+                                       ks, vs, os, causal, window, scale,
+                                       stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // Strides are in elements; the D axis is contiguous and every row starts on
-// a 16-byte boundary.  lse: f32 (B, H, S) contiguous, or nullptr.
+// a 16-byte boundary.  lse: f32 (B, H, S) contiguous, or nullptr.  o32: in
+// bf16, f32 with out's element strides, or nullptr; ignored in f32.
 extern "C" int flash_attention_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KH, int S, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss, long long osh,
-    int causal, int window, float scale, float* lse, cudaStream_t stream) {
+    int causal, int window, float scale, float* lse, float* o32,
+    cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0 || H == 0) return 0;
@@ -540,8 +561,8 @@ extern "C" int flash_attention_launch(
   switch (D) {
 #define FLASH_CASE(DD)                                                     \
   case DD:                                                                 \
-    return launch<DD>(dtype, q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os, \
-                      causal, window, scale, stream);
+    return launch<DD>(dtype, q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, \
+                      os, causal, window, scale, stream);
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(80)

@@ -3,7 +3,10 @@
 // Replaces the jnp FlashAttention backward of the reference,
 // src/repro/models/attention.py (_flash_vjp_bwd, the jax.custom_vjp
 // backward of _flash; not a Pallas kernel).  Given q, k, v, the forward's
-// output o, its gradient dO and the forward's per-row log-sum-exp `lse`
+// output o in f32 (in bf16 the one before its rounding, which the forward
+// writes with `lse`, as the reference keeps its f32 output: delta from the
+// rounded one misses the f32 gradient), its gradient dO and the forward's
+// per-row log-sum-exp `lse`
 // (natural log of the scaled, masked scores; written by flash_attention.cu),
 // it recomputes P = exp(scale * q k^T - lse) per tile pair instead of
 // reading a saved S x S matrix, and computes
@@ -160,10 +163,11 @@ __device__ __forceinline__ bool unmasked(int qpos, int kpos, int S,
          (window <= 0 || kpos > qpos - window);
 }
 
-// (a) delta[b, h, s] = sum_d dO * o; 4 warps a block, one row a warp
+// (a) delta[b, h, s] = sum_d dO * o, o in f32; 4 warps a block, one row a
+// warp
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta(const float* __restrict__ o, const T* __restrict__ dout,
                 float* __restrict__ delta, int H, int S, long long rows,
                 Strides os, Strides ds) {
   constexpr int V = 16 / sizeof(T), C = D / V;
@@ -173,12 +177,13 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   const int s = static_cast<int>(row % S);
   const long long bh = row / S;
   const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
-  const T* orow = o + b * os.b + h * os.h + s * os.s;
+  const float* orow = o + b * os.b + h * os.h + s * os.s;
   const T* drow = dout + b * ds.b + h * ds.h + s * ds.s;
   float acc = 0.f;
   for (int c = lane; c < C; c += 32) {
     float eo[V], ed[V];
-    load_chunk(orow + c * V, eo);
+#pragma unroll
+    for (int i = 0; i < V; i += 4) load_chunk(orow + c * V + i, eo + i);
     load_chunk(drow + c * V, ed);
 #pragma unroll
     for (int i = 0; i < V; ++i) acc = fmaf(eo[i], ed[i], acc);
@@ -878,19 +883,18 @@ struct Views {
 };
 
 template <typename T, int D>
-int launch_delta(const void* o, const void* dout, float* delta, int B, int H,
-                 int S, const Views& st, cudaStream_t stream) {
+int launch_delta(const float* o, const void* dout, float* delta, int B,
+                 int H, int S, const Views& st, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * H * S;
   const long long blocks = (rows + 3) / 4;
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   flash_bwd_delta<T, D><<<static_cast<unsigned>(blocks), 128, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, S,
-      rows, st.o, st.dout);
+      o, static_cast<const T*>(dout), delta, H, S, rows, st.o, st.dout);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_cc(const void* q, const void* k, const void* v, const void* o,
+int launch_cc(const void* q, const void* k, const void* v, const float* o,
               const void* dout, const float* lse, float* delta, void* dq,
               void* dk, void* dv, int B, int H, int KH, int S,
               const Views& st, int causal, int window, float scale,
@@ -933,7 +937,7 @@ int launch_cc(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, const void* o,
+int launch_tc(const void* q, const void* k, const void* v, const float* o,
               const void* dout, const float* lse, float* delta, void* dq,
               void* dk, void* dv, int B, int H, int KH, int S,
               const Views& st, int causal, int window, float scale,
@@ -990,7 +994,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
 // *design: 1 for the tensor-core kernels, 0 for the CUDA-core ones
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v,
-           const void* o, const void* dout, const float* lse, float* delta,
+           const float* o, const void* dout, const float* lse, float* delta,
            void* dq, void* dk, void* dv, int B, int H, int KH, int S,
            const Views& st, int causal, int window, float scale,
            int* design, cudaStream_t stream) {
@@ -1012,15 +1016,16 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients
-// share it).  Strides are in elements, each view's (batch, position, head);
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients share
+// it); o is f32 (the forward's output before its rounding, from which delta
+// is taken).  Strides are in elements, each view's (batch, position, head);
 // the D axis is contiguous and every row starts on a 16-byte boundary.  lse
 // (the forward's) and delta (scratch) are f32 (B, H, S) contiguous.
 // *design is set to the design launched: 1 = the tensor-core kernels
 // (bf16 at D 32, 64, 128), 0 = the CUDA-core ones.
 extern "C" int flash_attention_bwd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
-    const void* o, const void* dout, const float* lse, float* delta,
+    const float* o, const void* dout, const float* lse, float* delta,
     void* dq, void* dk, void* dv, int B, int H, int KH, int S, int D,
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, long long osb,

@@ -11,8 +11,8 @@
 //
 // where row t of sequence b is row t % page of pool page
 // block_table[b, t / page] and kv head h // g; scale = D^-1/2; (m, l, acc)
-// in f32; output in q's type.  The pools are strided views of
-// (NPOOL, page, KH, D) with D contiguous.
+// in f32; output in q's type (in f32 when an lse buffer is given).  The
+// pools are strided views of (NPOOL, page, KH, D) with D contiguous.
 //
 // Bound on an H100 SXM: the K and V rows of the valid positions
 // (2 * sum(length) * KH * D * sizeof(T) bytes) over 3.35 TB/s; the
@@ -43,6 +43,15 @@
 // partial (acc[g][D], m, l) in f32 to scratch and paged_merge_kernel (a
 // second launch) combines them by their log-sum-exp weights.
 //
+// Given an `lse` buffer (f32, (B, H) contiguous; nullptr for none, as
+// serving passes), the launch is one part of a split sequence, as
+// dist/decode_attn.py makes it: the block that writes a head's output
+// also writes the log-sum-exp of its scaled, masked scores, m + log(l), in
+// natural-log units, the weight by which the parts are merged; the output
+// is written in f32, unrounded, so that the merge rounds once; and a
+// sequence of length <= 0 (a part past its sequence's length, whose weight
+// is 0) reads nothing: output 0, lse -INFINITY.
+//
 // Masks follow the reference: a position at or past the length scores the
 // finite -1e30 (a sequence of length <= 0 therefore averages every row of
 // its pages, as the reference does, and every split of it runs), and rows
@@ -72,9 +81,20 @@ struct Pool {  // element strides of a (NPOOL, page, KH, D) view
 };
 
 // positions a sequence's blocks read: its length, clipped to the block
-// table's span; a sequence of length <= 0 reads (and averages) the span
-__device__ __forceinline__ int positions(int length, int span) {
-  return length >= 1 ? min(length, span) : span;
+// table's span; a sequence of length <= 0 reads (and averages) the span,
+// or nothing when the launch is a part of a split sequence
+__device__ __forceinline__ int positions(int length, int span, bool part) {
+  return length >= 1 ? min(length, span) : (part ? 0 : span);
+}
+
+// element i of the output: in T, or in f32 for a part of a split sequence
+template <typename T>
+__device__ __forceinline__ void store_out(void* o, bool f32, long long i,
+                                          float x) {
+  if (f32)
+    static_cast<float*>(o)[i] = x;
+  else
+    static_cast<T*>(o)[i] = from_f32<T>(x);
 }
 
 // a K tile row is padded to 64 bytes past a multiple of 128, so that the
@@ -129,9 +149,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
-                   const int* __restrict__ lengths, T* __restrict__ o,
-                   float* __restrict__ part, int H, int KH, int page, int NP,
-                   int split, int n_split, long long qsb, long long qsh,
+                   const int* __restrict__ lengths, void* __restrict__ o,
+                   float* __restrict__ part, float* __restrict__ lse, int H,
+                   int KH, int page, int NP, int split, int n_split, long long qsb, long long qsh,
                    Pool ks, Pool vs, long long btsb, long long osb,
                    long long osh, float scale) {
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
@@ -143,9 +163,20 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int length = lengths[b];
   const int span = NP * page;
   const int n_valid = min(length, span);  // unmasked positions
-  const int n_pos = positions(length, span);
+  const bool f32_out = lse != nullptr;
+  const int n_pos = positions(length, span, f32_out);
   const int p0 = sp * split;
-  if (p0 >= n_pos) return;
+  if (p0 >= n_pos) {
+    if (n_pos == 0 && sp == 0 && part == nullptr) {
+      // an empty part with one split: no merge writes its output
+      for (int idx = threadIdx.x; idx < g * D; idx += kThreads)
+        store_out<T>(o, true, b * osb + (hk * g + idx / D) * osh + idx % D,
+                     0.f);
+      for (int gi = threadIdx.x; gi < g; gi += kThreads)
+        lse[static_cast<long long>(b) * H + hk * g + gi] = -INFINITY;
+    }
+    return;
+  }
   const int p1 = min(p0 + split, n_pos);
   const int n_tiles = (p1 - p0 + kTP - 1) / kTP;
 
@@ -277,9 +308,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (part == nullptr) {  // one split: the output itself
     for (int idx = tid; idx < g * D; idx += kThreads) {
       const int gi = idx / D, d = idx % D;
-      o[b * osb + (hk * g + gi) * osh + d] =
-          from_f32<T>(Acc[idx] / fmaxf(Ls[gi], 1e-30f));
+      store_out<T>(o, f32_out, b * osb + (hk * g + gi) * osh + d,
+                   Acc[idx] / fmaxf(Ls[gi], 1e-30f));
     }
+    if (lse != nullptr)
+      for (int gi = tid; gi < g; gi += kThreads)
+        lse[static_cast<long long>(b) * H + hk * g + gi] =
+            Ms[gi] + logf(fmaxf(Ls[gi], 1e-30f));
     return;
   }
   // partial of split sp: part[b][hk][sp][gi] = (acc[0..D), m, l)
@@ -298,12 +333,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_merge_kernel(const float* __restrict__ part,
-                   const int* __restrict__ lengths, T* __restrict__ o, int H,
-                   int KH, int page, int NP, int split, int n_split,
-                   long long osb, long long osh) {
+                   const int* __restrict__ lengths, void* __restrict__ o,
+                   float* __restrict__ lse, int H, int KH, int page, int NP,
+                   int split, int n_split, long long osb, long long osh) {
   const int g = H / KH;
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int n_pos = positions(lengths[b], NP * page);
+  const bool f32_out = lse != nullptr;
+  const int n_pos = positions(lengths[b], NP * page, f32_out);
   const int ran = (n_pos + split - 1) / split;
   const float* pb =
       part + (static_cast<long long>(b) * KH + hk) * n_split * g * (D + 2);
@@ -319,13 +355,18 @@ paged_merge_kernel(const float* __restrict__ part,
       num = fmaf(ps[d], w, num);
       den = fmaf(ps[D + 1], w, den);
     }
-    o[b * osb + (hk * g + gi) * osh + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+    store_out<T>(o, f32_out, b * osb + (hk * g + gi) * osh + d,
+                 num / fmaxf(den, 1e-30f));
+    if (f32_out && d == 0)
+      lse[static_cast<long long>(b) * H + hk * g + gi] =
+          mx + logf(fmaxf(den, 1e-30f));
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
-           const int* lengths, void* o, float* part, int B, int H, int KH,
+           const int* lengths, void* o, float* part, float* lse, int B,
+           int H, int KH,
            int page, int NP, int split, int n_split, long long qsb,
            long long qsh, Pool ks, Pool vs, long long btsb, long long osb,
            long long osh, float scale, cudaStream_t stream) {
@@ -338,28 +379,27 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_split_kernel<T, D><<<dim3(KH, B, n_split), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, lengths, static_cast<T*>(o), part, H, KH,
-      page, NP, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
+      static_cast<const T*>(vp), bt, lengths, o, part, lse, H, KH, page, NP,
+      split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   paged_merge_kernel<T, D><<<dim3(KH, B), kThreads, 0, stream>>>(
-      part, lengths, static_cast<T*>(o), H, KH, page, NP, split, n_split, osb,
-      osh);
+      part, lengths, o, lse, H, KH, page, NP, split, n_split, osb, osh);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* kp, const void* vp,
-             const int* bt, const int* lengths, void* o, float* part, int B,
-             int H, int KH, int page, int NP, int split, int n_split,
+             const int* bt, const int* lengths, void* o, float* part,
+             float* lse, int B, int H, int KH, int page, int NP, int split, int n_split,
              long long qsb, long long qsh, Pool ks, Pool vs, long long btsb,
              long long osb, long long osh, float scale, cudaStream_t stream) {
   switch (D) {
 #define PAGED_CASE(DD)                                                      \
   case DD:                                                                  \
-    return launch<T, DD>(q, kp, vp, bt, lengths, o, part, B, H, KH, page, NP, \
-                         split, n_split, qsb, qsh, ks, vs, btsb, osb, osh,   \
-                         scale, stream);
+    return launch<T, DD>(q, kp, vp, bt, lengths, o, part, lse, B, H, KH,     \
+                         page, NP, split, n_split, qsb, qsh, ks, vs, btsb,   \
+                         osb, osh, scale, stream);
     PAGED_CASE(32)
     PAGED_CASE(64)
     PAGED_CASE(96)
@@ -379,10 +419,13 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
 // and lengths are int32.  `split` (a multiple of 32) positions per block,
 // n_split blocks per (kv head, sequence); with n_split > 1, `part` is f32
 // scratch of B * KH * n_split * (H / KH) * (D + 2) elements, else null.
+// lse: f32 (B, H) contiguous, or null; given, the launch is a part of a
+// split sequence: `o` is f32, and a length <= 0 reads nothing (out 0, lse
+// -INFINITY).
 extern "C" int paged_attention_launch(
     int device, int dtype, const void* q, const void* kp, const void* vp,
-    const int* bt, const int* lengths, void* o, float* part, int B, int H,
-    int KH, int page, int NP, int D, int split, int n_split, long long qsb,
+    const int* bt, const int* lengths, void* o, float* part, float* lse,
+    int B, int H, int KH, int page, int NP, int D, int split, int n_split, long long qsb,
     long long qsh, long long ksp, long long kso, long long ksh,
     long long vsp, long long vso, long long vsh, long long btsb,
     long long osb, long long osh, float scale, cudaStream_t stream) {
@@ -391,13 +434,14 @@ extern "C" int paged_attention_launch(
   if (B == 0 || H == 0) return 0;
   const Pool ks{ksp, kso, ksh}, vs{vsp, vso, vsh};
   if (dtype == 0)
-    return launch_d<float>(D, q, kp, vp, bt, lengths, o, part, B, H, KH, page,
-                           NP, split, n_split, qsb, qsh, ks, vs, btsb, osb,
-                           osh, scale, stream);
+    return launch_d<float>(D, q, kp, vp, bt, lengths, o, part, lse, B, H,
+                           KH, page, NP, split, n_split, qsb, qsh, ks, vs,
+                           btsb, osb, osh, scale, stream);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, kp, vp, bt, lengths, o, part, B, H,
-                                   KH, page, NP, split, n_split, qsb, qsh, ks,
-                                   vs, btsb, osb, osh, scale, stream);
+    return launch_d<__nv_bfloat16>(D, q, kp, vp, bt, lengths, o, part, lse,
+                                   B, H, KH, page, NP, split, n_split, qsb,
+                                   qsh, ks, vs, btsb, osb, osh, scale,
+                                   stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -26,9 +26,11 @@ in ``HEAD_DIMS``.
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.gqa_attention`` sends CPU tensors
 to its plain chunked version instead.  ``counter`` counts one per launch,
-tallied by head dim.  With ``return_lse`` the forward also writes each
-row's log-sum-exp of its scaled scores (f32, natural log), the residual of
-the backward.
+tallied by head dim.  With ``return_lse`` (training) the forward also
+writes the backward's residuals: each row's log-sum-exp of its scaled
+scores (f32, natural log) and, in bf16, the output in f32 before its
+rounding (in f32 it is the output itself), from which the backward takes
+delta, as the reference takes delta from its f32 forward output.
 
 ``flash_attention_bwd_cuda`` launches the backward kernels
 (``csrc/flash_attention_bwd.cu``), which replace the jnp FlashAttention
@@ -83,7 +85,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch": (
     ctypes.c_int,
     [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12
-    + [_I, _I, ctypes.c_float, _P, _P])}
+    + [_I, _I, ctypes.c_float, _P, _P, _P])}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": (
     ctypes.c_int,
     [_I, _I] + [_P] * 10 + [_I] * 5 + [_L] * 24
@@ -119,8 +121,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, S, D); k/v: (B, KH, S, D), any strides with a contiguous
     D axis and rows on 16-byte boundaries.  Returns (B, H, S, D) in q's
     dtype, laid out like q when q is dense (a transposed view of a (B, S,
-    H, D) tensor stays one); with ``return_lse`` also the (B, H, S) f32
-    log-sum-exp of each row's scaled, masked scores."""
+    H, D) tensor stays one).  With ``return_lse``: ``(out, lse, out32)``,
+    lse the (B, H, S) f32 log-sum-exp of each row's scaled, masked scores
+    and out32 the output in f32 before its rounding, laid out as out (out
+    itself in f32)."""
     build.require_cuda_views(
         "flash_attention", {"q": q, "k": k, "v": v},
         dtypes={"q": tuple(_DTYPES), "k": (q.dtype,), "v": (q.dtype,)},
@@ -131,16 +135,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    out32 = None
+    if return_lse:
+        out32 = out if q.dtype == torch.float32 else \
+            torch.empty_like(out, dtype=torch.float32)
+        if out32.stride() != out.stride():
+            raise ValueError("flash_attention: the f32 output's strides "
+                             f"{out32.stride()} differ from the output's "
+                             f"{out.stride()}")
     lib = build.library("flash_attention", _SIGNATURES)
     err = lib.flash_attention_launch(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), b, h, kh, s, d, *_strides(q),
         *_strides(k), *_strides(v), *_strides(out), int(bool(causal)),
         int(window), d ** -0.5, None if lse is None else lse.data_ptr(),
+        None if out32 is None or out32 is out else out32.data_ptr(),
         build.stream_of(q))
     build.check(lib, err, "flash_attention")
     counter.add(d)
-    return (out, lse) if return_lse else out
+    return (out, lse, out32) if return_lse else out
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -148,16 +161,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int = 0):
     """The gradients ``(dq, dk, dv)`` of ``flash_attention_cuda``'s output
-    with respect to q, k and v, given its output ``out``, the output's
-    gradient ``dout`` (both (B, H, S, D), q's dtype) and the forward's
-    ``lse`` ((B, H, S) f32, contiguous).  Views as in the forward.  dq is
+    with respect to q, k and v, given its f32 output ``out`` before its
+    rounding (the forward's ``out32``, from which delta is taken), the
+    output's gradient ``dout`` (both (B, H, S, D); dout in q's dtype) and
+    the forward's ``lse`` ((B, H, S) f32, contiguous).  Views as in the forward.  dq is
     (B, H, S, D), dk and dv (B, KH, S, D), dense, in q's dtype: the scale
     D^-1/2 is in dq, and a kv head's dk and dv sum over its query heads."""
     build.require_cuda_views(
         "flash_attention_bwd",
         {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse},
         dtypes={"q": tuple(_DTYPES), "k": (q.dtype,), "v": (q.dtype,),
-                "out": (q.dtype,), "dout": (q.dtype,),
+                "out": (torch.float32,), "dout": (q.dtype,),
                 "lse": (torch.float32,)},
         ndims={"q": 4, "k": 4, "v": 4, "out": 4, "dout": 4, "lse": 3},
         rows16=("q", "k", "v", "out", "dout"))

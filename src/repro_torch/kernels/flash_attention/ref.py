@@ -35,17 +35,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         return_lse: bool = False):
     """q: (B, H, S, D); k/v: (B, KH, S, D) -> (B, H, S, D) in q's dtype;
-    with ``return_lse`` also the (B, H, S) f32 log-sum-exp of each row's
-    scaled, masked scores."""
+    with ``return_lse`` ``(out, lse, out32)``, as ``flash_attention_cuda``:
+    also the (B, H, S) f32 log-sum-exp of each row's scaled, masked scores
+    and the output in f32 before its rounding."""
     s, d = q.shape[2], q.shape[3]
     k, v = _repeat_kv(q, k, v)
     sc = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) * d ** -0.5
     pos = torch.arange(s, device=q.device)
     sc = torch.where(_valid(pos, pos, causal, window)[None, None], sc,
                      NEG_INF)
-    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, dim=-1),
-                       v).to(q.dtype)
-    return (out, torch.logsumexp(sc, dim=-1)) if return_lse else out
+    out32 = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, dim=-1), v)
+    out = out32.to(q.dtype)
+    return (out, torch.logsumexp(sc, dim=-1), out32) if return_lse else out
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

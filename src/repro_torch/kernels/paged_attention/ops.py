@@ -23,7 +23,14 @@ weights.
 ``paged_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.decode_attention`` sends CPU
 tensors to the dense plain version instead.  A sequence of length <= 0
-averages every row of its pages, as the reference does.
+averages every row of its pages, as the reference does.  ``return_lse``
+makes each sequence a part of a split sequence, as
+``repro_torch.dist.decode_attn`` launches it (serving never does): the same
+launches also write each head's log-sum-exp of its scaled, masked scores
+(f32, natural log), the weight by which the parts are merged; the output
+comes in f32, unrounded, so that the merge rounds once; and a length <= 0
+(a part past its sequence's length, whose weight is 0) reads nothing:
+output 0, lse -inf.
 ``counter`` counts one per call that launches the kernel, tallied by head
 dim.
 """
@@ -49,7 +56,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"paged_attention_launch": (
     ctypes.c_int,
-    [_I, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_L] * 11
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_L] * 11
     + [ctypes.c_float, _P])}
 
 
@@ -65,10 +72,14 @@ def split_plan(span: int) -> tuple[int, int]:
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, *, return_lse: bool = False):
     """q: (B, H, D); k/v_pages: (NPOOL, page, KH, D), any strides with a
-    contiguous D axis and rows on 16-byte boundaries; block_table: (B, NP) int32 page ids; lengths: (B,)
-    int32.  Returns (B, H, D) in q's dtype."""
+    contiguous D axis and rows on 16-byte boundaries; block_table: (B, NP)
+    int32 page ids; lengths: (B,) int32.  Returns (B, H, D) in q's dtype;
+    a length <= 0 averages every row of the sequence's pages (the
+    reference's).  With ``return_lse``: ``(out, lse)``, out (B, H, D) in
+    f32 and lse (B, H) f32, and a length <= 0 reads nothing (out 0, lse
+    -inf)."""
     build.require_cuda_views(
         "paged_attention",
         {"q": q, "k_pages": k_pages, "v_pages": v_pages,
@@ -99,7 +110,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if kh > 65535 or b > 65535:
         raise ValueError(f"paged_attention: grid too large for {q.shape}")
     split, n_split = split_plan(np_ * page)
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, d), device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     part = None
     if n_split > 1:     # (B, KH, n_split, g, D + 2): acc, m, l per split
         part = torch.empty((b, kh, n_split, h // kh, d + 2),
@@ -110,7 +124,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         dev.index, _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
-        b, h, kh, page, np_, d, split, n_split,
+        None if lse is None else lse.data_ptr(), b, h, kh, page, np_, d, split, n_split,
         q.stride(0), q.stride(1),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
@@ -118,4 +132,4 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         d ** -0.5, build.stream_of(q))
     build.check(lib, err, "paged_attention")
     counter.add(d)
-    return out
+    return (out, lse) if return_lse else out

@@ -16,9 +16,13 @@ NEG_INF = -1e30
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_table: torch.Tensor,
-                        lengths: torch.Tensor) -> torch.Tensor:
+                        lengths: torch.Tensor, *, return_lse: bool = False):
     """q: (B, H, D); k/v_pages: (NPOOL, page, KH, D); block_table: (B, NP)
-    page ids; lengths: (B,).  Returns (B, H, D) in q's dtype."""
+    page ids; lengths: (B,).  Returns (B, H, D) in q's dtype.  With
+    ``return_lse`` (a part of a split sequence, as in
+    ``paged_attention_cuda``): ``(out, lse)``, out in f32, unrounded, lse
+    the (B, H) f32 log-sum-exp of each head's scaled, masked scores, and a
+    length <= 0 gives out 0 and lse -inf."""
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
     np_ = block_table.shape[1]
@@ -32,8 +36,13 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     valid = pos[None, None, None, :] < lengths.to(q.device)[:, None, None, None]
     sc = torch.where(valid, sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, vd)
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", p, vd).reshape(b, h, d)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.logsumexp(sc, dim=-1).reshape(b, h)
+    empty = lengths.to(q.device)[:, None] <= 0
+    return (torch.where(empty[..., None], 0.0, out),
+            torch.where(empty, -torch.inf, lse))
 
 
 def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -12,11 +12,14 @@ random, from a seeded ``torch.Generator``.  Every token, prompt tokens
 included, goes through ``Model.decode_step`` (the ``paged_attention``
 kernel on a card for the attention layers; an MoE layer's dispatch runs
 ``wc_combine``); the prefix-cache page table runs on the CIDER engine (the
-``wc_combine`` kernel on a card).
+``wc_combine`` kernel on a card).  ``--layers`` cuts the model's depth
+(the width stays the config's); the scheduler's stats depend on the
+request stream alone, not on the model.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -91,9 +94,13 @@ def main(argv=None) -> dict:
                     help="tokens of shared system prompt (prefix-cache hits)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the kernels) or cpu (plain versions)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="depth of the model (default: the config's)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name}: {cfg.family} has no decode state")
     model = Model(cfg, device=args.device)

@@ -13,7 +13,9 @@ softmax.
 
 Training goes through ``_FlashFn``, the counterpart of the reference's
 ``jax.custom_vjp`` ``_flash``: its forward keeps the O(S) residuals
-``(q, k, v, out, lse)`` and its backward is the FlashAttention backward,
+``(q, k, v, out, lse)``, ``out`` in f32 before its rounding to q's dtype
+as in the reference (the backward's delta = rowsum(dout * out) is taken
+from it), and its backward is the FlashAttention backward,
 which recomputes the scores from them (``flash_attention_bwd_cuda`` on a
 card, ``_flash_bwd_plain``, the port of ``_flash_vjp_bwd``, on the CPU).
 ``gqa_attention`` takes it whenever grad is enabled and an input requires
@@ -116,18 +118,18 @@ class _FlashFn(torch.autograd.Function):
     the reference's chain rule around its core: q scaled by D^-1/2 (so
     the scale appears in dq), kv heads repeated (so a kv head's dk and dv
     sum over its query heads) and gradients cast back to the inputs'
-    dtypes."""
+    dtypes.  Either way the saved ``out`` is the f32 output, before its
+    rounding to q's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk):
         ctx.causal, ctx.window = causal, window
         if q.device.type == "cuda":
-            out, lse = flash_attention_cuda(
+            out, lse, out32 = flash_attention_cuda(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=causal, window=window, return_lse=True)
-            out = out.transpose(1, 2)
-            ctx.save_for_backward(q, k, v, out, lse)
-            return out
+            ctx.save_for_backward(q, k, v, out32.transpose(1, 2), lse)
+            return out.transpose(1, 2)
         ctx.chunk = min(chunk, q.shape[1])
         out, lse = _flash_fwd_plain(*_core_inputs(q, k, v), causal, window,
                                     ctx.chunk, ctx.chunk)

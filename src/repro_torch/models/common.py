@@ -10,7 +10,9 @@ creates its tensor on the generator's device and fills it a slab of the
 leading axis at a time (at most 256 MiB in f32, or one layer of a stacked
 weight whose layers are larger), so that init holds no more than that in
 f32 beside the weights: deepseek-moe-16b's (28, 64, 2048, 1408) expert
-weights would take 20.7 GB in f32 at once.
+weights would take 20.7 GB in f32 at once.  Given a ``MetaGenerator``,
+the initialisers make meta tensors and draw nothing: the abstract model of
+``Model.init_abstract``, with no memory behind it.
 """
 from __future__ import annotations
 
@@ -19,12 +21,19 @@ import math
 import torch
 
 __all__ = ["rms_norm", "rope", "apply_rope", "init_dense", "init_embed",
-           "init_scalar", "trunc_normal", "associative_scan"]
+           "init_scalar", "trunc_normal", "associative_scan", "MetaGenerator"]
 
 # f32 elements drawn at a time (256 MiB, a few percent of the smallest
 # full-width model's weights): as many leading indices (layers of a
 # stacked weight, rows of a 2-D one) as fit, at least one.
 _SLAB = 1 << 26
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device (which
+    torch does not make): the initialisers then create meta tensors of
+    their shapes and dtypes and draw nothing."""
+    device = torch.device("meta")
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
@@ -67,6 +76,8 @@ def trunc_normal(gen: torch.Generator, shape, scale: float,
     and cast to ``dtype`` (the reference's ``truncated_normal * scale``),
     a slab at a time."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for slab in _slabs(out):
         w = torch.empty(slab.shape, dtype=torch.float32, device=gen.device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -84,6 +95,8 @@ def init_dense(gen: torch.Generator, in_dim: int, out_dims, dtype=torch.bfloat16
 def init_embed(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.bfloat16) -> torch.Tensor:
     out = torch.empty((vocab, d), dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for slab in _slabs(out):
         w = torch.empty(slab.shape, dtype=torch.float32, device=gen.device)
         w.normal_(0.0, 1.0, generator=gen)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.ctx import current_mesh
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssm as ssd
 from repro_torch.models.attention import decode_attention, gqa_attention
@@ -36,7 +37,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import swiglu
 from repro_torch.models.moe import moe_ffn
 
-__all__ = ["init_params", "forward", "decode_step", "init_decode_state"]
+__all__ = ["init_params", "param_axes", "forward", "decode_step",
+           "init_decode_state"]
 
 _ATTN_FAMILIES = ("dense", "encoder", "vlm", "moe")
 
@@ -160,6 +162,82 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 # ===========================================================================
+# Logical axes of every parameter (the reference's ``Param.axes``)
+# ===========================================================================
+
+_LE, _LM = ("layers", "embed"), ("layers", "mlp")
+
+
+def _attn_axes(cfg: ModelConfig) -> dict:
+    p = {"ln1": _LE, "wq": ("layers", "embed", "heads", "head_dim"),
+         "wk": ("layers", "embed", "kv", "head_dim"),
+         "wv": ("layers", "embed", "kv", "head_dim"),
+         "wo": ("layers", "heads", "embed")}
+    if cfg.qkv_bias:
+        p["bq"] = ("layers", "heads", "head_dim")
+        p["bk"] = p["bv"] = ("layers", "kv", "head_dim")
+    if cfg.qk_norm:
+        p["qnorm"] = p["knorm"] = ("layers", "head_dim")
+    return p
+
+
+def _mlp_axes(cfg: ModelConfig) -> dict:
+    return {"ln2": _LE, "wi_gate": _LE + ("mlp",), "wi_up": _LE + ("mlp",),
+            "wo_mlp": _LM + ("embed",)}
+
+
+def _moe_axes(cfg: ModelConfig) -> dict:
+    p = {"ln2": _LE, "router": _LE + ("experts",),
+         "eg": ("layers", "experts", "embed", "mlp"),
+         "eu": ("layers", "experts", "embed", "mlp"),
+         "ed": ("layers", "experts", "mlp", "embed")}
+    if cfg.n_shared:
+        p.update(sg=_LE + ("mlp",), su=_LE + ("mlp",), sd=_LM + ("embed",))
+    return p
+
+
+def _ssm_axes(cfg: ModelConfig) -> dict:
+    heads = ("layers", "heads")
+    return {"ln1": _LE, "in_proj": _LE + ("mlp",),
+            "conv_w": ("layers", "conv", "mlp"), "A_log": heads,
+            "Dskip": heads, "dt_bias": heads, "ssm_norm": _LM,
+            "out_proj": _LM + ("embed",)}
+
+
+def _rec_axes(cfg: ModelConfig) -> dict:
+    return {"ln1": _LE, "wx": _LE + ("mlp",), "wgate": _LE + ("mlp",),
+            "conv": ("layers", "conv", "mlp"), "w_input": _LM + ("heads",),
+            "w_rec": _LM + ("heads",), "lam": _LM, "wy": _LM + ("embed",)}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in a tree of ``init_params``'s
+    structure: the axes the reference boxes each leaf with
+    (``repro.models.common.Param``), which ``dist.sharding.spec_for`` maps
+    to mesh axes."""
+    axes = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
+    if not cfg.tie_embed:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.frontend:
+        axes["front_proj"] = ("front", "embed")
+    if cfg.family in ("dense", "encoder", "vlm"):
+        axes["blocks"] = {**_attn_axes(cfg), **_mlp_axes(cfg)}
+    elif cfg.family == "moe":
+        axes["blocks"] = {**_attn_axes(cfg), **_moe_axes(cfg)}
+    elif cfg.family == "ssm":
+        axes["blocks"] = _ssm_axes(cfg)
+    elif cfg.family == "hybrid":
+        rec = {**_rec_axes(cfg), **_mlp_axes(cfg)}
+        axes["blocks"] = {"rec1": rec, "rec2": dict(rec),
+                          "attn": {**_attn_axes(cfg), **_mlp_axes(cfg)}}
+        if cfg.n_layers % 3:
+            axes["tail"] = dict(rec)
+    else:
+        raise ValueError(cfg.family)
+    return axes
+
+
+# ===========================================================================
 # Blocks
 # ===========================================================================
 
@@ -199,12 +277,19 @@ def _mlp_fwd(cfg: ModelConfig, x, blk):
 
 
 def _moe_fwd(cfg: ModelConfig, x, blk):
-    """One device: the reference's ``rows = 1`` (no mesh)."""
+    """Under a mesh (``dist.ctx.use_mesh``) with ``cfg.moe_local_dispatch``,
+    the tokens are grouped per data shard, ``rows = pod x data`` (1 when
+    that does not divide them), as in the reference; else ``rows = 1``."""
     b, s, d = x.shape
+    mesh = current_mesh()
+    rows = 1
+    if mesh is not None and cfg.moe_local_dispatch:
+        rows = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
     xn = rms_norm(x, blk["ln2"]).reshape(b * s, d)
     y, aux = moe_ffn(xn, blk["router"], blk["eg"], blk["eu"], blk["ed"],
                      blk.get("sg"), blk.get("su"), blk.get("sd"),
-                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                     rows=rows if (b * s) % rows == 0 else 1)
     return x + y.reshape(b, s, d), aux
 
 

@@ -376,6 +376,104 @@ def test_paged_attention_kernel_matches_plain_on_card(cuda_device, dt, b, h,
 
 
 @pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("b,h,kh,d,page,np_", [
+    (1, 16, 8, 128, 40, 1),        # one split: the single-block path
+    (2, 16, 8, 128, 16, 256),      # 4096 rows: 8 splits and the merge
+    (3, 8, 2, 64, 24, 5)])
+def test_paged_attention_lse_on_card(cuda_device, dt, b, h, kh, d, page,
+                                     np_):
+    """``return_lse`` (a part of a split sequence): the output in f32,
+    within f32 rounding of the plain version's and rounding to the bits of
+    the output without it, and each head's log-sum-exp within f32 rounding
+    of the plain version's, in both the single-block path and the merge;
+    a length 0 reads nothing (output 0, lse -inf)."""
+    dtype, _ = ATT_DTYPES[dt]
+    q, kp, vp, bt, ln = _pages(b, h, kh, d, page, np_, 7, dtype, cuda_device,
+                               b + page)
+    bt_t = torch.from_numpy(bt).to(cuda_device)
+    ln_t = torch.from_numpy(ln).to(cuda_device)
+    ln_t[-1] = 0
+    c0 = pa.counter.count
+    out, lse = pa.paged_attention_cuda(q, kp, vp, bt_t, ln_t,
+                                       return_lse=True)
+    assert pa.counter.count == c0 + 1
+    want, want_lse = pa.paged_attention_ref(q, kp, vp, bt_t, ln_t,
+                                            return_lse=True)
+    assert out.dtype == torch.float32 and out.shape == (b, h, d)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(out[:-1].to(dtype),
+                       pa.paged_attention_cuda(q, kp, vp, bt_t, ln_t)[:-1])
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse[:-1], want_lse[:-1], rtol=1e-5, atol=1e-4)
+    assert not bool(out[-1].any()) and bool((lse[-1] == -torch.inf).all())
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_decode_attention_spmd_on_card(cuda_device, dt, n):
+    """The split-sequence decode on the card (one ``paged_attention``
+    launch over B x n parts, merged by their log-sum-exps) against the
+    unsplit kernel and the plain decode, at lengths on and around the
+    parts' boundaries and with a (B,) length tensor, within the attention
+    tolerance and, in bf16, two ulps (each part's f32 output is merged in
+    f32 and rounded once, as the unsplit kernel rounds once)."""
+    from repro_torch.dist.decode_attn import decode_attention_spmd
+    from repro_torch.launch.mesh import make_local_mesh
+    dtype, tol = ATT_DTYPES[dt]
+    b, h, kh, d, smax = 3, 16, 8, 128, 1024
+    q = _randn((b, 1, h, d), dtype, cuda_device, 1)
+    k = _randn((b, smax, kh, d), dtype, cuda_device, 2)
+    v = _randn((b, smax, kh, d), dtype, cuda_device, 3)
+    mesh = make_local_mesh(1, cuda_device, model=n)
+    part = smax // n
+    for length in (0, 1, part, part + 1, smax,
+                   torch.tensor([0, part + 1, smax - 5], dtype=torch.int32,
+                                device=cuda_device)):
+        c0 = pa.counter.count
+        got = decode_attention_spmd(mesh, q, k, v, length)
+        assert pa.counter.count == c0 + 1
+        assert got.dtype == dtype and got.shape == (b, 1, h, d)
+        for want in (tatt.decode_attention(q, k, v, length),
+                     tatt.decode_attention(q.cpu(), k.cpu(), v.cpu(),
+                                           length.cpu() if isinstance(
+                                               length, torch.Tensor)
+                                           else length)):
+            _assert_close(got.cpu(), want.cpu(), tol)
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+def test_combined_embed_grad_on_card(cuda_device, dt):
+    """``combined_embed_grad``'s run flags from the ``wc_combine`` kernel:
+    ``hids`` and ``uniq`` equal to the CPU's bit for bit, ``rows`` within
+    f32 summation order (the segment sum adds by atomics on the card), and
+    the SGD-applied table within a bf16 ulp of the dense gradient's."""
+    from repro_torch.dist import embed_grad as eg
+    from repro_torch.workloads import zipf
+    dtype = ATT_DTYPES[dt][0]
+    vocab, dim, t = 4096, 64, 8192
+    gen = torch.Generator().manual_seed(0)
+    cdf = torch.from_numpy(zipf.zipf_cdf_table(vocab, 0.99))
+    ids = zipf.sample_zipf_torch(gen, (t,), cdf, vocab)
+    g = _randn((t, dim), dtype, "cpu", 4)
+    c0 = wcc.counter.count
+    got = eg.combined_embed_grad(ids.to(cuda_device), g.to(cuda_device))
+    assert wcc.counter.count == c0 + 1
+    want = eg.combined_embed_grad(ids, g)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    torch.testing.assert_close(got[1].cpu().float(), want[1].float(),
+                               rtol=2.0 ** -7 if dt == "bf16" else 1e-5,
+                               atol=1e-4)
+    table = _randn((vocab, dim), dtype, cuda_device, 5)
+    sparse = eg.apply_sparse_grad(table.clone(), *got, lr=0.1)
+    dense = table - 0.1 * eg.dense_embed_grad(
+        ids.to(cuda_device), g.to(cuda_device).float(), vocab).to(dtype)
+    torch.testing.assert_close(sparse.float(), dense.float(),
+                               rtol=2.0 ** -6 if dt == "bf16" else 1e-5,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
 def test_paged_attention_serve_shape_every_length(cuda_device, dt):
     """The serve's decode calls: one 40-row page per slot under the identity
     table, lengths 1-40 (the mask inside the page), one slot per call and
@@ -1023,8 +1121,8 @@ def _check_bwd_on_card(cuda_device, dtype, b, h, kh, s, d, causal, window):
     v = _randn((b, kh, s, d), dtype, cuda_device, 3)
     do = _randn((b, h, s, d), dtype, cuda_device, 4)
     kw = dict(causal=causal, window=window)
-    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    _, lse_ref = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    _, lse, out = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, lse_ref, _ = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
     c0 = fa.counter_bwd.count
     got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
@@ -1053,6 +1151,26 @@ def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
     consumer warpgroup of the last tile has fewer than 64 rows or none."""
     _check_bwd_on_card(cuda_device, torch.bfloat16, b, h, kh, s, d, causal,
                        window)
+
+
+@pytest.mark.parametrize("d", [128, 80])
+def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
+    """With ``return_lse`` the forward also returns its f32 output, which
+    rounds to its bf16 output bit for bit and stays within the plain f32
+    output's rounding, in both designs (D 128 tensor cores, D 80 CUDA
+    cores); in f32 it is the output itself."""
+    q = _randn((1, 4, 300, d), torch.bfloat16, cuda_device, 1)
+    k, v = (_randn((1, 2, 300, d), torch.bfloat16, cuda_device, i)
+            for i in (2, 3))
+    out, lse, out32 = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v))
+    assert out32.dtype == torch.float32 and out32.stride() == out.stride()
+    assert torch.equal(out32.to(torch.bfloat16), out)
+    _, _, want = fa.flash_attention_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(out32, want, rtol=2.0 ** -8, atol=1e-4)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    o, _, o32 = fa.flash_attention_cuda(q32, k32, v32, return_lse=True)
+    assert o32 is o
 
 
 def _gpu_kernel_names(fn) -> list[str]:
@@ -1089,7 +1207,7 @@ def test_flash_attention_bwd_design_on_card(cuda_device, dt, d, design):
     assert (d in fa.TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
     q, do = (_randn((1, 4, 256, d), dtype, cuda_device, i) for i in (1, 2))
     k, v = (_randn((1, 2, 256, d), dtype, cuda_device, i) for i in (3, 4))
-    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    _, lse, out = fa.flash_attention_cuda(q, k, v, return_lse=True)
     c0, t0 = fa.counter_bwd.count, fa.counter_bwd_tc.count
     fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
     assert fa.counter_bwd.count == c0 + 1
@@ -1125,6 +1243,35 @@ def test_flash_fn_on_card_matches_cpu(cuda_device, upstream):
         grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
     for g, w in zip(grads[str(cuda_device)], grads["cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
+    (1, 4, 2, 512, 128, True, 0), (1, 4, 2, 512, 64, False, 0),
+    (1, 4, 2, 512, 128, True, 100), (1, 4, 2, 300, 64, True, 0),
+    (1, 4, 2, 512, 32, True, 0)])
+def test_flash_fn_backward_takes_delta_from_f32_out_on_card(
+        cuda_device, b, h, kh, s, d, causal, window):
+    """``gqa_attention``'s bf16 gradients through ``_FlashFn`` (the forward
+    kernel's f32 output saved for the backward, as the reference saves its
+    f32 output) have no element beyond ``BWD_TOL`` of the plain backward
+    fed the plain forward's f32 output, in the cases of the CPU emulation
+    (tests/test_torch_kernel_designs.py)."""
+    from repro_torch.models.attention import gqa_attention
+    kw = dict(causal=causal, window=window)
+    q, do = (_randn((b, h, s, d), torch.bfloat16, cuda_device, i)
+             for i in (1, 4))
+    k, v = (_randn((b, kh, s, d), torch.bfloat16, cuda_device, i)
+            for i in (2, 3))
+    leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+              for x in (q, k, v)]
+    c0 = fa.counter_bwd.count
+    out = gqa_attention(*leaves, **kw)
+    got = [g.transpose(1, 2) for g in torch.autograd.grad(
+        out, leaves, do.transpose(1, 2))]
+    assert fa.counter_bwd.count == c0 + 1
+    _, lse, o32 = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, o32, do, lse, **kw)
+    assert_grads_close(got, want, torch.bfloat16, f"{b, h, kh, s, d}")
 
 
 def test_training_step_on_card_matches_cpu(cuda_device):
@@ -1168,6 +1315,9 @@ def test_flash_attention_bwd_wrapper_checks_inputs_on_card(cuda_device):
         fa.flash_attention_bwd_cuda(q, q, q, q, q, lse.double())
     with pytest.raises(ValueError, match="fit q"):
         fa.flash_attention_bwd_cuda(q, q, q, q, q, lse[:, :, :4])
+    with pytest.raises(ValueError, match="out is torch.bfloat16"):
+        qb = q.to(torch.bfloat16)     # the output must come in f32
+        fa.flash_attention_bwd_cuda(qb, qb, qb, qb, qb, lse)
     with pytest.raises(ValueError, match="head dim"):
         z = torch.zeros((1, 2, 8, 48), device=cuda_device)
         fa.flash_attention_bwd_cuda(z, z, z, z, z, lse)

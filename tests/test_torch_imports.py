@@ -56,7 +56,11 @@ def test_port_sources_exist():
                 "train/__init__.py", "train/optimizer.py",
                 "data/__init__.py", "data/pipeline.py", "dist/compress.py",
                 "ckpt/__init__.py", "ckpt/checkpoint.py", "ft/__init__.py",
-                "ft/failures.py", "launch/train.py"):
+                "ft/failures.py", "launch/train.py", "dist/ctx.py",
+                "dist/sharding.py", "dist/decode_attn.py",
+                "dist/embed_grad.py", "launch/dryrun.py",
+                "rooflines/__init__.py", "rooflines/roofline.py",
+                "rooflines/counter.py", "rooflines/report.py"):
         assert rel in mods, rel
     for cu in ("wc_combine.cu", "scan_probe.cu", "paged_attention.cu",
                "flash_attention.cu", "flash_attention_bwd.cu"):

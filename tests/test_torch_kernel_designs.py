@@ -10,17 +10,18 @@ JAX reference, so that it is held to the reference before it runs on a card.
   ``flash_attention_ref``.  The same emulation with one bf16 P does not, on
   the same inputs: that is why the kernel splits P.
 * ``flash_attention_bwd`` (bf16, tensor cores): a plain emulation of the
-  two passes' arithmetic -- bf16 q, k, v, dO and forward output; f32 S and
-  dP; P = exp2(S scale log2 e - lse log2 e) under the masks; dS = P (dP -
-  delta); P and dS rounded to bf16 as hi + lo, both multiplied into f32
-  accumulators, dK and dV over 64-row query tiles and the group's heads,
-  dQ over 64-key tiles; the scale at the store -- stays within the
-  backward's bf16 tolerance (``BWD_TOL``: rtol 2^-6, atol 1e-4 x max(1,
-  max |want|)) of the port's ``flash_attention_bwd_ref`` (both fed the
-  forward's bf16 output) and of the JAX reference's ``jax.vjp`` of
-  ``gqa_attention`` in f32 on the same bf16 values (the emulation fed that
-  forward's own f32 output: the bf16 one moves delta by its rounding, and
-  the port's plain backward then misses the f32 gradient by as much).
+  two passes' arithmetic -- bf16 q, k, v and dO, the forward's f32 output
+  (the one the forward kernel writes for training, emulated above); f32 S
+  and dP; P = exp2(S scale log2 e - lse log2 e) under the masks; dS = P
+  (dP - delta); P and dS rounded to bf16 as hi + lo, both multiplied into
+  f32 accumulators, dK and dV over 64-row query tiles and the group's
+  heads, dQ over 64-key tiles; the scale at the store -- has no element
+  beyond the backward's bf16 tolerance (``BWD_TOL``: rtol 2^-6, atol 1e-4
+  x max(1, max |want|)) of the port's ``flash_attention_bwd_ref`` fed the
+  same f32 output, nor of the JAX reference's ``jax.vjp`` of
+  ``gqa_attention`` in f32 on the same bf16 values.  Fed the bf16 output
+  instead, delta moves by its rounding and both backwards miss the f32
+  gradient: that is why the forward writes its f32 output for training.
   With one bf16 P, dV misses it; with one bf16 dS, dQ and dK do: that is
   why the kernel splits both.
 * ``paged_attention`` (flash decoding): ``paged_attention_split_ref``, the
@@ -91,12 +92,14 @@ def _bf16(rng, shape):
 
 
 def flash_tensor_core_emulation(q, k, v, *, causal, window, split_p,
-                                block_k=64):
+                                block_k=64, f32_out=False):
     """The bf16 tensor-core kernel's arithmetic in plain PyTorch: q (B, H,
     S, D), k/v (B, KH, S, D) in bf16; scores in f32 times D^-1/2 log2 e;
     the reference's masks (-1e30); (m, l, acc) in f32 over tiles of
     ``block_k`` keys with exp2; P rounded to bf16 once (``split_p`` False)
-    or as hi + lo; the output rounded once to bf16."""
+    or as hi + lo; the output rounded once to bf16, or with ``f32_out``
+    the f32 output before that rounding (what the kernel writes for the
+    backward)."""
     b, h, s, d = q.shape
     g = h // k.shape[1]
     k = k.repeat_interleave(g, 1).float()
@@ -127,7 +130,8 @@ def flash_tensor_core_emulation(q, k, v, *, causal, window, split_p,
         l_ = l_ * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + pv
         m = m_new
-    return (acc / l_.clamp(min=1e-30)[..., None]).to(torch.bfloat16)
+    out = acc / l_.clamp(min=1e-30)[..., None]
+    return out if f32_out else out.to(torch.bfloat16)
 
 
 def _beyond_two_ulps(got, want) -> int:
@@ -250,8 +254,12 @@ def test_flash_bwd_split_p_and_ds_within_tolerance_single_not(
     (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (_bf16(rng, x) for x in (
         (b, h, s, d), (b, kh, s, d), (b, kh, s, d), (b, h, s, d)))
     kw = dict(causal=causal, window=window)
-    out, lse = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
-    want_t = flash_attention_bwd_ref(qt, kt, vt, out, dot, lse, **kw)
+    _, lse, out32 = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
+    # the f32 output the forward kernel saves for the backward
+    out = flash_tensor_core_emulation(qt, kt, vt, split_p=True, f32_out=True,
+                                      **kw)
+    assert out.dtype == torch.float32
+    want_t = flash_attention_bwd_ref(qt, kt, vt, out32, dot, lse, **kw)
     # the JAX reference's backward in f32 on the same bf16 values, in its
     # (B, S, heads, D) layout
     j32 = [x.astype(jnp.float32).transpose(0, 2, 1, 3)
@@ -261,19 +269,24 @@ def test_flash_bwd_split_p_and_ds_within_tolerance_single_not(
         q_, k_, v_, chunk=chunk, **kw), *j32[:3])
     want_j = [torch.from_numpy(np.array(x)).transpose(1, 2)
               for x in vjp(j32[3])]
-    out_j = torch.from_numpy(np.array(j_out)).transpose(1, 2)
+    # the port's plain backward fed the f32 output is the JAX one
+    assert [_beyond_bwd_tol(x, w) for x, w in zip(want_t, want_j)] == [0] * 3
 
-    def emulate(split_p, split_ds):
-        got, got_j = (flash_bwd_tensor_core_emulation(
-            qt, kt, vt, o, dot, lse, split_p=split_p, split_ds=split_ds,
-            **kw) for o in (out, out_j))
+    def emulate(split_p, split_ds, o=out):
+        got = flash_bwd_tensor_core_emulation(
+            qt, kt, vt, o, dot, lse, split_p=split_p, split_ds=split_ds, **kw)
         for x, w in zip(got, want_t):
             assert x.dtype == torch.bfloat16 and x.shape == w.shape
-        return [(_beyond_bwd_tol(x, w), _beyond_bwd_tol(xj, wj))
-                for x, xj, w, wj in zip(got, got_j, want_t, want_j)]
+        return [(_beyond_bwd_tol(x, w), _beyond_bwd_tol(x, wj))
+                for x, w, wj in zip(got, want_t, want_j)]
 
     # (dq, dk, dv), each (beyond the port's ref, beyond the JAX vjp)
     assert emulate(True, True) == [(0, 0)] * 3
+    if (b, h, kh, s, d, causal, window) == BWD_EMU_CASES[0]:
+        # fed the bf16 output, as the card's residual was before, dq and dk
+        # miss the f32 gradient
+        bf16_out = emulate(True, True, out.to(torch.bfloat16))
+        assert bf16_out[0][1] > 0 and bf16_out[1][1] > 0
     single_p = emulate(False, True)
     assert single_p[:2] == [(0, 0)] * 2
     assert min(single_p[2]) > 0

@@ -227,6 +227,23 @@ def test_serve_main_other_families_on_cpu(arch, capsys):
     assert "served 4 requests" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch,layers", [("qwen3-0.6b", 1),
+                                         ("recurrentgemma-9b", 3)])
+def test_serve_main_layers_keep_the_stats(arch, layers, capsys):
+    """``--layers`` cuts the depth (as ``chip_smoke.py`` phase 14 serves
+    at 2 layers, the hybrid 6): the stats depend on the request stream
+    alone, so they stay the reference scheduler's."""
+    cfg = get_config(arch, smoke=True)
+    js = JScheduler(n_slots=4, n_pages=1024, page_size=16)
+    _drive(js, _j_requests(tserve.make_requests(cfg.vocab, 4, 32, 16, 4)))
+    stats = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--requests", "4", "--max-new", "4", "--layers",
+                         str(layers)])
+    assert stats == js.stats
+    assert layers < cfg.n_layers
+    capsys.readouterr()
+
+
 def test_serve_main_refuses_the_encoder():
     """hubert-xlarge has no decode step: the serve raises as the
     reference's ``init_decode_state`` does."""

@@ -122,9 +122,10 @@ def test_bwd_ref_matches_autograd_of_dense_ref(causal, window, s):
                    for x in _inputs(3, s=s))
     out, want = _dense_grads(q, k, v, do, causal, window)
     t = [torch.from_numpy(x) for x in (q, k, v)]
-    out2, lse = flash_attention_ref(*t, causal=causal, window=window,
-                                    return_lse=True)
+    out2, lse, out32 = flash_attention_ref(*t, causal=causal, window=window,
+                                           return_lse=True)
     assert torch.equal(out, out2) and lse.shape == (B, H, s)
+    assert out32 is not None and torch.equal(out32, out)
     got = flash_attention_bwd_ref(*t, out, torch.from_numpy(do), lse,
                                   causal=causal, window=window, chunk=16)
     for g, w, name in zip(got, want, "qkv"):
@@ -139,8 +140,8 @@ def test_dense_lse_matches_reference_forward_lse():
                                    jnp.asarray(v), True, 16, CHUNK, CHUNK)
     t = lambda x: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
-    _, lse = flash_attention_ref(t(q), t(k), t(v), causal=True, window=16,
-                                 return_lse=True)
+    _, lse, _ = flash_attention_ref(t(q), t(k), t(v), causal=True,
+                                    window=16, return_lse=True)
     _close(lse.transpose(1, 2), jlse, "lse")
 
 
