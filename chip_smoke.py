@@ -31,11 +31,15 @@ Phases (any mismatch raises, and the script exits non-zero):
    then the other families' shapes (``FLASH_NEW``, ``PAGED_NEW``: flash
    D 80, 96, 256 and deepseek-moe's ungrouped D 128; paged D 96, 256 and
    the ungrouped D 128, at every length 1-40); kernel, plain, library and
-   bound times.  ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
-   (``BWD_TOL``), both fed the kernel forward's output and ``lse`` (itself
-   held to the plain version's): the training shape (B 2, S 4096, H 16, KH
-   8, D 128, causal) in bf16 and f32, no mask, a 1024-token window and a
-   ragged S, and a small shape at each other head dim; kernel, plain, SDPA
+   bound times; and the design each flash forward ran, by the launcher's
+   report (``counter_tc``) and the profiler's kernel names
+   (``FWD_ENTRIES``: ``flash_fwd_bf16`` in bf16 at D 32/64/80/96/128,
+   ``flash_fwd_cc`` otherwise).  ``flash_attention_bwd`` against
+   ``flash_attention_bwd_ref`` (``BWD_TOL``), both fed the kernel
+   forward's output and ``lse`` (itself held to the plain version's): the
+   training shape (B 2, S 4096, H 16, KH 8, D 128, causal) in bf16 and
+   f32, no mask, a 1024-token window and a ragged S, and a small shape at
+   each other head dim; kernel, plain, SDPA
    backward and bound times, and the design each case ran, checked from
    the profiler's kernel names (``BWD_ENTRIES``: the tensor-core entries
    in bf16 at D 32/64/128, the CUDA-core ones otherwise).
@@ -105,7 +109,9 @@ Phases (any mismatch raises, and the script exits non-zero):
     one model at a time (``PHASE14``): ``deepseek-moe-16b`` (prefill B 1 x
     2048), ``mamba2-1.3b`` (B 2 x 4096), ``recurrentgemma-9b`` (B 1 x
     4096), ``hubert-xlarge`` (B 2 x 1024 frames of stub features) and
-    ``phi-3-vision-4.2b`` (576 stub patches + 64 tokens); decode against
+    ``phi-3-vision-4.2b`` (576 stub patches + 64 tokens), each prefill's
+    flash launches on the design phase 1 holds for its head dim (the
+    launcher's report); decode against
     prefill (``DECODE_HELD_AT_DEPTH``: held to the tolerance at full depth
     for moe and vlm, printed for ssm and hybrid, and held for every family
     at 2 layers, the hybrid 6); the decode step's time and idle share;
@@ -773,16 +779,21 @@ def phase1_attention(dev, card: str) -> dict:
             k = _randn((b, kh, s, d), dtype, dev, 5)
             v = _randn((b, kh, s, d), dtype, dev, 6)
             kw = dict(causal=causal, window=window)
+            design = fwd_design(fa, dtype, d)
             err = compare("flash_attention",
-                          fa.flash_attention_cuda(q, k, v, **kw),
+                          fwd_checked(fa, design, q, k, v, kw),
                           fa.flash_attention_ref(q, k, v, **kw), dtype,
                           f"{label} {dtype}")
             es = q.element_size()
             nbytes = 2 * (b * h * s * d + b * kh * s * d) * es
             flops = 4 * b * h * d * flash_pairs(s, causal, window)
             fl = floor_ms(nbytes, flops)
-            ms, call = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw), 5,
-                             floor=fl)
+            ms, call, top = timed(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw), 5,
+                events=True, floor=fl)
+            entries = (check_entries("flash_attention", top,
+                                     FWD_ENTRIES[design], design,
+                                     f"{label} {dtype}") if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_ref(q, k, v, **kw), 3, floor=fl)
             lib = lib_call = None       # SDPA has no sliding window
@@ -795,12 +806,14 @@ def phase1_attention(dev, card: str) -> dict:
                        bound_ms=max(bytes_ms, ops_ms),
                        bound_by="bytes" if bytes_ms >= ops_ms
                        else "operations", call_ms=call,
-                       plain_call_ms=plain_call, library_call_ms=lib_call)
+                       plain_call_ms=plain_call, library_call_ms=lib_call,
+                       design=design, ms_by_entry=entries)
             if label == ATTN_META["flash_attention"]["main"] \
                     and dtype == torch.bfloat16:
                 out["flash_attention"].update(row)
             say(f"  flash_attention {label} B{b} S{s} H{h} KH{kh} D{d} "
-                f"causal={causal} window={window}, {dtype}: max |diff| "
+                f"causal={causal} window={window}, {dtype} on the {design} "
+                f"({entries}): max |diff| "
                 f"{err:.3g}; device: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f}"
                 f" TFLOP/s), plain {plain:.4f} ms, SDPA {lib} ms; per call: "
                 f"{call:.4f} / {plain_call:.4f} / {lib_call} ms; bound "
@@ -809,21 +822,25 @@ def phase1_attention(dev, card: str) -> dict:
             del q, k, v
 
     # the other families' head dims: flash at each model's prefill shape
-    # and mask; bf16 runs the CUDA-core design at these dims
+    # and mask, and the design each ran
     for name, model, d, b, s, h, kh, causal, window in FLASH_NEW:
         for dtype in (torch.bfloat16, torch.float32):
             q = _randn((b, h, s, d), dtype, dev, 7)
             k = _randn((b, kh, s, d), dtype, dev, 8)
             v = _randn((b, kh, s, d), dtype, dev, 9)
             kw = dict(causal=causal, window=window)
-            err = compare(name, fa.flash_attention_cuda(q, k, v, **kw),
+            design = fwd_design(fa, dtype, d)
+            err = compare(name, fwd_checked(fa, design, q, k, v, kw),
                           fa.flash_attention_ref(q, k, v, **kw), dtype,
                           f"{model} {dtype}")
             nbytes = 2 * (b * h * s * d + b * kh * s * d) * q.element_size()
             flops = 4 * b * h * d * flash_pairs(s, causal, window)
             fl = floor_ms(nbytes, flops)
-            ms, call = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw), 5,
-                             floor=fl)
+            ms, call, top = timed(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw), 5,
+                events=True, floor=fl)
+            entries = (check_entries(name, top, FWD_ENTRIES[design], design,
+                                     f"{model} {dtype}") if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_ref(q, k, v, **kw), 3, floor=fl)
             lib = lib_call = None       # SDPA has no sliding window
@@ -832,11 +849,14 @@ def phase1_attention(dev, card: str) -> dict:
                     q, k, v, is_causal=causal, enable_gqa=True), 5, floor=fl)
             row = row_of(ms, call, plain, plain_call, lib, lib_call, nbytes,
                          flops, dtype)
+            row.update(design=design, ms_by_entry=entries)
             if dtype == torch.bfloat16:
                 out[name].update(row)
             say(f"  {name} ({model}) B{b} S{s} H{h} KH{kh} causal={causal} "
-                f"window={window}, {dtype}: max |diff| {err:.3g}; device: "
-                f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                f"window={window}, {dtype} on the {design} ({entries}): max "
+                f"|diff| {err:.3g}; device: kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s; "
+                f"{'-' if lib is None else f'{ms / lib:.2f}x'} SDPA), plain "
                 f"{plain:.4f} ms, SDPA {lib} ms; per call: {call:.4f} / "
                 f"{plain_call:.4f} / {lib_call} ms; bound "
                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
@@ -902,32 +922,51 @@ BWD_CASES = (("train", 2, 4096, 16, 8, 128, True, 0),
              ("d256", 1, 1024, 4, 1, 256, True, 256))
 
 
-# the entry functions of each backward design, as the profiler names them
+# the entry functions of each design, as the profiler names them
+FWD_ENTRIES = {"tensor cores": ("flash_fwd_bf16",),
+               "CUDA cores": ("flash_fwd_cc",)}
 BWD_ENTRIES = {"tensor cores": ("flash_bwd_delta", "flash_bwd_dkdv_bf16",
                                 "flash_bwd_dq_bf16"),
                "CUDA cores": ("flash_bwd_delta", "flash_bwd_dkdv<",
                               "flash_bwd_dq<")}
 
 
+def fwd_design(fa, dtype, d: int) -> str:
+    """The forward design the launcher runs for a dtype and head dim."""
+    return ("tensor cores" if str(dtype) == "torch.bfloat16"
+            and d in fa.FWD_TENSOR_CORE_DIMS else "CUDA cores")
+
+
 def bwd_design(dtype_name: str, d: int) -> str:
     """The backward design the launcher runs for a dtype and head dim."""
-    from repro_torch.kernels.flash_attention.ops import TENSOR_CORE_DIMS
+    from repro_torch.kernels.flash_attention.ops import BWD_TENSOR_CORE_DIMS
     return ("tensor cores" if dtype_name == "bfloat16"
-            and d in TENSOR_CORE_DIMS else "CUDA cores")
+            and d in BWD_TENSOR_CORE_DIMS else "CUDA cores")
 
 
-def check_bwd_entries(top, design: str, what: str) -> dict:
+def fwd_checked(fa, design: str, q, k, v, kw: dict):
+    """One ``flash_attention_cuda`` call, which must report ``design``
+    (``counter_tc`` counts the launches it ran on the tensor cores)."""
+    t0 = fa.counter_tc.count
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    ran = "tensor cores" if fa.counter_tc.count > t0 else "CUDA cores"
+    check(ran == design, f"flash_attention D {q.shape[-1]} {q.dtype}: the "
+                         f"launcher ran the {ran}, expected the {design}")
+    return got
+
+
+def check_entries(kernel: str, top, want: tuple, design: str,
+                  what: str) -> dict:
     """Check that the profiled GPU events ``top`` (``profile_device``'s)
-    are the three entries of ``design`` and nothing else; returns
+    are the entries ``want`` of ``design`` and nothing else; returns
     ``{entry: ms a call}``."""
-    want = BWD_ENTRIES[design]
     found = {w: sum(ms for name, ms, _ in top if w in name) for w in want}
     others = [name for name, _, _ in top
               if not any(w in name for w in want)]
     check(all(n in " ".join(name for name, _, _ in top) for n in want)
           and not others,
-          f"flash_attention_bwd {what}: expected the {design} entries "
-          f"{want}, the profiler saw {top}")
+          f"{kernel} {what}: expected the {design} entries {want}, the "
+          f"profiler saw {top}")
     return found
 
 
@@ -999,8 +1038,9 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                 lambda: fa.flash_attention_bwd_cuda(*args, **kw), 3,
                 events=True, floor=fl)
             design = bwd_design(dname, d)
-            entries = (check_bwd_entries(top, design, f"{label} {dname}")
-                       if top else None)
+            entries = (check_entries("flash_attention_bwd", top,
+                                     BWD_ENTRIES[design], design,
+                                     f"{label} {dname}") if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_bwd_ref(*args, **kw), 2, floor=fl)
             lib = lib_call = None        # SDPA has no sliding window
@@ -3386,7 +3426,7 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
     b, n = spec["batch"], spec["seq"]
     toks, feats = _family_inputs(cfg, b, n,
                                  torch.Generator(device=dev).manual_seed(1))
-    f0 = dict(fa.counter.by_size)
+    f0, tc0 = dict(fa.counter.by_size), dict(fa.counter_tc.by_size)
     m0 = wcc.counter.by_tag.get("moe_dispatch", 0)
     walls = []
     for _ in range(2):
@@ -3406,6 +3446,12 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
     check(launched == 2 * n_attn, f"{arch}: 2 prefills launched "
                                   f"flash_attention D {cfg.hd} {launched} "
                                   f"times, expected {2 * n_attn}")
+    # the models run in bf16: their forward's design is phase 1's
+    design = fwd_design(fa, "torch.bfloat16", cfg.hd)
+    launched_tc = fa.counter_tc.by_size.get(cfg.hd, 0) - tc0.get(cfg.hd, 0)
+    check(launched_tc == (launched if design == "tensor cores" else 0),
+          f"{arch}: {launched_tc} of {launched} flash_attention launches at "
+          f"D {cfg.hd} ran on the tensor cores, expected the {design}")
     moe_launches = wcc.counter.by_tag.get("moe_dispatch", 0) - m0
     check((moe_launches == 2 * cfg.n_layers) == (cfg.family == "moe"),
           f"{arch}: 2 prefills launched wc_combine {moe_launches} times "
@@ -3417,7 +3463,8 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
     say(f"  prefill B {b} x {positions} positions: {walls[-1] * 1e3:.1f} ms "
         f"(first call {walls[0] * 1e3:.1f} ms), "
         f"{b * positions / walls[-1]:.0f} tokens/s, flash_attention D "
-        f"{cfg.hd} launches {launched // 2} a prefill, wc_combine (MoE "
+        f"{cfg.hd} launches {launched // 2} a prefill "
+        f"({launched_tc // 2} on the tensor cores), wc_combine (MoE "
         f"dispatch) {moe_launches // 2}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; profiled: "
         f"device busy {busy} ms, idle share "
@@ -4044,7 +4091,7 @@ def main() -> int:
     say(f"  (t = {time.perf_counter() - t_start:.1f} s)")
     att = phase1_attention(dev, card)
 
-    for c in (*counters.values(), fa.counter_bwd_tc):
+    for c in (*counters.values(), fa.counter_tc, fa.counter_bwd_tc):
         c.reset()              # the main paths' runs start here
     per_phase = {1: {n: 0 for n in counters}}
     steps = (
@@ -4188,6 +4235,9 @@ def main() -> int:
             row["launches_tensor_cores"] = fa.counter_bwd_tc.count
             row["note"] = "delta from the forward's f32 output"
         elif kernel == "flash_attention":
+            row["launches_tensor_cores"] = (
+                fa.counter_tc.count if kernel == name
+                else fa.counter_tc.by_size.get(meta["d"], 0))
             row["note"] = ("with return_lse (training) also writes the "
                            "f32 output and each row's log-sum-exp")
         elif kernel == "paged_attention":

@@ -4,8 +4,9 @@
 // contiguous, 16-byte aligned D axis; and the Hopper machinery of the bf16
 // tensor-core kernels (sm_90a): mbarriers, TMA tile loads through 4-D
 // tensor maps over (D, S, heads, B) views, wgmma shared-memory descriptors
-// for 64-column (128-byte swizzle) or 32-column (64-byte swizzle) boxes,
-// the m64nNk16 bf16 products, and register shares by setmaxnreg.
+// for 64-column (128-byte swizzle) or 32-column (64-byte swizzle) boxes
+// (and the 32- or 16-column tail boxes of the forward at D 96 and 80), the
+// m64nNk16 bf16 products, and register shares by setmaxnreg.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
@@ -49,9 +50,14 @@ constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 // Hopper: tiles in shared memory, TMA, wgmma
 // ---------------------------------------------------------------------------
 
-// the head dims the bf16 tensor-core kernels take (forward and backward)
+// the head dims at which bf16 runs the tensor-core kernels: the forward
+// loads a row of D 80 or 96 as whole boxes and a narrower tail box
+// (flash_attention.cu, Cols<D>); the backward takes whole boxes only
 template <int D>
-constexpr bool kTensorCores = D == 32 || D == 64 || D == 128;
+constexpr bool kTensorCoresFwd =
+    D == 32 || D == 64 || D == 80 || D == 96 || D == 128;
+template <int D>
+constexpr bool kTensorCoresBwd = D == 32 || D == 64 || D == 128;
 
 // the key tiles [lo, hi) of `tile` keys that hold an unmasked key for some
 // query row of [r_lo, r_hi) (r_lo < r_hi <= S)
@@ -64,16 +70,22 @@ __device__ __forceinline__ void key_tiles(int r_lo, int r_hi, int S,
   lo = window > 0 ? max(0, r_lo - window + 1) / TILE : 0;
 }
 
-// The box geometry of a bf16 tile with D columns: boxes of AC columns
-// (SW bytes a row, swizzled by SW), NB boxes a row; LAYOUT is the wgmma
-// descriptor's code for that swizzle.  A tile of R rows holds its boxes one
-// after another, R * SW bytes each, and starts on a 1024-byte boundary.
+// the wgmma descriptor's code of a swizzle of `sw` bytes (128, 64 or 32)
+constexpr int swizzle_layout(int sw) {
+  return sw == 128 ? 1 : sw == 64 ? 2 : 3;
+}
+
+// The box geometry of a bf16 tile with D columns (D 32, 64 or 128): boxes
+// of AC columns (SW bytes a row, swizzled by SW), NB boxes a row; LAYOUT is
+// the wgmma descriptor's code for that swizzle.  A tile of R rows holds its
+// boxes one after another, R * SW bytes each, and starts on a 1024-byte
+// boundary.
 template <int D>
 struct Swz {
   static constexpr int SW = D == 32 ? 64 : 128;
   static constexpr int AC = SW / 2;
   static constexpr int NB = D / AC;
-  static constexpr int LAYOUT = SW == 128 ? 1 : 2;
+  static constexpr int LAYOUT = swizzle_layout(SW);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -218,6 +230,20 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[0..8) += A (64 x 16, registers) * B (16 x 16, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[0..16) += A (64 x 16, registers) * B (16 x 32, shared, N-major)
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
                                              uint64_t db) {
@@ -282,6 +308,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t* a,
                                          uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(d, a, db);
   if constexpr (D == 32) wgmma_rs_n32(d, a, db);
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
   if constexpr (D == 128) wgmma_rs_n128(d, a, db);
@@ -329,13 +356,12 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a 4-D map over the bf16 (D, S, heads, B) view at `ptr`, read in boxes of
-// (AC columns, `rows` rows) with the tile's swizzle; rows past S read as
-// zeros
-template <int D>
-bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
-            Strides st, int rows) {
-  using W = Swz<D>;
+// a 4-D map over the bf16 (cols, S, heads, B) view at `ptr`, read in boxes
+// of (`box_cols` columns, `rows` rows) swizzled by `sw` bytes (128, 64 or
+// 32; box_cols * 2 <= sw); rows past S read as zeros
+inline bool encode_box(CUtensorMap* map, const void* ptr, int cols, int S,
+                       int heads, int B, Strides st, int rows, int box_cols,
+                       int sw) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   // the stride of an axis of length 1 is never stepped (PyTorch may give
@@ -343,21 +369,31 @@ bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
   auto stride = [](long long s, int n) {
     return static_cast<cuuint64_t>(n == 1 && s == 0 ? 16 : 2 * s);
   };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {stride(st.s, S), stride(st.h, heads),
                                  stride(st.b, B)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(W::AC),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            W::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_64B,
+            sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a map over the bf16 (D, S, heads, B) view at `ptr` in the boxes of a
+// tile with D columns (Swz<D>)
+template <int D>
+bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
+            Strides st, int rows) {
+  using W = Swz<D>;
+  return encode_box(map, ptr, D, S, heads, B, st, rows, W::AC, W::SW);
 }
 
 }  // namespace attn

@@ -19,10 +19,11 @@
 // (B 2, S 4096, H 16, KH 8, D 128, causal) that is about 137 GFLOP,
 // 0.14 ms in bf16: operations bound.
 //
-// bf16 design (tensor cores).  One block of 288 threads per (128-query
-// tile, head, batch): two consumer warpgroups of 64 query rows each and one
-// producer warp.  Blocks are numbered so that the q tiles with the most
-// keys (the last ones under the causal mask) start first.
+// bf16 design (tensor cores), at D 32, 64, 80, 96 and 128.  One block of
+// 288 threads per (128-query tile, head, batch): two consumer warpgroups of
+// 64 query rows each and one producer warp.  Blocks are numbered so that
+// the q tiles with the most keys (the last ones under the causal mask)
+// start first.
 //  * Loads: the producer's first lane loads the Q tile once and the K/V
 //    tiles (64 keys) into a ring of kStages stages with TMA
 //    (cp.async.bulk.tensor, 4-D maps over (D, S, heads, B) encoded on the
@@ -31,6 +32,13 @@
 //    arrives on.  Rows past S come in as zeros (TMA's out-of-bounds fill).
 //    Tiles use the 128-byte swizzle (64 columns a box; a D-128 row is two
 //    boxes), 64-byte for D 32, matching the wgmma descriptors below.
+//  * D 80 and 96 are not whole 64-column boxes: a row is one 64-column box
+//    (128-byte swizzle) and a tail box of its last 16 or 32 columns, whose
+//    32- or 64-byte row is its own swizzle, loaded through a second tensor
+//    map and read through descriptors of that swizzle (Cols<D>).  Every
+//    product then runs at the true width: S = Q K^T in D / 16 k-steps, O +=
+//    P V as an n64 product and an n16 or n32 one (tiles padded to 128
+//    columns would spend 1.6x and 1.33x the useful O += P V work).
 //  * S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory,
 //    f32 accumulators in registers; the scale (times log2 e) is applied to
 //    the f32 scores.
@@ -41,18 +49,19 @@
 //    adds exp(0) terms that the first valid score wipes; keys past S score
 //    -INFINITY and never count.
 //  * Online softmax in registers; a row's 4 threads reduce by shuffles.
-//  * O += P V: wgmma m64nDk16 with P from registers (the accumulator layout
-//    of S is the A-fragment layout) and V (N-major) from shared memory.  P
-//    is split into bf16 hi = bf16(p) and lo = bf16(p - hi) and both are
-//    multiplied into the same f32 accumulator: a single bf16 P puts about
-//    5 % of the outputs more than two bf16 ulps from the f32 reference, the
-//    split none (tests/test_torch_kernel_designs.py).  The lo product costs
-//    half again the useful operations, still at the tensor-core rate.
+//  * O += P V: wgmma m64nDk16 (at D 80 and 96 the main part's and the tail's
+//    products) with P from registers (the accumulator layout of S is the
+//    A-fragment layout) and V (N-major) from shared memory.  P is split
+//    into bf16 hi = bf16(p) and lo = bf16(p - hi) and both are multiplied
+//    into the same f32 accumulator: a single bf16 P puts about 5 % of the
+//    outputs more than two bf16 ulps from the f32 reference, the split none
+//    (tests/test_torch_kernel_designs.py).  The lo product costs half again
+//    the useful operations, still at the tensor-core rate.
 //
 // CUDA-core design: f32 at every D (TF32 would miss the 2e-5 tolerance),
-// and bf16 at the head dims the tensor-core tiles do not take (80, 96,
-// 256: not a multiple of the 64-column box, or, at 256, a Q tile and K/V
-// ring beyond shared memory).  One block of 128 threads per (64-query tile,
+// and bf16 at D 256 (a Q tile and K/V ring beyond shared memory, and a
+// 64 x 256 f32 output fragment of 128 registers a thread).  The launcher
+// reports which design it ran.  One block of 128 threads per (64-query tile,
 // head, batch); Q and each 64-key K/V tile are converted to f32 as they are
 // staged in shared memory; a thread owns 8 query rows x 4 key columns of
 // the score tile and 8 rows x D/16 columns of the output; every product an
@@ -86,6 +95,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 
 using attn::encode;
+using attn::encode_box;
 using attn::from_f32;
 using attn::kErrTensorMap;
 using attn::load_chunk;
@@ -93,7 +103,7 @@ using attn::load_chunk;
 using attn::Strides;
 
 // ---------------------------------------------------------------------------
-// CUDA cores: f32, and bf16 at D 80, 96 and 256
+// CUDA cores: f32, and bf16 at D 256
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // query rows per block
@@ -285,27 +295,82 @@ constexpr int kStages = 3;                   // K/V ring
 constexpr int kConsumers = 256;              // two warpgroups
 constexpr int kThreads = kConsumers + 32;    // and one producer warp
 
+// The columns of a bf16 tile at head dim D as TMA loads them and wgmma
+// reads them: a main part of MAIN columns in whole boxes (Swz<MAIN>: 64
+// columns and the 128-byte swizzle, or one 32-column box and the 64-byte
+// swizzle at D 32) and, at D 80 and 96, a tail box of the last TAIL = 16
+// or 32 columns, whose row of TSW = 32 or 64 bytes is its own swizzle.  A
+// tile of R rows holds the main part (R * MAIN * 2 bytes), then the tail
+// box (R * TSW bytes).
 template <int D>
-struct Geom : Swz<D> {  // SW, AC, NB, LAYOUT: the box geometry
+struct Cols {
+  static constexpr int MAIN = D == 32 ? 32 : D / 64 * 64;
+  static constexpr int TAIL = D - MAIN;
+  static constexpr int TSW = 2 * TAIL;
+  static constexpr int TLAYOUT = swizzle_layout(TSW);
+  static_assert(TAIL == 0 || TAIL == 16 || TAIL == 32,
+                "a tail box of 16 or 32 columns");
+};
+
+template <int D>
+struct Geom {
   static constexpr int Q_BYTES = kBQ * D * 2;
   static constexpr int KV_BYTES = kBK * D * 2;    // one of K, V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BAR_BYTES = 8 * (1 + 2 * kStages);
-  // the tiles start on a 1024-byte boundary (the swizzle pattern's period)
+  // the tiles start on a 1024-byte boundary (the swizzle pattern's period;
+  // every tile's and tail box's size is a multiple of it)
   static constexpr int SMEM = 1024 + Q_BYTES + kStages * STAGE_BYTES +
                               BAR_BYTES;
 };
+
+// Rows [row, row + rows) of (head, batch) into the tile at `dst`: the main
+// part's boxes from `map`, the tail box from `tail` (a map over the view
+// from column MAIN on), completing on `bar`
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          const CUtensorMap* tail,
+                                          uint32_t bar, int rows, int row,
+                                          int head, int batch) {
+  using C = Cols<D>;
+  tma_tile<C::MAIN>(dst, map, bar, rows, row, head, batch);
+  if constexpr (C::TAIL > 0)
+    tma_load(dst + rows * C::MAIN * 2, tail, bar, 0, row, head, batch);
+}
+
+// Columns 16 kk .. 16 kk + 15 of the 64 rows at `rows0` of a tail box, as
+// a K-major operand
+template <int D>
+__device__ __forceinline__ uint64_t desc_tail_kmajor(uint32_t rows0, int kk) {
+  using C = Cols<D>;
+  return desc(rows0, 16, 8 * C::TSW, C::TLAYOUT) + kk * 2;
+}
+
+// Rows 16 kk .. 16 kk + 15 of a tail box of `rows` rows, as an N-major B
+// operand (its TAIL columns N)
+template <int D>
+__device__ __forceinline__ uint64_t desc_tail_nmajor(uint32_t box, int rows,
+                                                     int kk) {
+  using C = Cols<D>;
+  return desc(box, rows * C::TSW, 8 * C::TSW, C::TLAYOUT) + kk * C::TSW;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tq_tail,
+               const __grid_constant__ CUtensorMap tk_tail,
+               const __grid_constant__ CUtensorMap tv_tail,
                __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
                float* __restrict__ lse, int H, int KH, int B, int S,
                Strides os, int causal, int window,
                float scale_log2) {
   using G = Geom<D>;
+  using C = Cols<D>;
+  using W = Swz<C::MAIN>;
+  constexpr int MAIN = C::MAIN, TAIL = C::TAIL;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sKV = sQ + G::Q_BYTES;  // stage s: K, then V
@@ -336,14 +401,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   if (tid >= kConsumers) {  // producer warp: one lane issues every load
     if (tid == kConsumers) {
       mbar_expect_tx(bar_q, G::Q_BYTES);
-      tma_tile<D>(sQ, &tq, bar_q, kBQ, q0, h, b);
+      load_tile<D>(sQ, &tq, &tq_tail, bar_q, kBQ, q0, h, b);
       for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
         const int s = i % kStages;
         mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), G::STAGE_BYTES);
         const uint32_t sk = sKV + s * G::STAGE_BYTES, sv = sk + G::KV_BYTES;
-        tma_tile<D>(sk, &tk, full(s), kBK, kt * kBK, hk, b);
-        tma_tile<D>(sv, &tv, full(s), kBK, kt * kBK, hk, b);
+        load_tile<D>(sk, &tk, &tk_tail, full(s), kBK, kt * kBK, hk, b);
+        load_tile<D>(sv, &tv, &tv_tail, full(s), kBK, kt * kBK, hk, b);
       }
     }
     return;
@@ -358,11 +423,15 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   int wlo = 0, whi = 0;  // this warpgroup's key tiles (none past S)
   if (wr_lo < S) key_tiles<kBK>(wr_lo, wr_hi, S, causal, window, wlo, whi);
 
-  float acc[D / 2];
+  // the output's main columns, and its tail's (acc_t, unused at TAIL 0)
+  float acc[MAIN / 2], acc_t[TAIL > 0 ? TAIL / 2 : 1];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < MAIN / 2; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < TAIL / 2; ++j) acc_t[j] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const uint32_t qa = sQ + wg * 64 * G::SW;  // this warpgroup's rows
+  const uint32_t qa = sQ + wg * 64 * W::SW;  // this warpgroup's rows
+  const uint32_t qa_t = sQ + kBQ * MAIN * 2 + wg * 64 * C::TSW;
   mbar_wait(bar_q, 0);
 
   for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
@@ -375,9 +444,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < 32; ++j) sc[j] = 0.f;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(sc, desc_kmajor<D>(qa, kBQ, kk),
-                     desc_kmajor<D>(sk, kBK, kk));
+      for (int kk = 0; kk < MAIN / 16; ++kk)
+        wgmma_ss_n64(sc, desc_kmajor<MAIN>(qa, kBQ, kk),
+                     desc_kmajor<MAIN>(sk, kBK, kk));
+#pragma unroll
+      for (int kk = 0; kk < TAIL / 16; ++kk)
+        wgmma_ss_n64(sc, desc_tail_kmajor<D>(qa_t, kk),
+                     desc_tail_kmajor<D>(sk + kBK * MAIN * 2, kk));
       wg_commit();
       wg_wait();
       reg_fence(sc);
@@ -424,19 +497,28 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < MAIN / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+#pragma unroll
+      for (int j = 0; j < TAIL / 2; ++j) acc_t[j] *= alpha[(j >> 1) & 1];
 
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         // keys 16 kk .. 16 kk + 15
-        const uint64_t dv = desc_nmajor<D>(sv, kBK, kk);
-        wgmma_rs<D>(acc, phi + 4 * kk, dv);
-        wgmma_rs<D>(acc, plo + 4 * kk, dv);
+        const uint64_t dv = desc_nmajor<MAIN>(sv, kBK, kk);
+        wgmma_rs<MAIN>(acc, phi + 4 * kk, dv);
+        wgmma_rs<MAIN>(acc, plo + 4 * kk, dv);
+        if constexpr (TAIL > 0) {
+          const uint64_t dvt =
+              desc_tail_nmajor<D>(sv + kBK * MAIN * 2, kBK, kk);
+          wgmma_rs<TAIL>(acc_t, phi + 4 * kk, dvt);
+          wgmma_rs<TAIL>(acc_t, plo + 4 * kk, dvt);
+        }
       }
       wg_commit();
       wg_wait();
       reg_fence(acc);
+      if constexpr (TAIL > 0) reg_fence(acc_t);
     }
     mbar_arrive(empty(s));
   }
@@ -458,16 +540,26 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
   float* o32b = o32 == nullptr ? nullptr : o32 + b * os.b + h * os.h;
+  // columns (col, col + 1) of row `row`
+  auto store = [&](float x0, float x1, int row, int col) {
+    const float2 x = make_float2(x0, x1);
+    const long long at = row * os.s + col;
+    *reinterpret_cast<__nv_bfloat162*>(ob + at) =
+        __floats2bfloat162_rn(x.x, x.y);
+    if (o32b != nullptr) *reinterpret_cast<float2*>(o32b + at) = x;
+  };
 #pragma unroll
-  for (int j = 0; j < D / 2; j += 2) {
+  for (int j = 0; j < MAIN / 2; j += 2) {
     const int r = (j >> 1) & 1, row = r0 + 8 * r;
-    if (row < S) {
-      const float2 x = make_float2(acc[j] / l[r], acc[j + 1] / l[r]);
-      const long long at = row * os.s + 8 * (j / 4) + c0;
-      *reinterpret_cast<__nv_bfloat162*>(ob + at) =
-          __floats2bfloat162_rn(x.x, x.y);
-      if (o32b != nullptr) *reinterpret_cast<float2*>(o32b + at) = x;
-    }
+    if (row < S)
+      store(acc[j] / l[r], acc[j + 1] / l[r], row, 8 * (j / 4) + c0);
+  }
+#pragma unroll
+  for (int j = 0; j < TAIL / 2; j += 2) {
+    const int r = (j >> 1) & 1, row = r0 + 8 * r;
+    if (row < S)
+      store(acc_t[j] / l[r], acc_t[j + 1] / l[r], row,
+            MAIN + 8 * (j / 4) + c0);
   }
 }
 
@@ -477,7 +569,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 // host
 // ---------------------------------------------------------------------------
 
-using attn::kTensorCores;
+using attn::kTensorCoresFwd;
 
 template <typename T, int D>
 int launch_cc(const void* q, const void* k, const void* v, void* o,
@@ -502,11 +594,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* o32, float* lse, int B, int H, int KH, int S, Strides qs,
                 Strides ks, Strides vs, Strides os, int causal, int window,
                 float scale, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  if (!encode<D>(&tq, q, S, H, B, qs, tc::kBQ) ||
-      !encode<D>(&tk, k, S, KH, B, ks, tc::kBK) ||
-      !encode<D>(&tv, v, S, KH, B, vs, tc::kBK))
+  using C = tc::Cols<D>;
+  CUtensorMap tq, tk, tv, tq_tail{}, tk_tail{}, tv_tail{};
+  if (!encode<C::MAIN>(&tq, q, S, H, B, qs, tc::kBQ) ||
+      !encode<C::MAIN>(&tk, k, S, KH, B, ks, tc::kBK) ||
+      !encode<C::MAIN>(&tv, v, S, KH, B, vs, tc::kBK))
     return kErrTensorMap;
+  if constexpr (C::TAIL > 0) {
+    // the views from column MAIN on, in one box of the tail's width
+    auto tail = [](const void* p) {
+      return static_cast<const __nv_bfloat16*>(p) + C::MAIN;
+    };
+    if (!encode_box(&tq_tail, tail(q), C::TAIL, S, H, B, qs, tc::kBQ,
+                    C::TAIL, C::TSW) ||
+        !encode_box(&tk_tail, tail(k), C::TAIL, S, KH, B, ks, tc::kBK,
+                    C::TAIL, C::TSW) ||
+        !encode_box(&tv_tail, tail(v), C::TAIL, S, KH, B, vs, tc::kBK,
+                    C::TAIL, C::TSW))
+      return kErrTensorMap;
+  }
   const long long blocks =
       static_cast<long long>((S + tc::kBQ - 1) / tc::kBQ) * H * B;
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
@@ -517,27 +623,32 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   tc::flash_fwd_bf16<D><<<static_cast<unsigned>(blocks), tc::kThreads, bytes,
                           stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), o32, lse, H, KH, B, S, os,
-      causal, window, scale * 1.4426950408889634f);
+      tq, tk, tv, tq_tail, tk_tail, tv_tail, static_cast<__nv_bfloat16*>(o),
+      o32, lse, H, KH, B, S, os, causal, window,
+      scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
+// *design: 1 for the tensor-core kernel, 0 for the CUDA-core one
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            float* o32, float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
            Strides vs, Strides os, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int* design, cudaStream_t stream) {
+  *design = 0;
   if (dtype == 0)  // the output is f32 itself
     return launch_cc<float, D>(q, k, v, o, nullptr, lse, B, H, KH, S, qs, ks,
                                vs, os, causal, window, scale, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kTensorCores<D>)
+  if constexpr (kTensorCoresFwd<D>) {
+    *design = 1;
     return launch_bf16<D>(q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, os,
                           causal, window, scale, stream);
-  else
+  } else {
     return launch_cc<__nv_bfloat16, D>(q, k, v, o, o32, lse, B, H, KH, S, qs,
                                        ks, vs, os, causal, window, scale,
                                        stream);
+  }
 }
 
 }  // namespace
@@ -546,13 +657,16 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // Strides are in elements; the D axis is contiguous and every row starts on
 // a 16-byte boundary.  lse: f32 (B, H, S) contiguous, or nullptr.  o32: in
 // bf16, f32 with out's element strides, or nullptr; ignored in f32.
+// *design is set to the design launched: 1 = the tensor-core kernel (bf16
+// at D 32, 64, 80, 96, 128), 0 = the CUDA-core one.
 extern "C" int flash_attention_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KH, int S, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss, long long osh,
-    int causal, int window, float scale, float* lse, float* o32,
+    int causal, int window, float scale, float* lse, float* o32, int* design,
     cudaStream_t stream) {
+  *design = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0 || H == 0) return 0;
@@ -562,7 +676,7 @@ extern "C" int flash_attention_launch(
 #define FLASH_CASE(DD)                                                     \
   case DD:                                                                 \
     return launch<DD>(dtype, q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, \
-                      os, causal, window, scale, stream);
+                      os, causal, window, scale, design, stream);
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(80)
@@ -580,7 +694,7 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   switch (D) {
 #define FLASH_SMEM(DD)                                          \
   case DD:                                                      \
-    if constexpr (kTensorCores<DD>)                             \
+    if constexpr (kTensorCoresFwd<DD>)                          \
       if (dtype) return tc::Geom<DD>::SMEM;                     \
     return static_cast<int>(smem_floats<DD>() * sizeof(float));
     FLASH_SMEM(32)

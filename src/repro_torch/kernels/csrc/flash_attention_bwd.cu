@@ -74,8 +74,9 @@
 // product on the tensor cores, every operand tile in shared memory once,
 // and P^T / dS^T in registers (PERF.md has its measured time).
 //
-// CUDA cores: f32 at every D, and bf16 at D 80, 96 and 256 (which the
-// tensor-core boxes do not take): the same three launches with f32 FMAs.
+// CUDA cores: f32 at every D, and bf16 at D 80, 96 and 256 (not whole
+// tensor-core boxes, which only the forward splits into a main part and a
+// tail box): the same three launches with f32 FMAs.
 // (b) one block per (64-key tile, kv head, batch) stages K and V as f32
 // once, then Q and dO of each query tile and head, recomputes P^T and dS^T
 // (in shared memory) and accumulates dK and dV in registers: a thread owns
@@ -876,7 +877,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
 // host
 // ---------------------------------------------------------------------------
 
-using attn::kTensorCores;
+using attn::kTensorCoresBwd;
 
 struct Views {
   Strides q, k, v, o, dout, dq, dk, dv;
@@ -944,6 +945,8 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
               cudaStream_t stream) {
   using tc::kBlockRows;
   using tc::kRows;
+  static_assert(D % attn::Swz<D>::AC == 0,
+                "the backward takes whole boxes only");
   // the dK/dV pass streams 64-row Q and dO tiles past 128-row K and V
   // tiles; the dQ pass the other way round
   CUtensorMap q_s, do_s, k_own, v_own, q_own, do_own, k_s, v_s;
@@ -1003,7 +1006,7 @@ int launch(int dtype, const void* q, const void* k, const void* v,
     return launch_cc<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                H, KH, S, st, causal, window, scale, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kTensorCores<D>) {
+  if constexpr (kTensorCoresBwd<D>) {
     *design = 1;
     return launch_tc<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KH,
                         S, st, causal, window, scale, stream);
@@ -1063,7 +1066,7 @@ extern "C" int flash_attention_bwd_smem_bytes(int dtype, int D, int which) {
   switch (D) {
 #define BWD_SMEM(DD)                                          \
   case DD:                                                    \
-    if constexpr (kTensorCores<DD>)                           \
+    if constexpr (kTensorCoresBwd<DD>)                        \
       if (dtype) return tc::Geom<DD>::SMEM;                   \
     return which ? Cfg<DD>::SMEM_DQ : Cfg<DD>::SMEM_DKDV;
     BWD_SMEM(32)

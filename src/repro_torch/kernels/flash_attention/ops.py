@@ -8,26 +8,30 @@ Replaces the Pallas TPU kernel
 H100 SXM: 4 * B * H * D * (unmasked query-key pairs) operations over 989
 TFLOP/s in bf16 (67 TFLOP/s in f32), or the bytes of q, k, v and out over
 3.35 TB/s, whichever is larger; at the prefill shape (B 2, S 4096, H 16,
-KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design in bf16 at D 32,
-64 and 128: one block per (128-query tile, head, batch), longest tiles
-first; a producer warp streams the Q tile and a ring of 64-key K/V tiles
-into shared memory with TMA (tensor maps encoded in the C launcher,
-128-byte swizzle); two consumer warpgroups run S = Q K^T and O += P V as
-``wgmma`` on the tensor cores, the online softmax in registers, with P
-split into bf16 hi + lo so that the output stays within two bf16 ulps of
-the f32 reference.  In f32 at every D, and in bf16 at D 80, 96 and 256
-(which the 64-column tensor-core boxes do not take): one block per
-(64-query tile, head, batch), inputs converted to f32 as they are staged,
-products as f32 FMAs on the CUDA cores, one rounding at the store.  Both
-skip key tiles their masks cover wholly; any S (rows past S read as zeros
-and are masked), any strides with a contiguous, 16-byte aligned D axis, D
-in ``HEAD_DIMS``.
+KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design in bf16 at D
+``FWD_TENSOR_CORE_DIMS`` (32, 64, 80, 96, 128): one block per (128-query
+tile, head, batch), longest tiles first; a producer warp streams the Q
+tile and a ring of 64-key K/V tiles into shared memory with TMA (tensor
+maps encoded in the C launcher, 128-byte swizzle; at D 80 and 96 a row is
+a 64-column box and a tail box of 16 or 32 columns with its own map and
+swizzle, so every product runs at the true width); two consumer
+warpgroups run S = Q K^T and O += P V as ``wgmma`` on the tensor cores,
+the online softmax in registers, with P split into bf16 hi + lo so that
+the output stays within two bf16 ulps of the f32 reference.  In f32 at
+every D, and in bf16 at D 256 (whose tiles and output fragment do not
+fit): one block per (64-query tile, head, batch), inputs converted to f32
+as they are staged, products as f32 FMAs on the CUDA cores, one rounding
+at the store.  Both skip key tiles their masks cover wholly; any S (rows
+past S read as zeros and are masked), any strides with a contiguous,
+16-byte aligned D axis, D in ``HEAD_DIMS``.
 
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.gqa_attention`` sends CPU tensors
 to its plain chunked version instead.  ``counter`` counts one per launch,
-tallied by head dim.  With ``return_lse`` (training) the forward also
-writes the backward's residuals: each row's log-sum-exp of its scaled
+tallied by head dim, and ``counter_tc`` the launches the C launcher reports
+it ran on the tensor-core kernel; a failed build or launch raises, with no
+other design to fall back to.  With ``return_lse`` (training) the forward
+also writes the backward's residuals: each row's log-sum-exp of its scaled
 scores (f32, natural log) and, in bf16, the output in f32 before its
 rounding (in f32 it is the output itself), from which the backward takes
 delta, as the reference takes delta from its f32 forward output.
@@ -44,13 +48,14 @@ run: ``delta = rowsum(dO * O)``; a dK/dV pass, one block per (key tile, kv
 head, batch) looping over the query tiles its masks leave and the query
 heads of its group; a dQ pass, one block per (query tile, head, batch).
 Both recompute P from ``lse``, so S and dP are computed twice (7 products
-for 5).  In bf16 at D ``TENSOR_CORE_DIMS`` (the forward's set) both passes
-have the forward's design: a TMA producer warp streams 64-row tiles past
-the block's own 128 rows, and two consumer warpgroups run every product
-as ``wgmma`` -- S^T = K Q^T and dP^T = V dO^T with both operands in shared
-memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers (and
-S = Q K^T, dP = dO V^T, dQ += dS K in the dQ pass) -- with P and dS split
-into bf16 hi + lo, as one bf16 P or dS misses the backward's tolerance.
+for 5).  In bf16 at D ``BWD_TENSOR_CORE_DIMS`` (32, 64, 128: whole
+64-column boxes, unpadded) both passes have the forward's design: a TMA
+producer warp streams 64-row tiles past the block's own 128 rows, and two
+consumer warpgroups run every product as ``wgmma`` -- S^T = K Q^T and
+dP^T = V dO^T with both operands in shared memory, dV += P^T dO and dK +=
+dS^T Q with P^T and dS^T from registers (and S = Q K^T, dP = dO V^T, dQ +=
+dS K in the dQ pass) -- with P and dS split into bf16 hi + lo, as one
+bf16 P or dS misses the backward's tolerance.
 In f32 at every D and in bf16 at D 80, 96 and 256: the same three launches
 with f32 FMAs on the CUDA cores.  The dispatch is fixed by dtype and D in
 the C launcher, which reports the design it launched; a failure raises.
@@ -70,22 +75,27 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "flash_attention_ref", "flash_attention_bwd_ref", "counter",
-           "counter_bwd", "counter_bwd_tc", "HEAD_DIMS", "TENSOR_CORE_DIMS"]
+           "counter_tc", "counter_bwd", "counter_bwd_tc", "HEAD_DIMS",
+           "FWD_TENSOR_CORE_DIMS", "BWD_TENSOR_CORE_DIMS"]
 
 counter = build.LaunchCounter("flash_attention")
+counter_tc = build.LaunchCounter("flash_attention_tc")
 counter_bwd = build.LaunchCounter("flash_attention_bwd")
 counter_bwd_tc = build.LaunchCounter("flash_attention_bwd_tc")
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
-# the head dims at which bf16 runs the tensor-core (wgmma) kernels, both
-# directions; f32, and bf16 at the others, run the CUDA-core kernels
-TENSOR_CORE_DIMS = (32, 64, 128)
+# the head dims at which bf16 runs the tensor-core (wgmma) kernels, by
+# direction (``kTensorCoresFwd`` and ``kTensorCoresBwd`` of
+# csrc/attention_common.cuh); f32, and bf16 at the others, run the
+# CUDA-core kernels
+FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128)
+BWD_TENSOR_CORE_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch": (
     ctypes.c_int,
     [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12
-    + [_I, _I, ctypes.c_float, _P, _P, _P])}
+    + [_I, _I, ctypes.c_float, _P, _P, ctypes.POINTER(ctypes.c_int), _P])}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": (
     ctypes.c_int,
     [_I, _I] + [_P] * 10 + [_I] * 5 + [_L] * 24
@@ -144,15 +154,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{out32.stride()} differ from the output's "
                              f"{out.stride()}")
     lib = build.library("flash_attention", _SIGNATURES)
+    design = ctypes.c_int(-1)
     err = lib.flash_attention_launch(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), b, h, kh, s, d, *_strides(q),
         *_strides(k), *_strides(v), *_strides(out), int(bool(causal)),
         int(window), d ** -0.5, None if lse is None else lse.data_ptr(),
         None if out32 is None or out32 is out else out32.data_ptr(),
-        build.stream_of(q))
+        ctypes.byref(design), build.stream_of(q))
     build.check(lib, err, "flash_attention")
     counter.add(d)
+    if design.value == 1:
+        counter_tc.add(d)
     return (out, lse, out32) if return_lse else out
 
 

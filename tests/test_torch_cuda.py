@@ -297,14 +297,15 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, dt, b, h,
     _assert_close(got_t, want, tol)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("s", [1, 63, 64, 127, 128, 129, 1000, 4096])
 def test_flash_attention_bf16_tensor_cores_sweep(cuda_device, s, d):
     """The bf16 (wgmma + TMA) path at every tile edge of S (64-key tiles,
     128-query tiles) and every swizzle (D 32: 64 bytes, D 64: one 128-byte
-    box, D 128: two), for g = 1, 2, 4 query heads per kv head, causal,
-    non-causal and a causal 100-key window (which ends inside a tile),
-    each also through (B, S, H, D) storage."""
+    box, D 128: two; D 80 and 96: one 128-byte box and a tail box of 32 or
+    64 bytes with its own swizzle), for g = 1, 2, 4 query heads per kv
+    head, causal, non-causal and a causal 100-key window (which ends inside
+    a tile), each also through (B, S, H, D) storage."""
     h = 4
     for kh in (4, 2, 1):
         q = _randn((1, h, s, d), torch.bfloat16, cuda_device, s + d + kh)
@@ -567,9 +568,10 @@ def test_paged_attention_launches_per_split_plan(cuda_device):
 def test_flash_attention_new_head_dims_match_plain_on_card(cuda_device, dt, b,
                                                            h, kh, s, d,
                                                            causal, window):
-    """Head dims 80, 96 and 256 (the CUDA-core design in both dtypes) at
-    the shapes and masks of the models that use them, and ragged; and
-    deepseek-moe-16b's D 128 prefill, whose kv heads are its query heads."""
+    """Head dims 80, 96 and 256 (in bf16 the tensor cores at 80 and 96,
+    the CUDA cores at 256; f32 on the CUDA cores) at the shapes and masks
+    of the models that use them, and ragged; and deepseek-moe-16b's D 128
+    prefill, whose kv heads are its query heads."""
     dtype, tol = ATT_DTYPES[dt]
     q = _randn((b, h, s, d), dtype, cuda_device, d + 1)
     k = _randn((b, kh, s, d), dtype, cuda_device, d + 2)
@@ -1153,12 +1155,12 @@ def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
                        window)
 
 
-@pytest.mark.parametrize("d", [128, 80])
+@pytest.mark.parametrize("d", [128, 80, 96, 256])
 def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
     """With ``return_lse`` the forward also returns its f32 output, which
     rounds to its bf16 output bit for bit and stays within the plain f32
-    output's rounding, in both designs (D 128 tensor cores, D 80 CUDA
-    cores); in f32 it is the output itself."""
+    output's rounding, in both designs (D 80, 96 and 128 tensor cores, D
+    256 CUDA cores); in f32 it is the output itself."""
     q = _randn((1, 4, 300, d), torch.bfloat16, cuda_device, 1)
     k, v = (_randn((1, 2, 300, d), torch.bfloat16, cuda_device, i)
             for i in (2, 3))
@@ -1166,8 +1168,9 @@ def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
     assert torch.equal(out, fa.flash_attention_cuda(q, k, v))
     assert out32.dtype == torch.float32 and out32.stride() == out.stride()
     assert torch.equal(out32.to(torch.bfloat16), out)
-    _, _, want = fa.flash_attention_ref(q, k, v, return_lse=True)
+    _, lse_ref, want = fa.flash_attention_ref(q, k, v, return_lse=True)
     torch.testing.assert_close(out32, want, rtol=2.0 ** -8, atol=1e-4)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
     q32, k32, v32 = (x.float() for x in (q, k, v))
     o, _, o32 = fa.flash_attention_cuda(q32, k32, v32, return_lse=True)
     assert o32 is o
@@ -1194,6 +1197,65 @@ def _gpu_kernel_names(fn) -> list[str]:
     return []
 
 
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("b,h,kh,s,causal,window", [
+    (1, 4, 4, 640, True, 0),        # causal (phi-3-vision's mask)
+    (2, 4, 4, 512, False, 0),       # no mask (hubert-xlarge's)
+    (1, 4, 4, 700, True, 128),      # a window; S not a multiple of 64
+    (1, 8, 2, 300, True, 0),        # GQA
+    (2, 4, 1, 37, False, 0),        # S < 64, one kv head
+    (1, 4, 2, 1000, False, 100)])   # a window without causality
+def test_flash_attention_d80_d96_tensor_cores_match_plain_on_card(
+        cuda_device, d, b, h, kh, s, causal, window):
+    """bf16 at D 80 and 96 on the tensor cores (a 64-column box and a tail
+    box of 16 or 32 columns): the launcher reports the tensor-core kernel;
+    the output within two bf16 ulps of the plain version, also through (B,
+    S, H, D) storage; with ``return_lse`` the same output, the f32 output
+    rounding to it and within the plain f32 output's rounding, and lse
+    within 1e-5."""
+    q = _randn((b, h, s, d), torch.bfloat16, cuda_device, s + d)
+    k, v = (_randn((b, kh, s, d), torch.bfloat16, cuda_device, s + d + i)
+            for i in (1, 2))
+    kw = dict(causal=causal, window=window)
+    t0 = fa.counter_tc.by_size.get(d, 0)
+    out, lse, out32 = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert fa.counter_tc.by_size[d] == t0 + 1
+    want, lse_ref, want32 = fa.flash_attention_ref(q, k, v, return_lse=True,
+                                                   **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, want, 2e-2)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, **kw))
+    assert torch.equal(out32.to(torch.bfloat16), out)
+    torch.testing.assert_close(out32, want32, rtol=2.0 ** -8, atol=1e-4)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    tr = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    _assert_close(fa.flash_attention_cuda(*tr, **kw), want, 2e-2)
+
+
+@pytest.mark.parametrize("dt,d,design", [
+    ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 80, "tc"),
+    ("bf16", 96, "tc"), ("bf16", 128, "tc"), ("bf16", 256, "cc"),
+    ("f32", 80, "cc"), ("f32", 96, "cc"), ("f32", 128, "cc")])
+def test_flash_attention_fwd_design_on_card(cuda_device, dt, d, design):
+    """bf16 at D 32/64/80/96/128 runs ``flash_fwd_bf16`` (the tensor
+    cores); bf16 at D 256, and f32, ``flash_fwd_cc``: the design the
+    launcher reports (``counter_tc``) and, where the profiler records the
+    call, one kernel, the design's entry."""
+    dtype = ATT_DTYPES[dt][0]
+    assert (d in fa.FWD_TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
+    q = _randn((1, 4, 256, d), dtype, cuda_device, 1)
+    k, v = (_randn((1, 2, 256, d), dtype, cuda_device, i) for i in (2, 3))
+    c0, t0 = fa.counter.count, fa.counter_tc.count
+    fa.flash_attention_cuda(q, k, v)
+    assert fa.counter.count == c0 + 1
+    assert fa.counter_tc.count == t0 + (design == "tc")
+    names = _gpu_kernel_names(lambda: fa.flash_attention_cuda(q, k, v))
+    if names:
+        assert len(names) == 1, names
+        assert ("flash_fwd_bf16" if design == "tc" else "flash_fwd_cc") \
+            in names[0], names
+
+
 @pytest.mark.parametrize("dt,d,design", [
     ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 128, "tc"),
     ("bf16", 80, "cc"), ("f32", 64, "cc"), ("f32", 128, "cc")])
@@ -1204,7 +1266,7 @@ def test_flash_attention_bwd_design_on_card(cuda_device, dt, d, design):
     and, where the profiler records the call, three kernels, one of each
     of the design's entries."""
     dtype = ATT_DTYPES[dt][0]
-    assert (d in fa.TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
+    assert (d in fa.BWD_TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
     q, do = (_randn((1, 4, 256, d), dtype, cuda_device, i) for i in (1, 2))
     k, v = (_randn((1, 2, 256, d), dtype, cuda_device, i) for i in (3, 4))
     _, lse, out = fa.flash_attention_cuda(q, k, v, return_lse=True)

@@ -2,13 +2,19 @@
 JAX reference, so that it is held to the reference before it runs on a card.
 
 * ``flash_attention`` (bf16, tensor cores): a plain emulation of the
-  kernel's arithmetic -- bf16 operands, f32 scores scaled after the product
-  in log2 units, an online softmax over 64-key tiles, P split into bf16
-  ``hi`` and ``lo = bf16(P - hi)`` with both products summed in f32 -- stays
-  within two bf16 ulps (|diff| <= 2^-6 |want| + 1e-5, the check of
-  ``chip_smoke.py``) of the port's and the JAX package's
-  ``flash_attention_ref``.  The same emulation with one bf16 P does not, on
-  the same inputs: that is why the kernel splits P.
+  kernel's arithmetic -- bf16 operands, f32 scores summed over 16-column
+  k-steps and scaled after the product in log2 units, an online softmax
+  over 64-key tiles, P split into bf16 ``hi`` and ``lo = bf16(P - hi)``
+  with both products summed in f32 -- stays within two bf16 ulps (|diff|
+  <= 2^-6 |want| + 1e-5, the check of ``chip_smoke.py``) of the port's and
+  the JAX package's ``flash_attention_ref``.  The same emulation with one
+  bf16 P does not, on the same inputs: that is why the kernel splits P.
+  At D 80 and 96 the kernel reads a row as a 64-column box and a tail box
+  of 16 or 32 columns, every product at the true width, as the emulation
+  does; on inputs padded with zero columns to whole boxes (128) it gives
+  the same bits (the zero k-steps add exact zeros, the zero output columns
+  are cut off).  The head dims each direction runs on the tensor cores are
+  those of ``csrc/attention_common.cuh``.
 * ``flash_attention_bwd`` (bf16, tensor cores): a plain emulation of the
   two passes' arithmetic -- bf16 q, k, v and dO, the forward's f32 output
   (the one the forward kernel writes for training, emulated above); f32 S
@@ -74,6 +80,7 @@ from repro.kernels.wc_combine.ops import wc_combine_op  # noqa: E402
 from repro.kernels.wc_combine.ref import (  # noqa: E402
     wc_combine_ref as j_wc_combine_ref)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.scan_probe import ops as sp  # noqa: E402
 from repro_torch.kernels.scan_probe import ref as spr  # noqa: E402
 from repro_torch.kernels.wc_combine import ops as wcc  # noqa: E402
@@ -91,28 +98,45 @@ def _bf16(rng, shape):
         torch.bfloat16)
 
 
+def padded_width(d: int) -> int:
+    """D rounded up to whole boxes of 64 columns (32 at D 32): the tile
+    width of the padded design, 128 at D 80 and 96."""
+    box = 32 if d == 32 else 64
+    return -(-d // box) * box
+
+
 def flash_tensor_core_emulation(q, k, v, *, causal, window, split_p,
-                                block_k=64, f32_out=False):
+                                block_k=64, f32_out=False, width=None):
     """The bf16 tensor-core kernel's arithmetic in plain PyTorch: q (B, H,
-    S, D), k/v (B, KH, S, D) in bf16; scores in f32 times D^-1/2 log2 e;
-    the reference's masks (-1e30); (m, l, acc) in f32 over tiles of
-    ``block_k`` keys with exp2; P rounded to bf16 once (``split_p`` False)
-    or as hi + lo; the output rounded once to bf16, or with ``f32_out``
-    the f32 output before that rounding (what the kernel writes for the
-    backward)."""
+    S, D), k/v (B, KH, S, D) in bf16; scores in f32 summed over 16-column
+    k-steps (the kernel's wgmma k-steps) and times D^-1/2 log2 e; the
+    reference's masks (-1e30); (m, l, acc) in f32 over tiles of ``block_k``
+    keys with exp2; P rounded to bf16 once (``split_p`` False) or as hi +
+    lo; the output rounded once to bf16, or with ``f32_out`` the f32 output
+    before that rounding (what the kernel writes for the backward).  With
+    ``width``, q, k and v are first padded with zero columns to that many
+    (the padded design's tiles) and the output cut back to D."""
     b, h, s, d = q.shape
     g = h // k.shape[1]
+    c = d ** -0.5 * math.log2(math.e)
+    if width is not None:
+        q, k, v = (torch.nn.functional.pad(x, (0, width - d))
+                   for x in (q, k, v))
     k = k.repeat_interleave(g, 1).float()
     v = v.repeat_interleave(g, 1).float()
-    c = d ** -0.5 * math.log2(math.e)
+    qf = q.float()
     m = torch.full((b, h, s), NEG_INF)
     l_ = torch.zeros((b, h, s))
-    acc = torch.zeros((b, h, s, d))
+    acc = torch.zeros((b, h, s, q.shape[-1]))
     qp = torch.arange(s)[:, None]
     for k0 in range(0, s, block_k):
         kp = torch.arange(k0, min(k0 + block_k, s))[None, :]
-        sc = torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                          k[:, :, k0:k0 + block_k]) * c
+        kt = k[:, :, k0:k0 + block_k]
+        sc = torch.zeros((b, h, s, kt.shape[2]))
+        for c0 in range(0, q.shape[-1], 16):
+            sc = sc + qf[..., c0:c0 + 16] @ kt[..., c0:c0 + 16].transpose(
+                -1, -2)
+        sc = sc * c
         ok = torch.ones((s, kp.shape[1]), dtype=torch.bool)
         if causal:
             ok &= kp <= qp
@@ -130,7 +154,7 @@ def flash_tensor_core_emulation(q, k, v, *, causal, window, split_p,
         l_ = l_ * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / l_.clamp(min=1e-30)[..., None]
+    out = (acc / l_.clamp(min=1e-30)[..., None])[..., :d]
     return out if f32_out else out.to(torch.bfloat16)
 
 
@@ -145,6 +169,9 @@ FLASH_CASES = [
     (1, 4, 2, 512, 64, False, 0),     # no mask
     (1, 4, 2, 512, 32, True, 100),    # a window that ends inside a tile
     (2, 2, 1, 300, 64, False, 100),   # ragged S, window without causality
+    (2, 4, 4, 300, 80, False, 0),     # hubert-xlarge's: D 80, no mask, ragged
+    (1, 4, 4, 600, 96, True, 0),      # phi-3-vision's: D 96, causal, ragged
+    (1, 4, 2, 512, 80, True, 100),    # D 80 with GQA and a window
 ]
 
 
@@ -160,6 +187,10 @@ def test_flash_split_p_within_two_ulps_single_p_not(b, h, kh, s, d, causal,
     kw = dict(causal=causal, window=window)
     split = flash_tensor_core_emulation(qt, kt, vt, split_p=True, **kw)
     assert split.dtype == torch.bfloat16 and split.shape == qt.shape
+    # tiles padded with zero columns to whole boxes give the same bits
+    padded = flash_tensor_core_emulation(qt, kt, vt, split_p=True,
+                                         width=padded_width(d), **kw)
+    assert torch.equal(padded, split)
     assert _beyond_two_ulps(split, want_t) == 0
     assert _beyond_two_ulps(split, want_j) == 0
     single = flash_tensor_core_emulation(qt, kt, vt, split_p=False, **kw)
@@ -884,6 +915,30 @@ def test_scratch_is_cached_and_grows_zeroed():
         assert sp.scratch_of(cpu, -12345, 600).tiles == 600
     finally:
         sp._SCRATCH.pop(key, None)
+
+
+def test_tensor_core_head_dims_match_the_sources():
+    """The head dims at which bf16 runs the tensor-core kernels, forward
+    and backward, are ``ops.py``'s two sets; each source dispatches on its
+    own; only D 80 and 96 are not whole boxes (the forward's tail box), and
+    the backward takes whole boxes only."""
+    src = (build.CSRC / "attention_common.cuh").read_text()
+
+    def dims(name):
+        body = re.search(rf"constexpr bool {name} =([^;]*);", src)[1]
+        return tuple(int(x) for x in re.findall(r"D == (\d+)", body))
+
+    assert dims("kTensorCoresFwd") == fa.FWD_TENSOR_CORE_DIMS
+    assert dims("kTensorCoresBwd") == fa.BWD_TENSOR_CORE_DIMS
+    assert set(fa.BWD_TENSOR_CORE_DIMS) <= set(fa.FWD_TENSOR_CORE_DIMS) \
+        <= set(fa.HEAD_DIMS)
+    fwd = (build.CSRC / "flash_attention.cu").read_text()
+    bwd = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "kTensorCoresFwd<" in fwd and "kTensorCoresBwd" not in fwd
+    assert "kTensorCoresBwd<" in bwd and "kTensorCoresFwd" not in bwd
+    assert [d for d in fa.FWD_TENSOR_CORE_DIMS if padded_width(d) != d] == \
+        [80, 96]
+    assert all(padded_width(d) == d for d in fa.BWD_TENSOR_CORE_DIMS)
 
 
 @pytest.mark.parametrize("name,mod", [("wc_combine", wcc), ("scan_probe", sp)])
