@@ -30,11 +30,15 @@ Phases (any mismatch raises, and the script exits non-zero):
    the tolerances of ``tests/test_kernels.py`` (bf16 also within two ulps);
    then the other families' shapes (``FLASH_NEW``, ``PAGED_NEW``: flash
    D 80, 96, 256 and deepseek-moe's ungrouped D 128; paged D 96, 256 and
-   the ungrouped D 128, at every length 1-40); kernel, plain, library and
-   bound times; and the design each flash forward ran, by the launcher's
-   report (``counter_tc``) and the profiler's kernel names
-   (``FWD_ENTRIES``: ``flash_fwd_bf16`` in bf16 at D 32/64/80/96/128,
-   ``flash_fwd_cc`` otherwise).  ``flash_attention_bwd`` against
+   the ungrouped D 128, at every length 1-40, and D 256 also over
+   recurrentgemma's 2,048-row ring); kernel, plain, library and bound
+   times (a windowed row's library time is SDPA with the mask as a
+   boolean ``attn_mask``); the grid each checked paged launch ran, by the
+   launcher's report (``counter_plan``), against the host's plan; and the
+   design each flash forward ran, by the launcher's report
+   (``counter_tc``) and the profiler's kernel names (``FWD_ENTRIES``:
+   ``flash_fwd_bf16`` in bf16 at every D, with D 256's registers and
+   shared memory, ``flash_fwd_cc`` in f32).  ``flash_attention_bwd`` against
    ``flash_attention_bwd_ref`` (``BWD_TOL``), both fed the kernel
    forward's output and ``lse`` (itself held to the plain version's): the
    training shape (B 2, S 4096, H 16, KH 8, D 128, causal) in bf16 and
@@ -291,12 +295,18 @@ _ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cc|flash_bwd_delta|"
                     r"paged_merge_kernel)I((?:13__nv_bfloat16|f)*)Li(\d+)E")
 _SWEEP_ENTRY = re.compile(r"(wc_combine_kernel|scan_probe_kernel)")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+# ptxas -v's lines of each entry function (``flash_fwd_bf16<bf16, D=256>``
+# ...) of the libraries this run built
+PTXAS: dict[str, list[str]] = {}
+# the forward's dynamic shared memory per block in bf16, by head dim
+FLASH_SMEM_BF16: dict[int, int] = {}
 
 
 def ptxas_report(name: str, log: str) -> int:
     """Registers, spills and static shared memory of each entry function
-    of library ``name``, from ``nvcc -Xptxas -v``'s log.  Returns the bytes
-    of spill stores and loads over all its entries."""
+    of library ``name``, from ``nvcc -Xptxas -v``'s log (kept in
+    ``PTXAS``).  Returns the bytes of spill stores and loads over all its
+    entries."""
     entry, spilled = None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -315,7 +325,9 @@ def ptxas_report(name: str, log: str) -> int:
             spill = _SPILLS.search(line)
             if spill:
                 spilled += int(spill.group(1)) + int(spill.group(2))
-            say(f"  {name}: {entry}: {line.split(':', 1)[-1].strip()}")
+            PTXAS.setdefault(entry, []).append(
+                line.split(':', 1)[-1].strip())
+            say(f"  {name}: {entry}: {PTXAS[entry][-1]}")
     return spilled
 
 
@@ -347,6 +359,8 @@ def attention_smem() -> None:
                 f"{block}, {label}, by D: {sizes} B")
     for dtype, label in ((1, "bf16"), (0, "f32")):
         flash = {d: fns["flash_attention"](dtype, d) for d in FLASH_D}
+        if dtype:
+            FLASH_SMEM_BF16.update(flash)
         check(all(0 < b <= 232_448 for b in flash.values()),
               f"flash_attention shared memory {flash} beyond 227 KB")
         say(f"  dynamic shared memory per block, {label}, by D: "
@@ -675,6 +689,41 @@ def phase1_attention(dev, card: str) -> dict:
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
         return err
 
+    def windowed_sdpa(q, k, v, causal, window, want, fl):
+        """The library's time for a sliding window: SDPA with the causal +
+        window mask as an explicit boolean ``attn_mask`` over k/v expanded
+        to q's heads (every row keeps its own key, so this is the same
+        function; its output is held to the plain version's within
+        ``ATT_TOL``).  Returns (device ms, call ms, the profiler's top GPU
+        event: the SDPA backend's kernel)."""
+        s, g = q.shape[2], q.shape[1] // k.shape[1]
+        pos = torch.arange(s, device=q.device)
+        keep = pos[None, :] > pos[:, None] - window
+        if causal:
+            keep &= pos[None, :] <= pos[:, None]
+        ke, ve = (x.repeat_interleave(g, 1) for x in (k, v))
+        tol = ATT_TOL[str(q.dtype).removeprefix("torch.")]
+        got = F.scaled_dot_product_attention(q, ke, ve, attn_mask=keep)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        ms, call, top = timed(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=keep), 5, events=True, floor=fl)
+        return ms, call, (top[0][0] if top else None)
+
+    def planned(what, launch, b, kh, g, span):
+        """Runs ``launch``, one paged launch, and checks that the grid the
+        launcher reported for it (``pa.counter_plan``) is the host's plan
+        for these shapes.  Returns the launch's output and the plan."""
+        groups = pa.head_group_plan(b, kh, g, span, pa.fill_blocks(dev))
+        splits = pa.split_plan(span)[1]
+        want = pa.Plan(groups, splits, kh * groups * b * splits)
+        pa.counter_plan.reset()
+        got = launch()
+        ran = dict(pa.counter_plan.by_size)
+        check(ran == {want: 1}, f"paged_attention {what}: the launcher ran "
+                                f"{ran}, planned {want}")
+        return got, want._asdict()
+
     # paged: the serve shape (one 40-row page per sequence, the identity
     # block table, lengths 1-40), and decode_32k (B 8, lengths up to 32,768,
     # 16-row pages, a permuted block table into a larger pool: 64 splits),
@@ -715,7 +764,10 @@ def phase1_attention(dev, card: str) -> dict:
             kp = _randn((npool, page, kh, d), dtype, dev, 2)
             vp = _randn((npool, page, kh, d), dtype, dev, 3)
             args = (q, kp, vp, bt, lens)
-            err = compare("paged_attention", pa.paged_attention_cuda(*args),
+            got, plan = planned(f"{label} {dtype}",
+                                lambda: pa.paged_attention_cuda(*args), b, kh,
+                                h // kh, np_ * page)
+            err = compare("paged_attention", got,
                           pa.paged_attention_ref(*args), dtype,
                           f"{label} {dtype}")
             paged_lse_check(args, f"{label} {dtype}")
@@ -752,15 +804,16 @@ def phase1_attention(dev, card: str) -> dict:
                        bound_ms=max(bytes_ms, ops_ms),
                        bound_by="bytes" if bytes_ms >= ops_ms
                        else "operations", call_ms=call,
-                       plain_call_ms=plain_call, library_call_ms=lib_call)
+                       plain_call_ms=plain_call, library_call_ms=lib_call,
+                       plan=plan)
             if label == ATTN_META["paged_attention"]["main"] \
                     and dtype == torch.bfloat16:
                 out["paged_attention"].update(row)
             say(f"  paged_attention {label} B{b} H{h} KH{kh} D{d} page "
-                f"{page} x {np_} (splits {pa.split_plan(np_ * page)}), "
+                f"{page} x {np_} ({plan}), "
                 f"{n_rows} rows, {dtype}: max |diff| {err:.3g};"
-                f" device: kernel {ms:.5f} ms, plain {plain:.5f} ms, SDPA "
-                f"(dense, masked) {lib:.5f} ms; per call: {call:.5f} / "
+                f" device: kernel {ms:.5f} ms, plain {plain:.5f} ms, "
+                f"SDPA (dense, masked) {lib:.5f} ms; per call: {call:.5f} / "
                 f"{plain_call:.5f} / {lib_call:.5f} ms; bound "
                 f"{row['bound_ms']:.6f} ms ({row['bound_by']}, "
                 f"{nbytes / 1e9:.4f} GB) [{card}]")
@@ -780,9 +833,9 @@ def phase1_attention(dev, card: str) -> dict:
             v = _randn((b, kh, s, d), dtype, dev, 6)
             kw = dict(causal=causal, window=window)
             design = fwd_design(fa, dtype, d)
+            want = fa.flash_attention_ref(q, k, v, **kw)
             err = compare("flash_attention",
-                          fwd_checked(fa, design, q, k, v, kw),
-                          fa.flash_attention_ref(q, k, v, **kw), dtype,
+                          fwd_checked(fa, design, q, k, v, kw), want, dtype,
                           f"{label} {dtype}")
             es = q.element_size()
             nbytes = 2 * (b * h * s * d + b * kh * s * d) * es
@@ -796,10 +849,14 @@ def phase1_attention(dev, card: str) -> dict:
                                      f"{label} {dtype}") if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_ref(q, k, v, **kw), 3, floor=fl)
-            lib = lib_call = None       # SDPA has no sliding window
-            if not window:
+            lib_kernel = None
+            if window:
+                lib, lib_call, lib_kernel = windowed_sdpa(
+                    q, k, v, causal, window, want, fl)
+            else:
                 lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal, enable_gqa=True), 5, floor=fl)
+            del want
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / FLOPS[str(dtype).removeprefix("torch.")] * 1e3
             row = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -807,7 +864,8 @@ def phase1_attention(dev, card: str) -> dict:
                        bound_by="bytes" if bytes_ms >= ops_ms
                        else "operations", call_ms=call,
                        plain_call_ms=plain_call, library_call_ms=lib_call,
-                       design=design, ms_by_entry=entries)
+                       design=design, ms_by_entry=entries,
+                       library_kernel=lib_kernel)
             if label == ATTN_META["flash_attention"]["main"] \
                     and dtype == torch.bfloat16:
                 out["flash_attention"].update(row)
@@ -815,7 +873,8 @@ def phase1_attention(dev, card: str) -> dict:
                 f"causal={causal} window={window}, {dtype} on the {design} "
                 f"({entries}): max |diff| "
                 f"{err:.3g}; device: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f}"
-                f" TFLOP/s), plain {plain:.4f} ms, SDPA {lib} ms; per call: "
+                f" TFLOP/s), plain {plain:.4f} ms, SDPA {lib} ms "
+                f"({lib_kernel or 'its own mask'}); per call: "
                 f"{call:.4f} / {plain_call:.4f} / {lib_call} ms; bound "
                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
                 f"{flops / 1e9:.2f} GFLOP) [{card}]")
@@ -830,9 +889,9 @@ def phase1_attention(dev, card: str) -> dict:
             v = _randn((b, kh, s, d), dtype, dev, 9)
             kw = dict(causal=causal, window=window)
             design = fwd_design(fa, dtype, d)
-            err = compare(name, fwd_checked(fa, design, q, k, v, kw),
-                          fa.flash_attention_ref(q, k, v, **kw), dtype,
-                          f"{model} {dtype}")
+            want = fa.flash_attention_ref(q, k, v, **kw)
+            err = compare(name, fwd_checked(fa, design, q, k, v, kw), want,
+                          dtype, f"{model} {dtype}")
             nbytes = 2 * (b * h * s * d + b * kh * s * d) * q.element_size()
             flops = 4 * b * h * d * flash_pairs(s, causal, window)
             fl = floor_ms(nbytes, flops)
@@ -843,60 +902,93 @@ def phase1_attention(dev, card: str) -> dict:
                                      f"{model} {dtype}") if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_ref(q, k, v, **kw), 3, floor=fl)
-            lib = lib_call = None       # SDPA has no sliding window
-            if not window:
+            lib_kernel = None
+            if window:
+                lib, lib_call, lib_kernel = windowed_sdpa(
+                    q, k, v, causal, window, want, fl)
+            else:
                 lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal, enable_gqa=True), 5, floor=fl)
+            del want
             row = row_of(ms, call, plain, plain_call, lib, lib_call, nbytes,
                          flops, dtype)
-            row.update(design=design, ms_by_entry=entries)
+            row.update(design=design, ms_by_entry=entries,
+                       library_kernel=lib_kernel)
+            if design == "tensor cores" and d == 256:
+                # the two-stage geometry: its registers (ptxas -v, when
+                # this run built the library) and shared memory
+                row.update(ptxas=PTXAS.get("flash_fwd_bf16<D=256>"),
+                           smem_bytes=FLASH_SMEM_BF16[d])
+                say(f"  {name}: flash_fwd_bf16<D=256> ptxas {row['ptxas']}, "
+                    f"{row['smem_bytes']} B of dynamic shared memory")
             if dtype == torch.bfloat16:
                 out[name].update(row)
             say(f"  {name} ({model}) B{b} S{s} H{h} KH{kh} causal={causal} "
                 f"window={window}, {dtype} on the {design} ({entries}): max "
                 f"|diff| {err:.3g}; device: kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s; "
-                f"{'-' if lib is None else f'{ms / lib:.2f}x'} SDPA), plain "
-                f"{plain:.4f} ms, SDPA {lib} ms; per call: {call:.4f} / "
+                f"{ms / lib:.2f}x SDPA), plain {plain:.4f} ms, SDPA {lib} "
+                f"ms ({lib_kernel or 'its own mask'}); per call: "
+                f"{call:.4f} / "
                 f"{plain_call:.4f} / {lib_call} ms; bound "
                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
                 f"{flops / 1e9:.2f} GFLOP) [{card}]")
             del q, k, v
 
     # paged at each model's decode shape: one 40-row page, lengths 1-40,
-    # timed at 40
+    # timed at 40; recurrentgemma's MQA (D 256) also over its full ring of
+    # min(window, smax) = 2,048 rows (4 splits), at lengths on and around
+    # the split boundaries and every 61st, timed at 2,048
     for name, model, d, h, kh in PAGED_NEW:
         bt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-        for dtype in (torch.bfloat16, torch.float32):
-            q = _randn((1, h, d), dtype, dev, 10)
-            kp = _randn((1, 40, kh, d), dtype, dev, 11)
-            vp = _randn((1, 40, kh, d), dtype, dev, 12)
-            err = 0.0
-            for n in range(1, 41):
-                ln = torch.full((1,), n, dtype=torch.int32, device=dev)
-                err = max(err, compare(
-                    name, pa.paged_attention_cuda(q, kp, vp, bt, ln),
-                    pa.paged_attention_ref(q, kp, vp, bt, ln), dtype,
-                    f"{model} length {n} {dtype}"))
-            args = (q, kp, vp, bt, ln)
-            ms, call = timed(lambda: pa.paged_attention_cuda(*args), 20)
-            plain, plain_call = timed(lambda: pa.paged_attention_ref(*args), 5)
-            lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kp.transpose(1, 2), vp.transpose(1, 2),
-                enable_gqa=True), 20)
-            es = q.element_size()
-            nbytes = 2 * 40 * kh * d * es + 2 * h * d * es + 4 + 4
-            row = row_of(ms, call, plain, plain_call, lib, lib_call, nbytes,
-                         4 * 40 * h * d, dtype)
-            if dtype == torch.bfloat16:
-                out[name].update(row)
-            say(f"  {name} ({model}) B1 H{h} KH{kh} page 40 x 1, lengths "
-                f"1-40, {dtype}: max |diff| {err:.3g}; device at length 40: "
-                f"kernel {ms:.5f} ms, plain {plain:.5f} ms, SDPA {lib:.5f} "
-                f"ms; per call: {call:.5f} / {plain_call:.5f} / "
-                f"{lib_call:.5f} ms; bound {row['bound_ms']:.6f} ms "
-                f"({row['bound_by']}) [{card}]")
-            del q, kp, vp
+        spans = ((40, range(1, 41)),)
+        if d == 256:
+            ring = 2048
+            spans += ((ring, sorted({1, 2, ring} | set(range(1, ring, 61))
+                                    | {k * pa.SPLIT + e for k in (1, 2, 3)
+                                       for e in (-1, 0, 1)})),)
+        for span, lengths in spans:
+            for dtype in (torch.bfloat16, torch.float32):
+                q = _randn((1, h, d), dtype, dev, 10)
+                kp = _randn((1, span, kh, d), dtype, dev, 11)
+                vp = _randn((1, span, kh, d), dtype, dev, 12)
+                err = 0.0
+                for n in lengths:
+                    ln = torch.full((1,), n, dtype=torch.int32, device=dev)
+                    got, plan = planned(
+                        f"{model} span {span}",
+                        lambda: pa.paged_attention_cuda(q, kp, vp, bt, ln), 1,
+                        kh, h // kh, span)
+                    err = max(err, compare(
+                        name, got, pa.paged_attention_ref(q, kp, vp, bt, ln),
+                        dtype, f"{model} span {span} length {n} {dtype}"))
+                args = (q, kp, vp, bt, ln)
+                es = q.element_size()
+                nbytes = 2 * span * kh * d * es + 2 * h * d * es + 4 + 4
+                fl = floor_ms(nbytes, 4 * span * h * d)
+                ms, call = timed(lambda: pa.paged_attention_cuda(*args), 20,
+                                 floor=fl)
+                plain, plain_call = timed(
+                    lambda: pa.paged_attention_ref(*args), 5, floor=fl)
+                lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kp.transpose(1, 2), vp.transpose(1, 2),
+                    enable_gqa=True), 20, floor=fl)
+                row = row_of(ms, call, plain, plain_call, lib, lib_call,
+                             nbytes, 4 * span * h * d, dtype)
+                row["plan"] = plan
+                if dtype == torch.bfloat16:
+                    if span == 40:
+                        out[name].update(row)
+                    else:
+                        out[name]["ring"] = dict(row, span=span)
+                say(f"  {name} ({model}) B1 H{h} KH{kh} page {span} x 1 "
+                    f"({plan}), {len(lengths)} lengths up to {span}, "
+                    f"{dtype}: max |diff| {err:.3g}; device at length "
+                    f"{span}: kernel {ms:.5f} ms, plain {plain:.5f} ms, "
+                    f"SDPA {lib:.5f} ms; per call: {call:.5f} / "
+                    f"{plain_call:.5f} / {lib_call:.5f} ms; bound "
+                    f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{card}]")
+                del q, kp, vp
     torch.cuda.empty_cache()
     phase1_backward(dev, card, out)
     return out
@@ -4225,8 +4317,9 @@ def main() -> int:
                "plain_call_ms": t["plain_call_ms"],
                "library_call_ms": t["library_call_ms"],
                "head_dim": meta["d"], "shape_of": meta["main"]}
-        for key in ("design", "ms_by_entry"):
-            if key in t:
+        for key in ("design", "ms_by_entry", "library_kernel", "ptxas",
+                    "smem_bytes", "plan", "ring"):
+            if t.get(key) is not None:
                 row[key] = t[key]
         if kernel == name:
             row["launches_by_head_dim"] = dict(sorted(

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Hashable
 
 import torch
 
@@ -50,17 +51,17 @@ def launch_tag(tag: str):
 
 class LaunchCounter:
     """Launches of one kernel: its wrapper calls ``add`` once per launch,
-    nowhere else; ``by_size`` tallies them by problem size (N, or the head
-    dim of an attention kernel) and ``by_tag`` by the caller's
-    ``launch_tag``."""
+    nowhere else; ``by_size`` tallies them by problem size (N, the head
+    dim of an attention kernel, or the grid a launcher reports) and
+    ``by_tag`` by the caller's ``launch_tag``."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
-        self.by_size: dict[int, int] = {}
+        self.by_size: dict[Hashable, int] = {}
         self.by_tag: dict[str, int] = {}
 
-    def add(self, size: int) -> None:
+    def add(self, size: Hashable) -> None:
         """One launch at problem size ``size``."""
         self.count += 1
         self.by_size[size] = self.by_size.get(size, 0) + 1

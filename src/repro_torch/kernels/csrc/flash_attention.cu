@@ -19,19 +19,26 @@
 // (B 2, S 4096, H 16, KH 8, D 128, causal) that is about 137 GFLOP,
 // 0.14 ms in bf16: operations bound.
 //
-// bf16 design (tensor cores), at D 32, 64, 80, 96 and 128.  One block of
-// 288 threads per (128-query tile, head, batch): two consumer warpgroups of
-// 64 query rows each and one producer warp.  Blocks are numbered so that
-// the q tiles with the most keys (the last ones under the causal mask)
-// start first.
+// bf16 design (tensor cores), at D 32, 64, 80, 96, 128 and 256.  One block
+// per (128-query tile, head, batch): two consumer warpgroups of 64 query
+// rows each and a producer.  Blocks are numbered so that the q tiles with
+// the most keys (the last ones under the causal mask) start first.
+//  * Geometry (Geom<D>).  Up to D 128: 288 threads, the producer one warp,
+//    a ring of three 64-key stages.  At D 256 a Q tile is 64 KB and a K+V
+//    stage 64 KB, so the ring has two stages (197,672 bytes of shared
+//    memory), and the output fragment alone is 64 x 256 f32, 128 registers
+//    a consumer thread: the producer is a whole warpgroup (384 threads)
+//    that gives its registers to the consumers by setmaxnreg (24 a producer
+//    thread, 240 a consumer thread), as the backward does.
 //  * Loads: the producer's first lane loads the Q tile once and the K/V
-//    tiles (64 keys) into a ring of kStages stages with TMA
+//    tiles into the ring with TMA
 //    (cp.async.bulk.tensor, 4-D maps over (D, S, heads, B) encoded on the
 //    host), each stage signalled by a "full" mbarrier that counts the
 //    bytes and released by an "empty" mbarrier that every consumer thread
 //    arrives on.  Rows past S come in as zeros (TMA's out-of-bounds fill).
 //    Tiles use the 128-byte swizzle (64 columns a box; a D-128 row is two
-//    boxes), 64-byte for D 32, matching the wgmma descriptors below.
+//    boxes, a D-256 row four), 64-byte for D 32, matching the wgmma
+//    descriptors below.
 //  * D 80 and 96 are not whole 64-column boxes: a row is one 64-column box
 //    (128-byte swizzle) and a tail box of its last 16 or 32 columns, whose
 //    32- or 64-byte row is its own swizzle, loaded through a second tensor
@@ -49,24 +56,22 @@
 //    adds exp(0) terms that the first valid score wipes; keys past S score
 //    -INFINITY and never count.
 //  * Online softmax in registers; a row's 4 threads reduce by shuffles.
-//  * O += P V: wgmma m64nDk16 (at D 80 and 96 the main part's and the tail's
-//    products) with P from registers (the accumulator layout of S is the
-//    A-fragment layout) and V (N-major) from shared memory.  P is split
+//  * O += P V: wgmma m64nDk16 (at D 80 and 96 the main part's and the
+//    tail's products; at D 256 the widest, m64n256k16) with P from
+//    registers (the accumulator layout of S is the A-fragment layout) and
+//    V (N-major) from shared memory.  P is split
 //    into bf16 hi = bf16(p) and lo = bf16(p - hi) and both are multiplied
 //    into the same f32 accumulator: a single bf16 P puts about 5 % of the
 //    outputs more than two bf16 ulps from the f32 reference, the split none
 //    (tests/test_torch_kernel_designs.py).  The lo product costs half again
 //    the useful operations, still at the tensor-core rate.
 //
-// CUDA-core design: f32 at every D (TF32 would miss the 2e-5 tolerance),
-// and bf16 at D 256 (a Q tile and K/V ring beyond shared memory, and a
-// 64 x 256 f32 output fragment of 128 registers a thread).  The launcher
-// reports which design it ran.  One block of 128 threads per (64-query tile,
-// head, batch); Q and each 64-key K/V tile are converted to f32 as they are
-// staged in shared memory; a thread owns 8 query rows x 4 key columns of
-// the score tile and 8 rows x D/16 columns of the output; every product an
-// f32 FMA, and the output rounded once to the input's type.  Same masks and
-// tile skipping.
+// CUDA-core design: f32 at every D (TF32 would miss the 2e-5 tolerance).
+// The launcher reports which design it ran.  One block of 128 threads per
+// (64-query tile, head, batch); Q and each 64-key K/V tile are staged in
+// shared memory; a thread owns 8 query rows x 4 key columns of the score
+// tile and 8 rows x D/16 columns of the output; every product an f32 FMA.
+// Same masks and tile skipping.
 //
 // On Hopper the blocks run in no order, so there is no carry between
 // blocks: the TPU kernel's kv grid axis is the loop over key tiles inside
@@ -77,16 +82,14 @@
 // of its scaled, masked scores in natural-log units, m + log(l): the
 // residual that the backward (flash_attention_bwd.cu) recomputes P from.
 // In bf16, when given an `o32` buffer (f32, the output's element strides;
-// nullptr for none, as serving passes), they also write the output before
-// its rounding to bf16: the backward's delta = rowsum(dO * O) is taken from
+// nullptr for none, as serving passes), the tensor-core kernel also writes
+// the output before its rounding to bf16: the backward's delta = rowsum(dO * O) is taken from
 // it, as the reference takes it from its f32 forward output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -96,14 +99,13 @@ constexpr float kNegInf = -1e30f;
 
 using attn::encode;
 using attn::encode_box;
-using attn::from_f32;
 using attn::kErrTensorMap;
 using attn::load_chunk;
 
 using attn::Strides;
 
 // ---------------------------------------------------------------------------
-// CUDA cores: f32, and bf16 at D 256
+// CUDA cores: f32
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // query rows per block
@@ -115,18 +117,17 @@ constexpr int smem_floats() {
   return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o,
-             float* __restrict__ o32, float* __restrict__ lse, int H, int KH,
-             int S, Strides qs,
+flash_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int H, int KH, int S, Strides qs,
              Strides ks, Strides vs, Strides os, int causal, int window,
              float scale) {
   constexpr int LQ = D + 1, LK = D + 1, LV = D, LP = kBK + 1;
   // V elements per 16-byte chunk, C chunks per row, NJ output columns a
   // thread
-  constexpr int V = 16 / sizeof(T), C = D / V, NJ = D / 16;
+  constexpr int V = 4, C = D / V, NJ = D / 16;
   static_assert(D % 16 == 0 && D % V == 0, "D must be a multiple of 16");
   extern __shared__ float smem[];
   float* Qs = smem;            // [kBQ][LQ], pre-scaled
@@ -137,9 +138,9 @@ flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / KH);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
 
   for (int idx = tid; idx < kBQ * C; idx += kThreads) {
     const int r = idx / C, c = idx % C, pos = q0 + r;
@@ -257,23 +258,15 @@ flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
-  // in f32 the output is the f32 output: no second store is compiled
-  constexpr bool kRounds = !std::is_same<T, float>::value;
-  float* o32b = kRounds && o32 != nullptr ? o32 + b * os.b + h * os.h
-                                          : nullptr;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qpos = q0 + ty * 8 + i;
     if (qpos < S) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float x = acc[i][j] / denom;
-        ob[qpos * os.s + tx + 16 * j] = from_f32<T>(x);
-        if constexpr (kRounds)
-          if (o32b != nullptr) o32b[qpos * os.s + tx + 16 * j] = x;
-      }
+      for (int j = 0; j < NJ; ++j)
+        ob[qpos * os.s + tx + 16 * j] = acc[i][j] / denom;
       if (lse != nullptr && tx == 0)
         lse[(static_cast<long long>(b) * H + h) * S + qpos] =
             m[i] + logf(denom);
@@ -290,10 +283,9 @@ namespace tc {
 using namespace attn;  // the Hopper helpers
 
 constexpr int kBQ = 128;                     // query rows per block
-constexpr int kBK = 64;                      // keys per K/V tile
-constexpr int kStages = 3;                   // K/V ring
 constexpr int kConsumers = 256;              // two warpgroups
-constexpr int kThreads = kConsumers + 32;    // and one producer warp
+constexpr int kBK = 64;                      // keys per K/V tile
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;  // by setmaxnreg
 
 // The columns of a bf16 tile at head dim D as TMA loads them and wgmma
 // reads them: a main part of MAIN columns in whole boxes (Swz<MAIN>: 64
@@ -312,15 +304,25 @@ struct Cols {
                 "a tail box of 16 or 32 columns");
 };
 
+// The block's geometry at head dim D.  D <= 128: 64-key tiles in a ring of
+// three stages, one producer warp (288 threads; 224 registers a thread at
+// most).  D 256: a Q tile is 64 KB and a K+V stage 64 KB, so two stages
+// fit (197,672 bytes); the output fragment alone is 128 f32 registers a
+// consumer thread, so the producer is a warpgroup that gives up its
+// registers (setmaxnreg: 24 a producer thread, 240 a consumer thread, 384
+// threads).
 template <int D>
 struct Geom {
+  static constexpr int STAGES = D > 128 ? 2 : 3;  // K/V ring
+  static constexpr bool PRODUCER_WG = D > 128;
+  static constexpr int THREADS = kConsumers + (PRODUCER_WG ? 128 : 32);
   static constexpr int Q_BYTES = kBQ * D * 2;
   static constexpr int KV_BYTES = kBK * D * 2;    // one of K, V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int BAR_BYTES = 8 * (1 + 2 * kStages);
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
   // the tiles start on a 1024-byte boundary (the swizzle pattern's period;
   // every tile's and tail box's size is a multiple of it)
-  static constexpr int SMEM = 1024 + Q_BYTES + kStages * STAGE_BYTES +
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES +
                               BAR_BYTES;
 };
 
@@ -356,7 +358,7 @@ __device__ __forceinline__ uint64_t desc_tail_nmajor(uint32_t box, int rows,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Geom<D>::THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
@@ -371,12 +373,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   using C = Cols<D>;
   using W = Swz<C::MAIN>;
   constexpr int MAIN = C::MAIN, TAIL = C::TAIL;
+  constexpr int STAGES = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sKV = sQ + G::Q_BYTES;  // stage s: K, then V
-  const uint32_t bar_q = sKV + kStages * G::STAGE_BYTES;
+  const uint32_t bar_q = sKV + STAGES * G::STAGE_BYTES;
   auto full = [&](int s) { return bar_q + 8 * (1 + s); };
-  auto empty = [&](int s) { return bar_q + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + STAGES + s); };
 
   // longest q tiles first: the q tile is the slowest-varying block index
   const int n_qt = (S + kBQ - 1) / kBQ;
@@ -390,7 +393,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), kConsumers);
     }
@@ -398,13 +401,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (tid >= kConsumers) {  // producer warp: one lane issues every load
+  if (tid >= kConsumers) {  // producer warp(group): one lane issues every load
+    if constexpr (G::PRODUCER_WG) setmaxnreg_dec<kProducerRegs>();
     if (tid == kConsumers) {
       mbar_expect_tx(bar_q, G::Q_BYTES);
       load_tile<D>(sQ, &tq, &tq_tail, bar_q, kBQ, q0, h, b);
       for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
-        const int s = i % kStages;
-        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        const int s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(full(s), G::STAGE_BYTES);
         const uint32_t sk = sKV + s * G::STAGE_BYTES, sv = sk + G::KV_BYTES;
         load_tile<D>(sk, &tk, &tk_tail, full(s), kBK, kt * kBK, hk, b);
@@ -413,6 +417,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     }
     return;
   }
+  if constexpr (G::PRODUCER_WG) setmaxnreg_inc<kConsumerRegs>();
 
   // consumers: warpgroup wg owns rows [wr_lo, wr_lo + 64) of the tile; in
   // the accumulator layout a thread holds rows r0 and r0 + 8, columns
@@ -435,8 +440,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   mbar_wait(bar_q, 0);
 
   for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
-    const int s = i % kStages;
-    mbar_wait(full(s), (i / kStages) & 1);
+    const int s = i % STAGES;
+    mbar_wait(full(s), (i / STAGES) & 1);
     if (kt >= wlo && kt < whi) {
       const uint32_t sk = sKV + s * G::STAGE_BYTES, sv = sk + G::KV_BYTES;
       float sc[32];
@@ -571,21 +576,21 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 
 using attn::kTensorCoresFwd;
 
-template <typename T, int D>
+template <int D>
 int launch_cc(const void* q, const void* k, const void* v, void* o,
-              float* o32, float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
+              float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
               Strides vs, Strides os, int causal, int window, float scale,
               cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_cc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_cc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_cc<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), o32, lse, H, KH, S, qs,
-      ks, vs, os, causal, window, scale);
+  flash_fwd_cc<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KH, S,
+      qs, ks, vs, os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,6 +601,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float scale, cudaStream_t stream) {
   using C = tc::Cols<D>;
   CUtensorMap tq, tk, tv, tq_tail{}, tk_tail{}, tv_tail{};
+  using G = tc::Geom<D>;
   if (!encode<C::MAIN>(&tq, q, S, H, B, qs, tc::kBQ) ||
       !encode<C::MAIN>(&tk, k, S, KH, B, ks, tc::kBK) ||
       !encode<C::MAIN>(&tv, v, S, KH, B, vs, tc::kBK))
@@ -616,12 +622,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const long long blocks =
       static_cast<long long>((S + tc::kBQ - 1) / tc::kBQ) * H * B;
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = tc::Geom<D>::SMEM;
+  const int bytes = G::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       tc::flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tc::flash_fwd_bf16<D><<<static_cast<unsigned>(blocks), tc::kThreads, bytes,
+  tc::flash_fwd_bf16<D><<<static_cast<unsigned>(blocks), G::THREADS, bytes,
                           stream>>>(
       tq, tk, tv, tq_tail, tk_tail, tv_tail, static_cast<__nv_bfloat16*>(o),
       o32, lse, H, KH, B, S, os, causal, window,
@@ -635,20 +641,15 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            float* o32, float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
            Strides vs, Strides os, int causal, int window, float scale,
            int* design, cudaStream_t stream) {
+  static_assert(kTensorCoresFwd<D>, "bf16 runs the tensor cores at every D");
   *design = 0;
   if (dtype == 0)  // the output is f32 itself
-    return launch_cc<float, D>(q, k, v, o, nullptr, lse, B, H, KH, S, qs, ks,
-                               vs, os, causal, window, scale, stream);
+    return launch_cc<D>(q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os, causal,
+                        window, scale, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kTensorCoresFwd<D>) {
-    *design = 1;
-    return launch_bf16<D>(q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, os,
-                          causal, window, scale, stream);
-  } else {
-    return launch_cc<__nv_bfloat16, D>(q, k, v, o, o32, lse, B, H, KH, S, qs,
-                                       ks, vs, os, causal, window, scale,
-                                       stream);
-  }
+  *design = 1;
+  return launch_bf16<D>(q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, os,
+                        causal, window, scale, stream);
 }
 
 }  // namespace
@@ -658,7 +659,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // a 16-byte boundary.  lse: f32 (B, H, S) contiguous, or nullptr.  o32: in
 // bf16, f32 with out's element strides, or nullptr; ignored in f32.
 // *design is set to the design launched: 1 = the tensor-core kernel (bf16
-// at D 32, 64, 80, 96, 128), 0 = the CUDA-core one.
+// at every D), 0 = the CUDA-core one (f32).
 extern "C" int flash_attention_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KH, int S, int D, long long qsb, long long qss,
@@ -694,9 +695,8 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   switch (D) {
 #define FLASH_SMEM(DD)                                          \
   case DD:                                                      \
-    if constexpr (kTensorCoresFwd<DD>)                          \
-      if (dtype) return tc::Geom<DD>::SMEM;                     \
-    return static_cast<int>(smem_floats<DD>() * sizeof(float));
+    return dtype ? tc::Geom<DD>::SMEM                           \
+                 : static_cast<int>(smem_floats<DD>() * sizeof(float));
     FLASH_SMEM(32)
     FLASH_SMEM(64)
     FLASH_SMEM(80)

@@ -20,13 +20,20 @@
 // (B 8, KH 8, D 128, bf16, lengths up to 32768) that is up to 1.07 GB,
 // 0.32 ms.
 //
-// Design (flash decoding).  The sequence is split across blocks:
-// grid (KH, B, n_split), one block of 128 threads per (kv head, sequence,
-// split of `split` positions), serving the g query heads of that kv head so
-// that each K/V row is read once.  n_split comes from the block table's
-// span (NP * page), never from the lengths, which stay on the device; a
+// Design (flash decoding).  The sequence is split across blocks, and so
+// may be a kv head's query heads: grid (KH x n_hgroups, B, n_split), one
+// block of 128 threads per (kv head and group of gh = g / n_hgroups of its
+// query heads, sequence, split of `split` positions).  With one group
+// (n_hgroups 1) a block serves all g query heads of its kv head, so that
+// each K/V row is read once from device memory; with more, each group's
+// block reads the kv head's rows itself (from L2 after the first), which
+// pays where the grid would otherwise be a few blocks: recurrentgemma's
+// MQA (KH 1, g 16) at B 1 ran its 40-row serve slot on one block of one
+// SM.  n_split and n_hgroups come from shapes (the block table's span NP *
+// page, B, KH, g), never from the lengths, which stay on the device; a
 // block whose split starts at or past the sequence's positions returns at
-// once.  Inside a block:
+// once.  Each head's result takes the same arithmetic whatever the
+// grouping.  Inside a block:
 //  * Loads: tiles of 32 positions, double-buffered with cp.async (16 bytes
 //    a thread) into shared memory in the input's type; each row's page id
 //    comes from the block table as it is loaded, so a page may end inside a
@@ -40,8 +47,10 @@
 //  * Softmax: a warp per query head, a lane per position; P.V by threads
 //    that own (head, column pair).
 // With one split the block writes the output; with more, each writes its
-// partial (acc[g][D], m, l) in f32 to scratch and paged_merge_kernel (a
-// second launch) combines them by their log-sum-exp weights.
+// heads' partials (acc[gh][D], m, l) in f32 to scratch, laid out (B, KH,
+// n_split, g, D + 2) whatever the grouping, and paged_merge_kernel (a
+// second launch, one block per (query head, sequence)) combines them by
+// their log-sum-exp weights.
 //
 // Given an `lse` buffer (f32, (B, H) contiguous; nullptr for none, as
 // serving passes), the launch is one part of a split sequence, as
@@ -105,6 +114,7 @@ __host__ __device__ constexpr int k_stride() {
   return D + ((64 - int(D * sizeof(T)) % 128 + 128) % 128) / int(sizeof(T));
 }
 
+// shared memory of a block that serves g query heads
 template <typename T, int D>
 size_t smem_bytes(int g) {
   // K tiles [2][kTP][k_stride], V tiles [2][kTP][D] in T; then f32
@@ -151,15 +161,19 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ lengths, void* __restrict__ o,
                    float* __restrict__ part, float* __restrict__ lse, int H,
-                   int KH, int page, int NP, int split, int n_split, long long qsb, long long qsh,
-                   Pool ks, Pool vs, long long btsb, long long osb,
-                   long long osh, float scale) {
+                   int KH, int n_hgroups, int page, int NP, int split,
+                   int n_split, long long qsb, long long qsh, Pool ks,
+                   Pool vs, long long btsb, long long osb, long long osh,
+                   float scale) {
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int RC = D / CH;          // chunks per row
   constexpr int LK = k_stride<T, D>();
   static_assert(RC % 4 == 0, "a row's chunks must split over 4 lanes");
-  const int g = H / KH;
-  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  // this block's kv head hk and its query heads h0 .. h0 + g - 1 (g of the
+  // kv head's H / KH)
+  const int g = H / KH / n_hgroups;
+  const int hk = blockIdx.x / n_hgroups, b = blockIdx.y, sp = blockIdx.z;
+  const int h0 = hk * (H / KH) + (blockIdx.x % n_hgroups) * g;
   const int length = lengths[b];
   const int span = NP * page;
   const int n_valid = min(length, span);  // unmasked positions
@@ -170,10 +184,10 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     if (n_pos == 0 && sp == 0 && part == nullptr) {
       // an empty part with one split: no merge writes its output
       for (int idx = threadIdx.x; idx < g * D; idx += kThreads)
-        store_out<T>(o, true, b * osb + (hk * g + idx / D) * osh + idx % D,
+        store_out<T>(o, true, b * osb + (h0 + idx / D) * osh + idx % D,
                      0.f);
       for (int gi = threadIdx.x; gi < g; gi += kThreads)
-        lse[static_cast<long long>(b) * H + hk * g + gi] = -INFINITY;
+        lse[static_cast<long long>(b) * H + h0 + gi] = -INFINITY;
     }
     return;
   }
@@ -214,7 +228,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   for (int idx = tid; idx < g * D; idx += kThreads) {
     const int gi = idx / D, d = idx % D;
-    Qs[idx] = to_f32(q[b * qsb + (hk * g + gi) * qsh + d]) * scale;
+    Qs[idx] = to_f32(q[b * qsb + (h0 + gi) * qsh + d]) * scale;
     Acc[idx] = 0.f;
   }
   for (int gi = tid; gi < g; gi += kThreads) {
@@ -308,18 +322,19 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (part == nullptr) {  // one split: the output itself
     for (int idx = tid; idx < g * D; idx += kThreads) {
       const int gi = idx / D, d = idx % D;
-      store_out<T>(o, f32_out, b * osb + (hk * g + gi) * osh + d,
+      store_out<T>(o, f32_out, b * osb + (h0 + gi) * osh + d,
                    Acc[idx] / fmaxf(Ls[gi], 1e-30f));
     }
     if (lse != nullptr)
       for (int gi = tid; gi < g; gi += kThreads)
-        lse[static_cast<long long>(b) * H + hk * g + gi] =
+        lse[static_cast<long long>(b) * H + h0 + gi] =
             Ms[gi] + logf(fmaxf(Ls[gi], 1e-30f));
     return;
   }
-  // partial of split sp: part[b][hk][sp][gi] = (acc[0..D), m, l)
-  float* pb = part + ((static_cast<long long>(b) * KH + hk) * n_split + sp) *
-                         g * (D + 2);
+  // partial of split sp: part[b][hk][sp][h - hk * H / KH] = (acc[0..D), m,
+  // l) for this block's heads h
+  float* pb = part + (((static_cast<long long>(b) * KH + hk) * n_split + sp) *
+                          (H / KH) + h0 - hk * (H / KH)) * (D + 2);
   for (int idx = tid; idx < g * D; idx += kThreads)
     pb[(idx / D) * (D + 2) + idx % D] = Acc[idx];
   for (int gi = tid; gi < g; gi += kThreads) {
@@ -329,7 +344,9 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 }
 
 // out[b, h] from the partials of the splits that ran, weighted by
-// exp(m_split - max m): one block per (kv head, sequence)
+// exp(m_split - max m): one block per (query head, sequence), so that a
+// few kv heads (recurrentgemma's one) still merge on as many blocks as
+// there are query heads
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_merge_kernel(const float* __restrict__ part,
@@ -337,14 +354,13 @@ paged_merge_kernel(const float* __restrict__ part,
                    float* __restrict__ lse, int H, int KH, int page, int NP,
                    int split, int n_split, long long osb, long long osh) {
   const int g = H / KH;
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, hk = h / g, gi = h % g, b = blockIdx.y;
   const bool f32_out = lse != nullptr;
   const int n_pos = positions(lengths[b], NP * page, f32_out);
   const int ran = (n_pos + split - 1) / split;
   const float* pb =
       part + (static_cast<long long>(b) * KH + hk) * n_split * g * (D + 2);
-  for (int idx = threadIdx.x; idx < g * D; idx += kThreads) {
-    const int gi = idx / D, d = idx % D;
+  for (int d = threadIdx.x; d < D; d += kThreads) {
     float mx = -INFINITY;
     for (int s = 0; s < ran; ++s)
       mx = fmaxf(mx, pb[(s * g + gi) * (D + 2) + D]);
@@ -355,35 +371,38 @@ paged_merge_kernel(const float* __restrict__ part,
       num = fmaf(ps[d], w, num);
       den = fmaf(ps[D + 1], w, den);
     }
-    store_out<T>(o, f32_out, b * osb + (hk * g + gi) * osh + d,
-                 num / fmaxf(den, 1e-30f));
+    store_out<T>(o, f32_out, b * osb + h * osh + d, num / fmaxf(den, 1e-30f));
     if (f32_out && d == 0)
-      lse[static_cast<long long>(b) * H + hk * g + gi] =
-          mx + logf(fmaxf(den, 1e-30f));
+      lse[static_cast<long long>(b) * H + h] = mx + logf(fmaxf(den, 1e-30f));
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* lengths, void* o, float* part, float* lse, int B,
-           int H, int KH,
-           int page, int NP, int split, int n_split, long long qsb,
-           long long qsh, Pool ks, Pool vs, long long btsb, long long osb,
-           long long osh, float scale, cudaStream_t stream) {
-  if (split % kTP || n_split < 1 || (n_split > 1) != (part != nullptr))
+           int H, int KH, int n_hgroups, int page, int NP, int split,
+           int n_split, long long qsb, long long qsh, Pool ks, Pool vs,
+           long long btsb, long long osb, long long osh, float scale,
+           int* grid, cudaStream_t stream) {
+  if (split % kTP || n_split < 1 || (n_split > 1) != (part != nullptr) ||
+      n_hgroups < 1 || (H / KH) % n_hgroups)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes<T, D>(H / KH);
+  const size_t bytes = smem_bytes<T, D>(H / KH / n_hgroups);
   cudaError_t err = cudaFuncSetAttribute(
       paged_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  paged_split_kernel<T, D><<<dim3(KH, B, n_split), kThreads, bytes, stream>>>(
+  const dim3 blocks(KH * n_hgroups, B, n_split);
+  paged_split_kernel<T, D><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, lengths, o, part, lse, H, KH, page, NP,
-      split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
+      static_cast<const T*>(vp), bt, lengths, o, part, lse, H, KH, n_hgroups,
+      page, NP, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
+  grid[0] = blocks.x;
+  grid[1] = blocks.y;
+  grid[2] = blocks.z;
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  paged_merge_kernel<T, D><<<dim3(KH, B), kThreads, 0, stream>>>(
+  paged_merge_kernel<T, D><<<dim3(H, B), kThreads, 0, stream>>>(
       part, lengths, o, lse, H, KH, page, NP, split, n_split, osb, osh);
   return static_cast<int>(cudaGetLastError());
 }
@@ -391,15 +410,16 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
 template <typename T>
 int launch_d(int D, const void* q, const void* kp, const void* vp,
              const int* bt, const int* lengths, void* o, float* part,
-             float* lse, int B, int H, int KH, int page, int NP, int split, int n_split,
-             long long qsb, long long qsh, Pool ks, Pool vs, long long btsb,
-             long long osb, long long osh, float scale, cudaStream_t stream) {
+             float* lse, int B, int H, int KH, int n_hgroups, int page,
+             int NP, int split, int n_split, long long qsb, long long qsh,
+             Pool ks, Pool vs, long long btsb, long long osb, long long osh,
+             float scale, int* grid, cudaStream_t stream) {
   switch (D) {
 #define PAGED_CASE(DD)                                                      \
   case DD:                                                                  \
     return launch<T, DD>(q, kp, vp, bt, lengths, o, part, lse, B, H, KH,     \
-                         page, NP, split, n_split, qsb, qsh, ks, vs, btsb,   \
-                         osb, osh, scale, stream);
+                         n_hgroups, page, NP, split, n_split, qsb, qsh, ks,  \
+                         vs, btsb, osb, osh, scale, grid, stream);
     PAGED_CASE(32)
     PAGED_CASE(64)
     PAGED_CASE(96)
@@ -417,36 +437,41 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
 // Strides are in elements; the D axis is contiguous and every row starts on
 // a 16-byte boundary; block_table's page axis is contiguous; block_table
 // and lengths are int32.  `split` (a multiple of 32) positions per block,
-// n_split blocks per (kv head, sequence); with n_split > 1, `part` is f32
-// scratch of B * KH * n_split * (H / KH) * (D + 2) elements, else null.
+// n_split blocks per (kv head, sequence) and, across them, n_hgroups
+// blocks per kv head (n_hgroups divides H / KH); with n_split > 1, `part`
+// is f32 scratch of B * KH * n_split * (H / KH) * (D + 2) elements, else
+// null.  grid[0..3) is set to the split launch's grid (KH * n_hgroups, B,
+// n_split).
 // lse: f32 (B, H) contiguous, or null; given, the launch is a part of a
 // split sequence: `o` is f32, and a length <= 0 reads nothing (out 0, lse
 // -INFINITY).
 extern "C" int paged_attention_launch(
     int device, int dtype, const void* q, const void* kp, const void* vp,
     const int* bt, const int* lengths, void* o, float* part, float* lse,
-    int B, int H, int KH, int page, int NP, int D, int split, int n_split, long long qsb,
-    long long qsh, long long ksp, long long kso, long long ksh,
-    long long vsp, long long vso, long long vsh, long long btsb,
-    long long osb, long long osh, float scale, cudaStream_t stream) {
+    int B, int H, int KH, int n_hgroups, int page, int NP, int D, int split,
+    int n_split, long long qsb, long long qsh, long long ksp, long long kso,
+    long long ksh, long long vsp, long long vso, long long vsh,
+    long long btsb, long long osb, long long osh, float scale, int* grid,
+    cudaStream_t stream) {
+  grid[0] = grid[1] = grid[2] = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || H == 0) return 0;
   const Pool ks{ksp, kso, ksh}, vs{vsp, vso, vsh};
   if (dtype == 0)
     return launch_d<float>(D, q, kp, vp, bt, lengths, o, part, lse, B, H,
-                           KH, page, NP, split, n_split, qsb, qsh, ks, vs,
-                           btsb, osb, osh, scale, stream);
+                           KH, n_hgroups, page, NP, split, n_split, qsb, qsh,
+                           ks, vs, btsb, osb, osh, scale, grid, stream);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, q, kp, vp, bt, lengths, o, part, lse,
-                                   B, H, KH, page, NP, split, n_split, qsb,
-                                   qsh, ks, vs, btsb, osb, osh, scale,
-                                   stream);
+                                   B, H, KH, n_hgroups, page, NP, split,
+                                   n_split, qsb, qsh, ks, vs, btsb, osb, osh,
+                                   scale, grid, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of one split block (dtype as above) for g query
-// heads per kv head, 0 for an unknown D
+// dynamic shared memory of one split block (dtype as above) that serves g
+// query heads, 0 for an unknown D
 extern "C" int paged_attention_smem_bytes(int dtype, int D, int g) {
   switch (D) {
 #define PAGED_SMEM(DD)                                              \

@@ -8,20 +8,22 @@ Replaces the Pallas TPU kernel
 H100 SXM: 4 * B * H * D * (unmasked query-key pairs) operations over 989
 TFLOP/s in bf16 (67 TFLOP/s in f32), or the bytes of q, k, v and out over
 3.35 TB/s, whichever is larger; at the prefill shape (B 2, S 4096, H 16,
-KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design in bf16 at D
-``FWD_TENSOR_CORE_DIMS`` (32, 64, 80, 96, 128): one block per (128-query
-tile, head, batch), longest tiles first; a producer warp streams the Q
-tile and a ring of 64-key K/V tiles into shared memory with TMA (tensor
-maps encoded in the C launcher, 128-byte swizzle; at D 80 and 96 a row is
-a 64-column box and a tail box of 16 or 32 columns with its own map and
-swizzle, so every product runs at the true width); two consumer
-warpgroups run S = Q K^T and O += P V as ``wgmma`` on the tensor cores,
-the online softmax in registers, with P split into bf16 hi + lo so that
-the output stays within two bf16 ulps of the f32 reference.  In f32 at
-every D, and in bf16 at D 256 (whose tiles and output fragment do not
-fit): one block per (64-query tile, head, batch), inputs converted to f32
-as they are staged, products as f32 FMAs on the CUDA cores, one rounding
-at the store.  Both skip key tiles their masks cover wholly; any S (rows
+KH 8, D 128, causal) about 137 GFLOP, 0.14 ms.  Design in bf16, at every
+D (``FWD_TENSOR_CORE_DIMS``): one block per (128-query tile, head, batch),
+longest tiles first; a producer streams the Q tile and a ring of 64-key
+K/V tiles into shared memory with TMA (tensor maps encoded in the C
+launcher, 128-byte swizzle; at D 80 and 96 a row is a 64-column box and a
+tail box of 16 or 32 columns with its own map and swizzle, so every
+product runs at the true width); two consumer warpgroups run S = Q K^T
+and O += P V as ``wgmma`` on the tensor cores, the online softmax in
+registers, with P split into bf16 hi + lo so that the output stays within
+two bf16 ulps of the f32 reference.  Up to D 128 the producer is one warp
+and the ring three stages; at D 256 (64 KB a Q tile, 64 KB a K+V stage, a
+128-register output fragment a consumer thread) the ring has two stages
+and the producer is a warpgroup that hands its registers to the consumers
+(``setmaxnreg``: 240 a consumer thread).  In f32, at every D: one block
+per (64-query tile, head, batch), products as f32 FMAs on the CUDA cores.
+Both skip key tiles their masks cover wholly; any S (rows
 past S read as zeros and are masked), any strides with a contiguous,
 16-byte aligned D axis, D in ``HEAD_DIMS``.
 
@@ -87,7 +89,7 @@ HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 # direction (``kTensorCoresFwd`` and ``kTensorCoresBwd`` of
 # csrc/attention_common.cuh); f32, and bf16 at the others, run the
 # CUDA-core kernels
-FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128)
+FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128, 256)
 BWD_TENSOR_CORE_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -9,16 +9,23 @@ one page per sequence under the identity block table).  Bound on an H100
 SXM: the K and V rows of the valid positions over 3.35 TB/s (up to
 1.07 GB, 0.32 ms, at decode_32k: B 8, KH 8, D 128, bf16, lengths up to
 32,768).  Design (flash decoding): the sequence is split across blocks,
-one per (kv head, sequence, split of ``split`` positions), each serving
-that kv head's g query heads; a block double-buffers 32-position tiles of
-K/V rows with ``cp.async`` through the block table (any page size; a page
-may end inside a tile; entries past ceil(length / page) are never read)
-and runs an online softmax in f32.  ``split_plan`` sizes the split from
-the block table's span, never from ``lengths`` (which stay on the device):
-with one split (any span up to ``SPLIT``, the serve's 40-row slots) the
-block writes the output in one launch; with more, the blocks write f32
-partials to scratch and a second launch merges them by their log-sum-exp
-weights.
+one per (kv head, group of its query heads, sequence, split of ``split``
+positions); a block double-buffers 32-position tiles of K/V rows with
+``cp.async`` through the block table (any page size; a page may end
+inside a tile; entries past ceil(length / page) are never read) and runs
+an online softmax in f32 for its group's heads.  The plan comes from
+shapes, never from ``lengths`` (which stay on the device):
+``split_plan`` sizes the split from the block table's span -- with one
+split (any span up to ``SPLIT``, the serve's 40-row slots) the blocks
+write the output in one launch; with more, they write f32 partials to
+scratch and a second launch merges them by their log-sum-exp weights --
+and ``head_group_plan`` splits a kv head's g query heads over
+``n_hgroups`` blocks while the grid would have fewer blocks than the card
+has streaming multiprocessors (``fill_blocks``: 132 on an H100 SXM): one
+group, so each K/V row is read once, wherever the grid fills the card
+(decode_32k: 4,096 blocks), and up to g groups of one head at
+recurrentgemma's MQA (KH 1, g 16: at B 1 the 40-row slot would be one
+block).
 
 ``paged_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.decode_attention`` sends CPU
@@ -32,11 +39,14 @@ comes in f32, unrounded, so that the merge rounds once; and a length <= 0
 (a part past its sequence's length, whose weight is 0) reads nothing:
 output 0, lse -inf.
 ``counter`` counts one per call that launches the kernel, tallied by head
-dim.
+dim, and ``counter_plan`` the same launches tallied by the grid the C
+launcher reports it ran (a ``Plan``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,9 +54,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 __all__ = ["paged_attention_cuda", "paged_attention_ref", "counter",
-           "split_plan", "HEAD_DIMS", "SPLIT", "TILE"]
+           "counter_plan", "split_plan", "head_group_plan", "fill_blocks",
+           "Plan", "HEAD_DIMS", "SPLIT", "TILE"]
 
 counter = build.LaunchCounter("paged_attention")
+counter_plan = build.LaunchCounter("paged_attention_plan")
 HEAD_DIMS = (32, 64, 96, 128, 256)
 TILE = 32           # positions per tile of the kernel
 SPLIT = 512         # positions per block, unless the span needs more
@@ -56,8 +68,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"paged_attention_launch": (
     ctypes.c_int,
-    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_L] * 11
-    + [ctypes.c_float, _P])}
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9 + [_L] * 11
+    + [ctypes.c_float, ctypes.POINTER(ctypes.c_int * 3), _P])}
+
+
+class Plan(NamedTuple):
+    """The grid of one launch, as the C launcher reports it:
+    ``head_groups`` blocks per kv head, ``splits`` per sequence, ``blocks``
+    in all (of the split launch; the merge adds H x B when ``splits >
+    1``)."""
+    head_groups: int
+    splits: int
+    blocks: int
 
 
 def split_plan(span: int) -> tuple[int, int]:
@@ -70,6 +92,28 @@ def split_plan(span: int) -> tuple[int, int]:
     return split, -(-span // split)
 
 
+def head_group_plan(b: int, kh: int, g: int, span: int, fill: int) -> int:
+    """``n_hgroups``, the blocks over which each kv head's ``g`` query
+    heads are split, for ``b`` sequences of ``kh`` kv heads over a block
+    table that spans ``span`` rows: the fewest groups (a divisor of ``g``)
+    that give the grid ``fill`` blocks (``fill_blocks``), or ``g`` groups
+    of one head when none does.  One group reads each K/V row once; more
+    read it once a group (from L2 after the first) but put more SMs on a
+    small grid."""
+    blocks = b * kh * split_plan(span)[1]
+    n = 1
+    while n < g and blocks * n < fill:
+        n = next(d for d in range(n + 1, g + 1) if g % d == 0)
+    return n
+
+
+@functools.cache
+def fill_blocks(device: torch.device) -> int:
+    """The grid that fills the card: one block a streaming multiprocessor
+    (132 on an H100 SXM, 114 on an H100 PCIe)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
                          lengths: torch.Tensor, *, return_lse: bool = False):
@@ -80,6 +124,14 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     reference's).  With ``return_lse``: ``(out, lse)``, out (B, H, D) in
     f32 and lse (B, H) f32, and a length <= 0 reads nothing (out 0, lse
     -inf)."""
+    return _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
+                   None)
+
+
+def _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
+            n_hgroups):
+    """``paged_attention_cuda`` with ``n_hgroups`` head groups (a divisor
+    of H / KH), or ``head_group_plan``'s when None."""
     build.require_cuda_views(
         "paged_attention",
         {"q": q, "k_pages": k_pages, "v_pages": v_pages,
@@ -110,6 +162,12 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if kh > 65535 or b > 65535:
         raise ValueError(f"paged_attention: grid too large for {q.shape}")
     split, n_split = split_plan(np_ * page)
+    if n_hgroups is None:
+        n_hgroups = head_group_plan(b, kh, h // kh, np_ * page,
+                                    fill_blocks(q.device))
+    elif n_hgroups < 1 or (h // kh) % n_hgroups:
+        raise ValueError(f"paged_attention: {n_hgroups} head groups do not "
+                         f"divide {h // kh} query heads a kv head")
     out = torch.empty((b, h, d), device=q.device,
                       dtype=torch.float32 if return_lse else q.dtype)
     lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
@@ -120,16 +178,19 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                            dtype=torch.float32, device=q.device)
     dev = q.device
     lib = build.library("paged_attention", _SIGNATURES)
+    grid = (ctypes.c_int * 3)()
     err = lib.paged_attention_launch(
         dev.index, _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, h, kh, page, np_, d, split, n_split,
-        q.stride(0), q.stride(1),
+        None if lse is None else lse.data_ptr(), b, h, kh, n_hgroups, page,
+        np_, d, split, n_split, q.stride(0), q.stride(1),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
         block_table.stride(0), out.stride(0), out.stride(1),
-        d ** -0.5, build.stream_of(q))
+        d ** -0.5, ctypes.byref(grid), build.stream_of(q))
     build.check(lib, err, "paged_attention")
     counter.add(d)
+    counter_plan.add(Plan(grid[0] // kh, grid[2],
+                          grid[0] * grid[1] * grid[2]))
     return (out, lse) if return_lse else out

@@ -568,8 +568,8 @@ def test_paged_attention_launches_per_split_plan(cuda_device):
 def test_flash_attention_new_head_dims_match_plain_on_card(cuda_device, dt, b,
                                                            h, kh, s, d,
                                                            causal, window):
-    """Head dims 80, 96 and 256 (in bf16 the tensor cores at 80 and 96,
-    the CUDA cores at 256; f32 on the CUDA cores) at the shapes and masks
+    """Head dims 80, 96 and 256 (in bf16 the tensor cores, at D 256 in
+    the two-stage geometry; f32 on the CUDA cores) at the shapes and masks
     of the models that use them, and ragged; and deepseek-moe-16b's D 128
     prefill, whose kv heads are its query heads."""
     dtype, tol = ATT_DTYPES[dt]
@@ -618,6 +618,42 @@ def test_paged_attention_new_head_dims_match_plain_on_card(cuda_device, dt, h,
     _assert_close(got, pa.paged_attention_ref(*args), tol)
 
 
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("span,lengths", [
+    (40, range(1, 41)),                          # the serve's 40-row slot
+    (2048, (1, 511, 512, 513, 1500, 2047, 2048))])  # the full ring
+@pytest.mark.parametrize("n_hgroups", [None, 1, 4])
+def test_paged_attention_mqa_head_groups_on_card(cuda_device, dt, span,
+                                                 lengths, n_hgroups):
+    """recurrentgemma-9b's decode attention (H 16 on one kv head, D 256,
+    B 1) over its serve slot and its full 2,048-row ring, with the query
+    heads split as the host plans (``head_group_plan``: 16 groups), in 4
+    groups and in none (through the launcher's private ``_launch``): every
+    length against the plain version, and every launch ran the grid asked
+    for, as the launcher reports it (``counter_plan``)."""
+    dtype, tol = ATT_DTYPES[dt]
+    q = _randn((1, 16, 256), dtype, cuda_device, span)
+    kp = _randn((1, span, 1, 256), dtype, cuda_device, span + 1)
+    vp = _randn((1, span, 1, 256), dtype, cuda_device, span + 2)
+    ident = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    n_split = pa.split_plan(span)[1]
+    groups = n_hgroups or pa.head_group_plan(
+        1, 1, 16, span, pa.fill_blocks(cuda_device))
+    assert n_hgroups is not None or groups == 16
+    pa.counter_plan.reset()
+    for n in lengths:
+        ln = torch.full((1,), n, dtype=torch.int32, device=cuda_device)
+        got = pa._launch(q, kp, vp, ident, ln, False, n_hgroups)
+        _assert_close(got, pa.paged_attention_ref(q, kp, vp, ident, ln), tol)
+    assert pa.counter_plan.by_size == {
+        pa.Plan(groups, n_split, groups * n_split): len(lengths)}
+    out, lse = pa._launch(q, kp, vp, ident, ln, True, n_hgroups)
+    want, want_lse = pa.paged_attention_ref(q, kp, vp, ident, ln,
+                                            return_lse=True)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
 def test_attention_wrappers_check_their_inputs_on_card(cuda_device):
     q = torch.zeros((1, 4, 64, 32), device=cuda_device)
     with pytest.raises(ValueError, match="expected one of"):
@@ -643,6 +679,8 @@ def test_attention_wrappers_check_their_inputs_on_card(cuda_device):
     pad = torch.zeros((4, 16, 2, 33), device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         pa.paged_attention_cuda(qd, pool, pad[..., 1:], bt, ln)
+    with pytest.raises(ValueError, match="head groups"):
+        pa._launch(qd, pool, pool, bt, ln, False, 3)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-32b"])
@@ -1159,8 +1197,8 @@ def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
 def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
     """With ``return_lse`` the forward also returns its f32 output, which
     rounds to its bf16 output bit for bit and stays within the plain f32
-    output's rounding, in both designs (D 80, 96 and 128 tensor cores, D
-    256 CUDA cores); in f32 it is the output itself."""
+    output's rounding, in both geometries of the tensor-core design (D 80,
+    96 and 128; D 256); in f32 it is the output itself."""
     q = _randn((1, 4, 300, d), torch.bfloat16, cuda_device, 1)
     k, v = (_randn((1, 2, 300, d), torch.bfloat16, cuda_device, i)
             for i in (2, 3))
@@ -1176,12 +1214,13 @@ def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
     assert o32 is o
 
 
-def _gpu_kernel_names(fn) -> list[str]:
+def _gpu_kernel_names(fn, launches: int = 1) -> list[str]:
     """Names of the GPU kernels one call of ``fn()`` launches, by
     ``torch.profiler`` with CPU and CUDA activities, after a warm-up call
-    (a session that records no GPU events is run again, up to five
-    times; late in a long process every session may record none, and the
-    list is then empty)."""
+    (a session that records fewer than ``launches`` GPU events, the
+    launches the call makes, is run again, up to five times; late in a
+    long process a session may drop some or all of them, and the last
+    session's list is returned, empty when it recorded none)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1192,9 +1231,9 @@ def _gpu_kernel_names(fn) -> list[str]:
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        if len(names) >= launches:
             return names
-    return []
+    return names
 
 
 @pytest.mark.parametrize("d", [80, 96])
@@ -1234,13 +1273,13 @@ def test_flash_attention_d80_d96_tensor_cores_match_plain_on_card(
 
 @pytest.mark.parametrize("dt,d,design", [
     ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 80, "tc"),
-    ("bf16", 96, "tc"), ("bf16", 128, "tc"), ("bf16", 256, "cc"),
+    ("bf16", 96, "tc"), ("bf16", 128, "tc"), ("bf16", 256, "tc"),
     ("f32", 80, "cc"), ("f32", 96, "cc"), ("f32", 128, "cc")])
 def test_flash_attention_fwd_design_on_card(cuda_device, dt, d, design):
-    """bf16 at D 32/64/80/96/128 runs ``flash_fwd_bf16`` (the tensor
-    cores); bf16 at D 256, and f32, ``flash_fwd_cc``: the design the
-    launcher reports (``counter_tc``) and, where the profiler records the
-    call, one kernel, the design's entry."""
+    """bf16 at every head dim (32/64/80/96/128/256) runs
+    ``flash_fwd_bf16`` (the tensor cores); f32 ``flash_fwd_cc``: the design
+    the launcher reports (``counter_tc``) and, where the profiler records
+    the call, one kernel, the design's entry."""
     dtype = ATT_DTYPES[dt][0]
     assert (d in fa.FWD_TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
     q = _randn((1, 4, 256, d), dtype, cuda_device, 1)
@@ -1275,7 +1314,7 @@ def test_flash_attention_bwd_design_on_card(cuda_device, dt, d, design):
     assert fa.counter_bwd.count == c0 + 1
     assert fa.counter_bwd_tc.count == t0 + (design == "tc")
     names = _gpu_kernel_names(
-        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse))
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse), 3)
     want = (("flash_bwd_delta", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")
             if design == "tc" else
             ("flash_bwd_delta", "flash_bwd_dkdv<", "flash_bwd_dq<"))

@@ -33,9 +33,15 @@ JAX reference, so that it is held to the reference before it runs on a card.
 * ``paged_attention`` (flash decoding): ``paged_attention_split_ref``, the
   split-and-merge the kernel computes, equals ``paged_attention_ref``, the
   JAX reference and the Pallas kernel in interpret mode, at splits and
-  lengths on and around the split boundaries.
-* the launcher's split plan: ``split_plan`` sizes the split from the block
-  table's span, and one split (the serve's shape) means one launch.
+  lengths on and around the split boundaries; so does an emulation of the
+  kernel's blocks with a kv head's query heads split into groups (each
+  block's partials written where the kernel writes them, then merged as
+  the merge launch does).
+* the launcher's plans: ``split_plan`` sizes the split from the block
+  table's span, and one split (the serve's shape) means one launch;
+  ``head_group_plan`` splits the query heads of a kv head only while the
+  grid is short of one block a streaming multiprocessor (132 on an H100
+  SXM, 114 on an H100 PCIe).
 * ``wc_combine`` (one launch, tiled single pass): an emulation of the
   kernel's tiles -- neighbour flags, the thread-serial, warp and block
   max-scans of head indices, and one warp's 32-way search for the start of
@@ -172,6 +178,8 @@ FLASH_CASES = [
     (2, 4, 4, 300, 80, False, 0),     # hubert-xlarge's: D 80, no mask, ragged
     (1, 4, 4, 600, 96, True, 0),      # phi-3-vision's: D 96, causal, ragged
     (1, 4, 2, 512, 80, True, 100),    # D 80 with GQA and a window
+    (1, 4, 1, 320, 256, True, 64),    # recurrentgemma's: D 256, windowed MQA
+    (1, 2, 1, 200, 256, False, 0),    # D 256, no mask, ragged
 ]
 
 
@@ -409,6 +417,126 @@ def test_paged_split_plan_of_the_serve_and_decode_32k_shapes():
     runs 64 splits and the merge."""
     assert pa.split_plan(1 * 40)[1] == 1
     assert pa.split_plan(2048 * 16) == (pa.SPLIT, 64)
+
+
+SXM, PCIE = 132, 114   # streaming multiprocessors of an H100 SXM, PCIe
+
+
+@pytest.mark.parametrize("b,kh,g,span,fill,n_hgroups", [
+    (1, 1, 16, 40, SXM, 16),    # recurrentgemma's serve slot: 1 -> 16 blocks
+    (1, 1, 16, 2048, SXM, 16),  # its full ring: 4 splits -> 64 blocks
+    (1, 1, 16, 33 * 512, SXM, 4),   # 33 splits: 4 groups reach 132 blocks
+    (1, 1, 16, 65536, SXM, 2),  # 128 splits: 2 groups
+    (8, 8, 2, 32768, SXM, 1),   # decode_32k: 4,096 blocks already
+    (64, 8, 2, 4096, SXM, 1),   # the split decode's 64 parts: 4,096 blocks
+    (1, 8, 2, 40, SXM, 2),      # qwen3-0.6b's serve slot: 8 -> 16 blocks
+    (1, 32, 1, 40, SXM, 1),     # phi-3-vision: g = 1, nothing to split
+    (1, 16, 1, 40, SXM, 1),     # deepseek-moe: g = 1
+    (1, 2, 6, 40, SXM, 6),      # g = 6: every divisor short, 6 groups
+    (1, 2, 6, 32 * 512, SXM, 3),    # 64 blocks: 3 groups of 2 heads reach 192
+    (66, 1, 4, 40, SXM, 2),     # 66 blocks: 2 groups reach 132
+    (1, 1, 16, 15 * 512, SXM, 16),  # 15 splits: 8 groups give 120 < 132
+    (1, 1, 16, 15 * 512, PCIE, 8),  # ... and fill a card of 114 SMs
+])
+def test_paged_head_group_plan(b, kh, g, span, fill, n_hgroups):
+    got = pa.head_group_plan(b, kh, g, span, fill)
+    assert got == n_hgroups
+    assert g % got == 0
+    blocks = b * kh * pa.split_plan(span)[1]
+    # the fewest groups that reach `fill` blocks, or all g when none does
+    assert blocks * got >= fill or got == g
+    assert all(blocks * d < fill for d in range(1, got) if g % d == 0)
+
+
+def paged_head_group_emulation(q, k_pages, v_pages, block_table, lengths,
+                               split, n_hgroups):
+    """The kernel's blocks in plain PyTorch (f32): block (x, b, sp) of the
+    grid (KH x n_hgroups, B, n_split) takes kv head x // n_hgroups and its
+    query heads h0 .. h0 + gh - 1 (h0 = kv head x g + (x % n_hgroups) gh),
+    over positions [sp split, (sp + 1) split) of the sequence's (its
+    length, clipped to the span, or the whole span for a length <= 0);
+    it writes the output itself with one split, else (acc, m, l) of each
+    of its heads into the (B, KH, n_split, g, D + 2) scratch at the
+    kernel's offset, and the merge combines each head's splits that ran by
+    exp(m - max m)."""
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    g, span = h // kh, block_table.shape[1] * page
+    gh = g // n_hgroups
+    n_split = -(-span // split)
+    bt = block_table.long()
+    kd = k_pages[bt].reshape(b, span, kh, d).float()
+    vd = v_pages[bt].reshape(b, span, kh, d).float()
+    qf = q.float() * d ** -0.5
+    out = torch.full((b, h, d), float("nan"))
+    part = torch.full((b * kh * n_split * g * (d + 2),), float("nan"))
+    for x in range(kh * n_hgroups):
+        hk = x // n_hgroups
+        h0 = hk * g + (x % n_hgroups) * gh
+        for bi in range(b):
+            ln = int(lengths[bi])
+            n_pos = min(ln, span) if ln >= 1 else span
+            for sp in range(n_split):
+                p0 = sp * split
+                if p0 >= n_pos:
+                    continue
+                pos = torch.arange(p0, min(p0 + split, n_pos))
+                sc = qf[bi, h0:h0 + gh] @ kd[bi, pos, hk].T
+                sc = torch.where(pos < ln, sc, NEG_INF)
+                m = sc.amax(-1)
+                p = torch.exp(sc - m[:, None])
+                acc, l_ = p @ vd[bi, pos, hk], p.sum(-1)
+                if n_split == 1:
+                    out[bi, h0:h0 + gh] = acc / l_.clamp(min=1e-30)[:, None]
+                    continue
+                off = (((bi * kh + hk) * n_split + sp) * g + h0 - hk * g) \
+                    * (d + 2)
+                part[off:off + gh * (d + 2)] = torch.cat(
+                    [acc, m[:, None], l_[:, None]], 1).reshape(-1)
+    if n_split > 1:
+        for hk in range(kh):
+            for bi in range(b):
+                ln = int(lengths[bi])
+                n_pos = min(ln, span) if ln >= 1 else span
+                ran = -(-n_pos // split)
+                base = (bi * kh + hk) * n_split * g * (d + 2)
+                pb = part[base:base + ran * g * (d + 2)].reshape(ran, g, d + 2)
+                w = torch.exp(pb[..., d] - pb[..., d].amax(0))
+                den = (pb[..., d + 1] * w).sum(0).clamp(min=1e-30)
+                out[bi, hk * g:(hk + 1) * g] = \
+                    (pb[..., :d] * w[..., None]).sum(0) / den[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("h,kh,split,n_hgroups", [
+    (8, 2, 16, 2), (8, 2, 64, 4), (8, 2, 512, 4),   # grouped, 6 / 2 / 1 splits
+    (4, 1, 16, 4), (4, 1, 512, 2)])                 # MQA, as recurrentgemma
+def test_paged_head_groups_equal_reference_and_pallas_interpret(
+        h, kh, split, n_hgroups):
+    """The head-group partition (heads x splits, then the merge) against
+    ``paged_attention_ref``, the same emulation with one group (the
+    unsplit heads), the JAX reference and the Pallas kernel in interpret
+    mode, in f32, at lengths 0, 1, on a split boundary and the full span
+    (96 rows)."""
+    rng = np.random.default_rng(h * split + n_hgroups)
+    (qj, kj, vj), (qt, kt, vt), bt = _paged_case(rng, 4, h, kh, 32, 16, 6,
+                                                 torch.float32)
+    ln = np.array([0, 1, min(split, 96), 96], np.int32)
+    args = (qt, kt, vt, torch.from_numpy(bt), torch.from_numpy(ln))
+    got = paged_head_group_emulation(*args, split, n_hgroups)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, paged_attention_ref(*args), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(got, paged_head_group_emulation(*args, split,
+                                                               1),
+                               rtol=2e-6, atol=2e-6)
+    want_j = paged_attention_op(qj, kj, vj, jnp.asarray(bt), jnp.asarray(ln),
+                                interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_j, np.float32),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        j_paged_ref(qj, kj, vj, jnp.asarray(bt), jnp.asarray(ln)),
+        np.float32), rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------
