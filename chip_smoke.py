@@ -42,11 +42,14 @@ Phases (any mismatch raises, and the script exits non-zero):
    ``flash_attention_bwd_ref`` (``BWD_TOL``), both fed the kernel
    forward's output and ``lse`` (itself held to the plain version's): the
    training shape (B 2, S 4096, H 16, KH 8, D 128, causal) in bf16 and
-   f32, no mask, a 1024-token window and a ragged S, and a small shape at
-   each other head dim; kernel, plain, SDPA
-   backward and bound times, and the design each case ran, checked from
-   the profiler's kernel names (``BWD_ENTRIES``: the tensor-core entries
-   in bf16 at D 32/64/128, the CUDA-core ones otherwise).
+   f32, no mask, a 1024-token window and a ragged S, a small shape at
+   each other head dim, and the other families' training shapes
+   (``BWD_NEW``: hubert-xlarge's D 80, phi-3-vision's D 96,
+   recurrentgemma's windowed D 256); kernel, plain, SDPA backward (a
+   window as a boolean ``attn_mask``) and bound times, and the design each
+   case ran, checked from the profiler's kernel names (``BWD_ENTRIES``:
+   the tensor-core entries in bf16 at D 32/64/80/96/128, the CUDA-core
+   ones otherwise).
 2. the ``engine_json`` configuration (65,536 slots, batch 4096, 16 windows,
    write-intensive Zipf 0.99, 16 CNs) in all four SyncModes: every verb
    counter and the modeled Mops/s and latency percentiles must equal the
@@ -130,7 +133,8 @@ Phases (any mismatch raises, and the script exits non-zero):
     the choices the other side would have made must agree but for at most
     ``FLIP_MAX`` of them.
 
-15. training ``qwen3-0.6b`` at full width and depth (``TRAIN``):
+15. training every family at full width: first ``qwen3-0.6b`` at full
+    depth (``TRAIN``):
     ``repro_torch.launch.train.main`` for 8 steps at B 2 x S 4096 (random
     weights and Zipf tokens from seeds): losses finite and the last below
     the first; flash forward and backward launches a step (the forward
@@ -148,7 +152,18 @@ Phases (any mismatch raises, and the script exits non-zero):
     attention backward takes delta from the forward's f32 output (phase 1
     holds ``_FlashFn``'s gradients to the plain backward fed the plain f32
     output at ``BWD_EMU_CASES``); peak and step time print beside those
-    measured with the bf16 residual (``BF16_RESIDUAL``).
+    measured with the bf16 residual (``BF16_RESIDUAL``).  Then the other
+    five families one at a time (``TRAIN_FAMILIES``: hubert-xlarge B 2 x
+    1,024 frames and mamba2-1.3b B 2 x 4,096 at full depth, phi-3-vision
+    B 1 x 576 patches + 64 tokens, deepseek-moe-16b B 1 x 2,048 and
+    recurrentgemma-9b B 1 x 4,096 at the deepest that fits), each through
+    ``launch.train.train_step`` on one seeded batch: losses finite and
+    falling, the step's peak under ``TRAIN_PEAK_GIB``, ms a step, positions
+    a second, busy time and idle share of one profiled step, flash
+    launches a step and the backwards on the tensor cores (every one at D
+    80, 96 and 128, none at D 256), the backward's share of the busy time;
+    then ``train_vs_cpu`` at 2 layers (the hybrid 6), B 1 x S 256, the MoE
+    replaying the CPU's expert choices.
 
 16. the distribution and dry-run layer: (a) ``decode_attention_spmd`` at
     decode_32k (B 8, qwen3's H 16, KH 8, D 128, Smax 32,768, bf16,
@@ -265,8 +280,17 @@ FLASH_NEW = (("flash_attention_d80", "hubert-xlarge", 80, 2, 1024, 16, 16,
 PAGED_NEW = (("paged_attention_d96", "phi-3-vision-4.2b", 96, 32, 32),
              ("paged_attention_d256", "recurrentgemma-9b", 256, 16, 1),
              ("paged_attention_d128_mha", "deepseek-moe-16b", 128, 16, 16))
+# phase 15's families' attention backwards, at each model's training shape
+# (the rows of FLASH_NEW: row, model, D, B, S, H, KH, causal, window)
+BWD_NEW = (("flash_attention_bwd_d80", "hubert-xlarge", 80, 2, 1024, 16, 16,
+            False, 0),
+           ("flash_attention_bwd_d96", "phi-3-vision-4.2b", 96, 1, 640, 32,
+            32, True, 0),
+           ("flash_attention_bwd_d256", "recurrentgemma-9b", 256, 1, 4096,
+            16, 1, True, 2048))
 for _kernel, _rows in (("flash_attention", FLASH_NEW),
-                       ("paged_attention", PAGED_NEW)):
+                       ("paged_attention", PAGED_NEW),
+                       ("flash_attention_bwd", BWD_NEW)):
     for _row in _rows:
         ATTN_META[_row[0]] = dict(ATTN_META[_kernel], main=_row[1],
                                   d=_row[2], kernel=_kernel)
@@ -1065,16 +1089,25 @@ def check_entries(kernel: str, top, want: tuple, design: str,
 def phase1_backward(dev, card: str, out: dict) -> None:
     """``flash_attention_bwd`` against ``flash_attention_bwd_ref`` at
     ``BWD_CASES`` in bf16 and f32 (and the forward's ``lse`` against the
-    plain version's), with kernel, plain, SDPA-backward and bound times
-    and the design each ran (its entries checked in the profile: the
-    tensor cores in bf16 at D 32/64/128, the CUDA cores otherwise); fills
-    ``out["flash_attention_bwd"]``."""
+    plain version's), then at the families' training shapes
+    (``BWD_NEW``), with kernel, plain, SDPA-backward and bound times and
+    the design each ran (its entries checked in the profile: the tensor
+    cores in bf16 at D 32/64/80/96/128, the CUDA cores otherwise); fills
+    ``out["flash_attention_bwd"]`` and the ``BWD_NEW`` rows.  A windowed
+    case's SDPA backward takes the mask as a boolean ``attn_mask`` over
+    k/v expanded to q's heads (timed, not checked)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
 
     row_out = out["flash_attention_bwd"]
-    for label, b, s, h, kh, d, causal, window in BWD_CASES:
+    cases = BWD_CASES + tuple((name, b, s, h, kh, d, causal, window)
+                              for name, _, d, b, s, h, kh, causal, window
+                              in BWD_NEW)
+    for label, b, s, h, kh, d, causal, window in cases:
+        # the kernel-line row this case's bf16 numbers fill, if any
+        target = out.get("flash_attention_bwd" if label == "train"
+                         else label)
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).removeprefix("torch.")
             q = _randn((b, h, s, d), dtype, dev, 21)
@@ -1116,7 +1149,9 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                                 f"/ atol {atol} x {scale:.3g} (max |diff| "
                                 f"{float(diff.max())})")
                 err = max(err, float(diff.max()))
-            row_out["max_abs_err"] = max(row_out["max_abs_err"], err)
+            for r in {id(row_out): row_out, id(target): target}.values():
+                if r is not None:
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
             del got, want
             args = (q, k, v, o, do, lse)
             es = q.element_size()
@@ -1135,14 +1170,24 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                                      f"{label} {dname}") if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_bwd_ref(*args, **kw), 2, floor=fl)
-            lib = lib_call = None        # SDPA has no sliding window
-            if not window:
+            if window:       # SDPA takes a window only as a mask
+                pos = torch.arange(s, device=dev)
+                keep = pos[None, :] > pos[:, None] - window
+                if causal:
+                    keep &= pos[None, :] <= pos[:, None]
+                leaves = [x.detach().requires_grad_(True) for x in (
+                    q, k.repeat_interleave(h // kh, 1),
+                    v.repeat_interleave(h // kh, 1))]
+                ref_out = F.scaled_dot_product_attention(*leaves,
+                                                         attn_mask=keep)
+                del keep
+            else:
                 leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
                 ref_out = F.scaled_dot_product_attention(
                     *leaves, is_causal=causal, enable_gqa=True)
-                lib, lib_call = timed(lambda: torch.autograd.grad(
-                    ref_out, leaves, do, retain_graph=True), 3, floor=fl)
-                del leaves, ref_out
+            lib, lib_call = timed(lambda: torch.autograd.grad(
+                ref_out, leaves, do, retain_graph=True), 3, floor=fl)
+            del leaves, ref_out
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / FLOPS[dname] * 1e3
             row = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -1152,8 +1197,8 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                        plain_call_ms=plain_call, library_call_ms=lib_call,
                        bound_f32_ms=flops / FLOPS["float32"] * 1e3,
                        design=design, ms_by_entry=entries)
-            if label == "train" and dtype == torch.bfloat16:
-                row_out.update(row)
+            if target is not None and dtype == torch.bfloat16:
+                target.update(row)
             say(f"  flash_attention_bwd {label} B{b} S{s} H{h} KH{kh} D{d} "
                 f"causal={causal} window={window}, {dname} on the {design} "
                 f"(ms a call by entry {entries}): max |diff| "
@@ -1174,7 +1219,8 @@ def phase1_backward(dev, card: str, out: dict) -> None:
 # dk elements beyond BWD_TOL of the f32 gradient
 BWD_EMU_CASES = ((1, 4, 2, 512, 128, True, 0), (1, 4, 2, 512, 64, False, 0),
                  (1, 4, 2, 512, 128, True, 100), (1, 4, 2, 300, 64, True, 0),
-                 (1, 4, 2, 512, 32, True, 0))
+                 (1, 4, 2, 512, 32, True, 0), (1, 4, 4, 256, 80, False, 0),
+                 (1, 4, 4, 256, 96, True, 0))
 
 
 def flash_fn_backward(dev, card: str) -> None:
@@ -3671,6 +3717,40 @@ TRAIN_TOL = dict(loss_rtol=2e-3, grad_rel=2e-2)
 # backward's residual became the f32 attention output: train.main's peak
 # and a step by the host clock
 BF16_RESIDUAL = dict(peak_gib=29.32, step_ms=543.7)
+# The other families' training steps (``launch.train.train_step``, the
+# reference's step) at full width, random weights and Zipf tokens from
+# seeds: arch -> batch, positions (phase 14's shapes: text tokens; hubert's
+# frames; the vlm's text after its 576 stub patches) and the depth trained:
+# None for the published depth, else the deepest whose step's peak stays
+# under TRAIN_PEAK_GIB (the hybrid in whole triples), as this script
+# measured it on an H100 80GB HBM3 (PERF.md's cut list).  A step's peak is
+# about 24 bytes a parameter beside the activations: the functional AdamW
+# holds the old and the new parameters and moments, the gradients and
+# their clipped copy at once.
+TRAIN_FAMILIES = {"hubert-xlarge": dict(batch=2, seq=1024, n_layers=None),
+                  "mamba2-1.3b": dict(batch=2, seq=4096, n_layers=None),
+                  "phi-3-vision-4.2b": dict(batch=1, seq=64, n_layers=28),
+                  "deepseek-moe-16b": dict(batch=1, seq=2048, n_layers=5),
+                  "recurrentgemma-9b": dict(batch=1, seq=4096, n_layers=6)}
+TRAIN_PEAK_GIB = 72.0
+TRAIN_FAMILY_STEPS = 4     # the first warms up, the other three are timed
+# Every step takes the same seeded batch: on fresh batches the first steps'
+# losses moved by more than they fell (phi-3-vision's 64 targets a step;
+# every family's second step spiked: this script, an H100 80GB HBM3 at 700
+# W), while one batch's loss falls as the model fits it.  The learning
+# rate: Adam's first steps move every weight by about the rate, and the
+# 48 layers of hubert-xlarge compound them: at train.main's 3e-4 its loss
+# rose from 6.57 to 12.9, at 1e-4 on one batch it went 6.57, 5.88, 8.18,
+# 6.85, 5.79, 6.66.
+TRAIN_FAMILY_LR = 3e-5
+# card vs CPU: the gradient leaves' bound by family where it is not
+# TRAIN_TOL's (tests/test_torch_train_families.py's FAMILY_BOUND: the
+# hybrid's bf16 forward differs by more across frameworks, and every leaf
+# of its gradient carries that)
+TRAIN_GRAD_REL = {"hybrid": 6e-2}
+# leaves a family's loss does not read: the encoder takes frames, not
+# tokens, so its token embedding has no gradient, on the CPU either
+UNUSED_LEAVES = {"encoder": ("embed",)}
 
 
 def _train_args(**over) -> list:
@@ -3688,54 +3768,216 @@ def _leaf_names(tree, prefix: str = ""):
             yield f"{prefix}{k}"
 
 
-def train_vs_cpu(dev, card: str) -> None:
-    """The loss and every gradient leaf of ``TRAIN_CPU`` (2 layers of full
-    width) on the card against the CPU, on the same weights and tokens;
-    every leaf's gradient present and nonzero on the card."""
+def family_batch(cfg, tokens, targets, gen) -> dict:
+    """A training batch of ``tokens`` and ``targets`` ((b, n) ids) and stub
+    features drawn from ``gen``: the encoder takes ``n`` frames and no
+    tokens, the vlm its ``n_patches`` patches before the ``n`` text tokens
+    (the patches carry no loss)."""
+    from repro_torch.models.frontend import fake_frontend_batch
+    batch = {"tokens": tokens, "targets": targets}
+    feats = fake_frontend_batch(cfg, gen, *targets.shape)
+    if feats is not None:
+        batch["frontend"] = feats
+    if cfg.family == "encoder":
+        batch["tokens"] = batch["tokens"][:, :0]
+    return batch
+
+
+def train_vs_cpu(dev, card: str, arch: str = TRAIN["arch"]) -> None:
+    """The loss and every gradient leaf of ``arch`` at 2 layers of full
+    width (the hybrid two triples, 6), B 1 x S 256 (``TRAIN_CPU``), on the
+    card against the CPU, on the same weights and batch (within
+    ``TRAIN_TOL``; a family's leaves within ``TRAIN_GRAD_REL``); every
+    leaf's gradient present and nonzero on the card.  The MoE runs with
+    ``remat="none"`` and the CPU run's expert choices replayed on the card
+    (a checkpointed block would route again in the backward), the card's
+    own choices held to ``check_flips``."""
     import dataclasses as dc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
+    from repro_torch.models.moe import pinned_routing
     from repro_torch.train.optimizer import tree_leaves, tree_map
 
-    cfg = dc.replace(get_config(TRAIN["arch"]),
-                     n_layers=TRAIN_CPU["n_layers"])
+    cfg = get_config(arch)
+    moe = cfg.family == "moe"
+    cfg = dc.replace(cfg, n_layers=CPU_LAYERS.get(cfg.family,
+                                                  TRAIN_CPU["n_layers"]),
+                     remat="none" if moe else cfg.remat)
     params = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(3))
     g = torch.Generator(device=dev).manual_seed(4)
-    toks = torch.randint(0, cfg.vocab, (TRAIN_CPU["batch"],
-                                        TRAIN_CPU["seq"] + 1),
-                         generator=g, device=dev)
+    b, n = TRAIN_CPU["batch"], TRAIN_CPU["seq"]
+    toks = torch.randint(0, cfg.vocab, (b, n + 1), generator=g, device=dev)
+    batch = family_batch(cfg, toks[:, :-1], toks[:, 1:], g)
     t0 = time.perf_counter()
-    out = {}
-    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+    out, rec, flips = {}, [], None
+    # the CPU first: its expert choices are the ones replayed
+    for name, where in (("cpu", torch.device("cpu")), ("card", dev)):
         p = tree_map(lambda x: x.detach().to(where).requires_grad_(True),
                      params)
-        loss, _ = Model(cfg, device=where).loss_fn(
-            p, {"tokens": toks[:, :-1].to(where),
-                "targets": toks[:, 1:].to(where)})
-        leaves = tree_leaves(p)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        pin = (contextlib.nullcontext() if not moe else
+               pinned_routing(record=rec) if name == "cpu" else
+               pinned_routing(replay=rec))
+        with pin as f:
+            loss, _ = Model(cfg, device=where).loss_fn(
+                p, {k: v.to(where) for k, v in batch.items()})
+        if name == "card":
+            flips = f
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
         out[name] = (float(loss.detach()), [None if x is None else x.cpu()
-                                   for x in grads])
+                                            for x in grads])
     (lg, gg), (lc, gc) = out["card"], out["cpu"]
+    what = f"train {arch} card vs CPU"
+    if moe:
+        check_flips(flips, what)
     check(abs(lg - lc) <= TRAIN_TOL["loss_rtol"] * abs(lc),
-          f"train card vs CPU: loss {lg} vs {lc}")
+          f"{what}: loss {lg} vs {lc}")
+    bound = TRAIN_GRAD_REL.get(cfg.family, TRAIN_TOL["grad_rel"])
     names = list(_leaf_names(params))
+    check(len(names) == len(gg), f"{what}: {len(gg)} gradients for "
+                                 f"{len(names)} leaves")
     worst = 0.0
-    for name, a, b in zip(names, gg, gc):
+    unused = UNUSED_LEAVES.get(cfg.family, ())
+    for name, a, c in zip(names, gg, gc):
+        if name in unused:
+            check(a is None and c is None,
+                  f"{what}: {name}, which the loss does not read, has a "
+                  f"gradient")
+            continue
         check(a is not None and bool(a.abs().sum() > 0),
-              f"train on the card: {name} has no gradient or a zero one")
-        rel = float((a.float() - b.float()).norm() / b.float().norm())
-        check(rel <= TRAIN_TOL["grad_rel"],
-              f"train card vs CPU: {name} off by {rel:.3g}")
+              f"train {arch} on the card: {name} has no gradient or a zero "
+              f"one")
+        rel = float((a.float() - c.float()).norm() / c.float().norm())
+        check(rel <= bound, f"{what}: {name} off by {rel:.3g}")
         worst = max(worst, rel)
-    say(f"  card vs CPU at {cfg.n_layers} layers of full width, B "
-        f"{TRAIN_CPU['batch']} x S {TRAIN_CPU['seq']}: loss {lg:.6f} / "
-        f"{lc:.6f}, {len(gg)} gradient leaves all present and nonzero on "
-        f"the card, worst leaf |diff| / |cpu| {worst:.3g} (bound "
-        f"{TRAIN_TOL['grad_rel']}); {time.perf_counter() - t0:.1f} s "
-        f"[{card}]")
+    say(f"  {arch} card vs CPU at {cfg.n_layers} layers of full width, B "
+        f"{b} x S {n}: loss {lg:.6f} / {lc:.6f}, {len(gg) - len(unused)} "
+        f"gradient leaves all present and nonzero on the card"
+        + (f" (and {', '.join(unused)} unread, none on either side)"
+           if unused else "")
+        + f", worst leaf |diff| / |cpu| "
+        f"{worst:.3g} (bound {bound})"
+        + (f"; the CPU's routing replayed, {flips[0]} of {flips[1]} "
+           f"choices would have flipped" if moe else "")
+        + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def train_family(dev, card: str, arch: str, spec: dict) -> dict:
+    """``TRAIN_FAMILY_STEPS`` + 2 steps of ``launch.train.train_step`` on
+    ``arch`` at full width and ``spec``'s depth and batch, all on one
+    seeded batch (one warm-up, three timed by the synchronized host clock,
+    one profiled after its own warm-up): losses finite and falling; the
+    memory allocated before the model (what earlier phases left), and the
+    step's peak under ``TRAIN_PEAK_GIB``; flash forward and backward
+    launches a step (the forward twice a layer under ``remat="block"``)
+    and the backwards the launcher ran on the tensor cores, which must be
+    every one at the backward's tensor-core head dims and none at the
+    others; busy time, idle share and the attention backward's share of
+    one profiled step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = get_config(arch)
+    if spec["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    b, n = spec["batch"], spec["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    t_all = time.perf_counter()
+    model = Model(cfg, device=dev)
+    state = [model.init(torch.Generator(device=dev).manual_seed(0)), None]
+    state[1] = adamw_init(state[0])
+    zipf = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=n, global_batch=b),
+                    device=dev).batch_at(0)
+    batch = family_batch(cfg, zipf["tokens"], zipf["targets"],
+                         torch.Generator(device=dev).manual_seed(0))
+    losses = []
+
+    def one():
+        p, o, loss, _, _ = train.train_step(model, state[0], state[1], batch,
+                                            (), TRAIN_FAMILY_LR, False)
+        state[:] = [p, o]
+        losses.append(float(loss))       # one host sync a step
+        return loss
+
+    one()
+    torch.cuda.synchronize()
+    f0, b0, tc0 = fa.counter.count, fa.counter_bwd.count, \
+        fa.counter_bwd_tc.count
+    t0 = time.perf_counter()
+    per = TRAIN_FAMILY_STEPS - 1
+    for _ in range(per):
+        one()
+    step_s = (time.perf_counter() - t0) / per
+    fwd = (fa.counter.count - f0) / per
+    bwd = (fa.counter_bwd.count - b0) / per
+    bwd_tc = (fa.counter_bwd_tc.count - tc0) / per
+    n_attn = _n_attn(cfg)
+    design = bwd_design("bfloat16", cfg.head_dim)
+    check(fwd == 2 * n_attn and bwd == n_attn,
+          f"train {arch}: flash launches a step: forward {fwd}, backward "
+          f"{bwd}, for {n_attn} attention layers")
+    check(bwd_tc == (bwd if design == "tensor cores" else 0),
+          f"train {arch}: {bwd_tc} of {bwd} backwards a step on the tensor "
+          f"cores at D {cfg.head_dim}, expected the {design}")
+
+    entries = BWD_ENTRIES[design]
+    # a session that records no GPU events, or drops some, is run again
+    for _ in range(3):
+        busy, _, events = profile_device(one, iters=1, n_top=None)
+        n_by = {w: sum(c for key, _, c in events if w in key)
+                for w in entries}
+        if busy is not None and all(v == n_attn for v in n_by.values()):
+            break
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"train {arch}: losses {losses}")
+    check(peak < TRAIN_PEAK_GIB, f"train {arch} at {cfg.n_layers} layers: "
+                                 f"peak {peak:.2f} GiB")
+    positions = b * (n + (cfg.n_patches if cfg.frontend == "vision" else 0))
+    res = dict(n_layers=cfg.n_layers, losses=losses, step_ms=step_s * 1e3,
+               positions_per_s=positions / step_s, peak_gib=peak,
+               allocated_before_gib=before,
+               busy_ms=busy, fwd_per_step=fwd, bwd_per_step=bwd,
+               bwd_tc_per_step=bwd_tc, design=design,
+               idle_share=None if busy is None else 1 - busy / (step_s * 1e3))
+    if busy is not None and n_attn:
+        other = BWD_ENTRIES["CUDA cores" if design == "tensor cores"
+                            else "tensor cores"][1:]
+        check(not any(w in key for key, _, _ in events for w in other),
+              f"train {arch}: the profiled step ran {other} entries")
+        ms_by = {w: sum(ms for key, ms, _ in events if w in key)
+                 for w in entries}
+        res.update(bwd_ms=sum(ms_by.values()),
+                   bwd_share=sum(ms_by.values()) / busy,
+                   bwd_ms_by_entry=ms_by, bwd_launches_by_entry=n_by)
+    say(f"  train {arch} ({cfg.family}) at {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, full width, B {b} x "
+        f"{positions // b} positions: losses "
+        f"{[round(x, 4) for x in losses]}; {step_s * 1e3:.1f} ms a step "
+        f"(host clock, {per} steps), {positions / step_s:.0f} positions/s; "
+        f"peak {peak:.2f} GiB ({before:.2f} allocated before); profiled: "
+        f"busy {busy} ms, idle share {res['idle_share']}; flash a step: "
+        f"forward {fwd:g}, backward {bwd:g} (tensor cores {bwd_tc:g}, D "
+        f"{cfg.head_dim}: {design})"
+        + (f"; backward {res['bwd_ms']:.3f} ms, {res['bwd_share']:.3f} of "
+           f"busy, by entry (ms, launches) "
+           f"{[(w, round(ms_by[w], 3), n_by[w]) for w in entries]}"
+           if "bwd_ms" in res else "")
+        + f"; {time.perf_counter() - t_all:.1f} s [{card}]")
+    for key, ms, count in events[:5]:
+        say(f"    {ms:9.4f} ms  x{count:5d}  {key}")
+    del state, model
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase15_train(dev, card: str) -> dict:
@@ -3892,6 +4134,12 @@ def phase15_train(dev, card: str) -> dict:
         f"(worst rtol {worst:.3g}, bound {TRAIN_TOL['loss_rtol']}); "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     torch.cuda.empty_cache()
+
+    # the other families, one at a time, each freed before the next
+    out["families"] = {}
+    for arch, spec in TRAIN_FAMILIES.items():
+        out["families"][arch] = train_family(dev, card, arch, spec)
+        train_vs_cpu(dev, card, arch)
     return out
 
 
@@ -4216,7 +4464,8 @@ def main() -> int:
          lambda: phase13_sim(dev, card)),
         (14, "the other model families at full width: "
              + ", ".join(PHASE14), lambda: phase14_families(dev, card)),
-        (15, "training qwen3-0.6b at full width and depth",
+        (15, "training every family at full width: qwen3-0.6b at full "
+             "depth, then " + ", ".join(TRAIN_FAMILIES),
          lambda: phase15_train(dev, card)),
         (16, "the distribution and dry-run layer: split-sequence decode, "
              "the combined embedding gradient, the dry-run grid, memory "
@@ -4324,8 +4573,10 @@ def main() -> int:
         if kernel == name:
             row["launches_by_head_dim"] = dict(sorted(
                 counters[name].by_size.items()))
-        if name == "flash_attention_bwd":
-            row["launches_tensor_cores"] = fa.counter_bwd_tc.count
+        if kernel == "flash_attention_bwd":
+            row["launches_tensor_cores"] = (
+                fa.counter_bwd_tc.count if kernel == name
+                else fa.counter_bwd_tc.by_size.get(meta["d"], 0))
             row["note"] = "delta from the forward's f32 output"
         elif kernel == "flash_attention":
             row["launches_tensor_cores"] = (

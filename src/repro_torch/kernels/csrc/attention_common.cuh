@@ -5,9 +5,11 @@
 // tensor-core kernels (sm_90a): mbarriers, TMA tile loads through 4-D
 // tensor maps over (D, S, heads, B) views, wgmma shared-memory descriptors
 // for 64-column (128-byte swizzle) or 32-column (64-byte swizzle) boxes
-// (and the 32- or 16-column tail boxes of the forward at D 96 and 80), the
+// (and the 32- or 16-column tail boxes at D 96 and 80), the
 // m64nNk16 bf16 products (N up to 256), and register shares by
-// setmaxnreg.
+// setmaxnreg.  At D 80 and 96 a row is a 64-column box and a tail box of
+// its last 16 or 32 columns (Cols<D>): both flash kernels, forward and
+// backward, load and read their tiles through the same helpers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
@@ -51,17 +53,18 @@ constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 // Hopper: tiles in shared memory, TMA, wgmma
 // ---------------------------------------------------------------------------
 
-// the head dims at which bf16 runs the tensor-core kernels: the forward
-// loads a row of D 80 or 96 as whole boxes and a narrower tail box
-// (flash_attention.cu, Cols<D>), and at D 256 runs a geometry of its own
-// (two K/V stages, a producer warpgroup that hands its registers to the
-// consumers: flash_attention.cu, Geom<D>); the backward takes whole boxes
-// of D <= 128 only
+// the head dims at which bf16 runs the tensor-core kernels: both
+// directions load a row of D 80 or 96 as a whole box and a narrower tail
+// box (Cols<D>); the forward at D 256 runs a geometry of its own (two K/V
+// stages, a producer warpgroup that hands its registers to the consumers:
+// flash_attention.cu, Geom<D>), while the backward's f32 dK and dV of 64
+// keys x 256 columns would not fit a consumer thread's 240 registers
 template <int D>
 constexpr bool kTensorCoresFwd =
     D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256;
 template <int D>
-constexpr bool kTensorCoresBwd = D == 32 || D == 64 || D == 128;
+constexpr bool kTensorCoresBwd =
+    D == 32 || D == 64 || D == 80 || D == 96 || D == 128;
 
 // the key tiles [lo, hi) of `tile` keys that hold an unmasked key for some
 // query row of [r_lo, r_hi) (r_lo < r_hi <= S)
@@ -79,11 +82,11 @@ constexpr int swizzle_layout(int sw) {
   return sw == 128 ? 1 : sw == 64 ? 2 : 3;
 }
 
-// The box geometry of a bf16 tile with D columns (D 32, 64 or 128): boxes
-// of AC columns (SW bytes a row, swizzled by SW), NB boxes a row; LAYOUT is
-// the wgmma descriptor's code for that swizzle.  A tile of R rows holds its
-// boxes one after another, R * SW bytes each, and starts on a 1024-byte
-// boundary.
+// The box geometry of a bf16 tile with D columns (D 32, 64, 128 or 256):
+// boxes of AC columns (SW bytes a row, swizzled by SW), NB boxes a row;
+// LAYOUT is the wgmma descriptor's code for that swizzle.  A tile of R rows
+// holds its boxes one after another, R * SW bytes each, and starts on a
+// 1024-byte boundary.
 template <int D>
 struct Swz {
   static constexpr int SW = D == 32 ? 64 : 128;
@@ -184,6 +187,57 @@ __device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int rows,
                                                 int kk) {
   using W = Swz<D>;
   return desc(tile, rows * W::SW, 8 * W::SW, W::LAYOUT) + kk * W::SW;
+}
+
+// The columns of a bf16 tile at head dim D as TMA loads them and wgmma
+// reads them: a main part of MAIN columns in whole boxes (Swz<MAIN>: 64
+// columns and the 128-byte swizzle, or one 32-column box and the 64-byte
+// swizzle at D 32) and, at D 80 and 96, a tail box of the last TAIL = 16
+// or 32 columns, whose row of TSW = 32 or 64 bytes is its own swizzle.  A
+// tile of R rows holds the main part (R * MAIN * 2 bytes), then the tail
+// box (R * TSW bytes).  Every product runs at the true width: a reduction
+// over D takes MAIN / 16 k-steps through the main part and TAIL / 16
+// through the tail box; a product with N = D is an n-MAIN product and an
+// n-TAIL one into an accumulator of its own.
+template <int D>
+struct Cols {
+  static constexpr int MAIN = D == 32 ? 32 : D / 64 * 64;
+  static constexpr int TAIL = D - MAIN;
+  static constexpr int TSW = 2 * TAIL;
+  static constexpr int TLAYOUT = swizzle_layout(TSW);
+  static_assert(TAIL == 0 || TAIL == 16 || TAIL == 32,
+                "a tail box of 16 or 32 columns");
+};
+
+// Rows [row, row + rows) of (head, batch) into the tile at `dst`: the main
+// part's boxes from `map`, the tail box from `tail` (a map over the view
+// from column MAIN on), completing on `bar`
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          const CUtensorMap* tail,
+                                          uint32_t bar, int rows, int row,
+                                          int head, int batch) {
+  using C = Cols<D>;
+  tma_tile<C::MAIN>(dst, map, bar, rows, row, head, batch);
+  if constexpr (C::TAIL > 0)
+    tma_load(dst + rows * C::MAIN * 2, tail, bar, 0, row, head, batch);
+}
+
+// Columns 16 kk .. 16 kk + 15 of the 64 rows at `rows0` of a tail box, as
+// a K-major operand
+template <int D>
+__device__ __forceinline__ uint64_t desc_tail_kmajor(uint32_t rows0, int kk) {
+  using C = Cols<D>;
+  return desc(rows0, 16, 8 * C::TSW, C::TLAYOUT) + kk * 2;
+}
+
+// Rows 16 kk .. 16 kk + 15 of a tail box of `rows` rows, as an N-major B
+// operand (its TAIL columns N)
+template <int D>
+__device__ __forceinline__ uint64_t desc_tail_nmajor(uint32_t box, int rows,
+                                                     int kk) {
+  using C = Cols<D>;
+  return desc(box, rows * C::TSW, 8 * C::TSW, C::TLAYOUT) + kk * C::TSW;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -360,6 +414,59 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t* a,
   if constexpr (D == 256) wgmma_rs_n256(d, a, db);
 }
 
+// One warpgroup's 64 rows at row `row` of a tile of `rows` rows at `tile`:
+// its main part's rows and its tail box's (Cols<D>).
+template <int D>
+struct Rows64 {
+  uint32_t main, tail;
+  __device__ __forceinline__ Rows64(uint32_t tile, int rows, int row) {
+    using C = Cols<D>;
+    main = tile + row * Swz<C::MAIN>::SW;
+    tail = tile + rows * C::MAIN * 2 + row * C::TSW;
+  }
+};
+
+// d[0..32) += A B^T over the D columns of both (64 rows each, K-major):
+// MAIN / 16 k-steps through the main parts, TAIL / 16 through the tail
+// boxes; `a_rows` and `b_rows` are the row counts of the tiles A and B
+// lie in (the main part's box stride)
+template <int D>
+__device__ __forceinline__ void wgmma_over_d(float (&d)[32], Rows64<D> a,
+                                             int a_rows, Rows64<D> b,
+                                             int b_rows) {
+  using C = Cols<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::MAIN / 16; ++kk)
+    wgmma_ss_n64(d, desc_kmajor<C::MAIN>(a.main, a_rows, kk),
+                 desc_kmajor<C::MAIN>(b.main, b_rows, kk));
+#pragma unroll
+  for (int kk = 0; kk < C::TAIL / 16; ++kk)
+    wgmma_ss_n64(d, desc_tail_kmajor<D>(a.tail, kk),
+                 desc_tail_kmajor<D>(b.tail, kk));
+}
+
+// (acc, acc_t) += (hi + lo) B over rows 16 kk .. 16 kk + 15 of the tile
+// of `rows` rows at `tile` read N-major (its D columns N): the main part's
+// n-MAIN product into acc, the tail box's n-TAIL product into acc_t (one
+// element, unused, at TAIL 0)
+template <int D>
+__device__ __forceinline__ void wgmma_rs_d(
+    float (&acc)[Cols<D>::MAIN / 2],
+    float (&acc_t)[Cols<D>::TAIL > 0 ? Cols<D>::TAIL / 2 : 1],
+    const uint32_t* hi, const uint32_t* lo, uint32_t tile, int rows,
+    int kk) {
+  using C = Cols<D>;
+  const uint64_t b = desc_nmajor<C::MAIN>(tile, rows, kk);
+  wgmma_rs<C::MAIN>(acc, hi, b);
+  wgmma_rs<C::MAIN>(acc, lo, b);
+  if constexpr (C::TAIL > 0) {
+    const uint64_t bt =
+        desc_tail_nmajor<D>(tile + rows * C::MAIN * 2, rows, kk);
+    wgmma_rs<C::TAIL>(acc_t, hi, bt);
+    wgmma_rs<C::TAIL>(acc_t, lo, bt);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -440,6 +547,21 @@ bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
             Strides st, int rows) {
   using W = Swz<D>;
   return encode_box(map, ptr, D, S, heads, B, st, rows, W::AC, W::SW);
+}
+
+// the maps of a tile with D columns and `rows` rows over the bf16 (D, S,
+// heads, B) view at `ptr` (Cols<D>): the main part's into `map` and, at D
+// 80 and 96, the tail box's (the view from column MAIN on) into `tail`,
+// which is left as it is otherwise
+template <int D>
+bool encode_cols(CUtensorMap* map, CUtensorMap* tail, const void* ptr, int S,
+                 int heads, int B, Strides st, int rows) {
+  using C = Cols<D>;
+  if (!encode<C::MAIN>(map, ptr, S, heads, B, st, rows)) return false;
+  if constexpr (C::TAIL > 0)
+    return encode_box(tail, static_cast<const __nv_bfloat16*>(ptr) + C::MAIN,
+                      C::TAIL, S, heads, B, st, rows, C::TAIL, C::TSW);
+  return true;
 }
 
 }  // namespace attn

@@ -42,7 +42,8 @@
 //  * D 80 and 96 are not whole 64-column boxes: a row is one 64-column box
 //    (128-byte swizzle) and a tail box of its last 16 or 32 columns, whose
 //    32- or 64-byte row is its own swizzle, loaded through a second tensor
-//    map and read through descriptors of that swizzle (Cols<D>).  Every
+//    map and read through descriptors of that swizzle (Cols<D>, shared
+//    with the backward in attention_common.cuh).  Every
 //    product then runs at the true width: S = Q K^T in D / 16 k-steps, O +=
 //    P V as an n64 product and an n16 or n32 one (tiles padded to 128
 //    columns would spend 1.6x and 1.33x the useful O += P V work).
@@ -97,8 +98,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-using attn::encode;
-using attn::encode_box;
 using attn::kErrTensorMap;
 using attn::load_chunk;
 
@@ -287,23 +286,6 @@ constexpr int kConsumers = 256;              // two warpgroups
 constexpr int kBK = 64;                      // keys per K/V tile
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;  // by setmaxnreg
 
-// The columns of a bf16 tile at head dim D as TMA loads them and wgmma
-// reads them: a main part of MAIN columns in whole boxes (Swz<MAIN>: 64
-// columns and the 128-byte swizzle, or one 32-column box and the 64-byte
-// swizzle at D 32) and, at D 80 and 96, a tail box of the last TAIL = 16
-// or 32 columns, whose row of TSW = 32 or 64 bytes is its own swizzle.  A
-// tile of R rows holds the main part (R * MAIN * 2 bytes), then the tail
-// box (R * TSW bytes).
-template <int D>
-struct Cols {
-  static constexpr int MAIN = D == 32 ? 32 : D / 64 * 64;
-  static constexpr int TAIL = D - MAIN;
-  static constexpr int TSW = 2 * TAIL;
-  static constexpr int TLAYOUT = swizzle_layout(TSW);
-  static_assert(TAIL == 0 || TAIL == 16 || TAIL == 32,
-                "a tail box of 16 or 32 columns");
-};
-
 // The block's geometry at head dim D.  D <= 128: 64-key tiles in a ring of
 // three stages, one producer warp (288 threads; 224 registers a thread at
 // most).  D 256: a Q tile is 64 KB and a K+V stage 64 KB, so two stages
@@ -326,37 +308,6 @@ struct Geom {
                               BAR_BYTES;
 };
 
-// Rows [row, row + rows) of (head, batch) into the tile at `dst`: the main
-// part's boxes from `map`, the tail box from `tail` (a map over the view
-// from column MAIN on), completing on `bar`
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          const CUtensorMap* tail,
-                                          uint32_t bar, int rows, int row,
-                                          int head, int batch) {
-  using C = Cols<D>;
-  tma_tile<C::MAIN>(dst, map, bar, rows, row, head, batch);
-  if constexpr (C::TAIL > 0)
-    tma_load(dst + rows * C::MAIN * 2, tail, bar, 0, row, head, batch);
-}
-
-// Columns 16 kk .. 16 kk + 15 of the 64 rows at `rows0` of a tail box, as
-// a K-major operand
-template <int D>
-__device__ __forceinline__ uint64_t desc_tail_kmajor(uint32_t rows0, int kk) {
-  using C = Cols<D>;
-  return desc(rows0, 16, 8 * C::TSW, C::TLAYOUT) + kk * 2;
-}
-
-// Rows 16 kk .. 16 kk + 15 of a tail box of `rows` rows, as an N-major B
-// operand (its TAIL columns N)
-template <int D>
-__device__ __forceinline__ uint64_t desc_tail_nmajor(uint32_t box, int rows,
-                                                     int kk) {
-  using C = Cols<D>;
-  return desc(box, rows * C::TSW, 8 * C::TSW, C::TLAYOUT) + kk * C::TSW;
-}
-
 template <int D>
 __global__ void __launch_bounds__(Geom<D>::THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
@@ -371,7 +322,6 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                float scale_log2) {
   using G = Geom<D>;
   using C = Cols<D>;
-  using W = Swz<C::MAIN>;
   constexpr int MAIN = C::MAIN, TAIL = C::TAIL;
   constexpr int STAGES = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -435,8 +385,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int j = 0; j < TAIL / 2; ++j) acc_t[j] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const uint32_t qa = sQ + wg * 64 * W::SW;  // this warpgroup's rows
-  const uint32_t qa_t = sQ + kBQ * MAIN * 2 + wg * 64 * C::TSW;
+  const Rows64<D> qa(sQ, kBQ, 64 * wg);  // this warpgroup's rows
   mbar_wait(bar_q, 0);
 
   for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
@@ -448,14 +397,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < 32; ++j) sc[j] = 0.f;
       wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < MAIN / 16; ++kk)
-        wgmma_ss_n64(sc, desc_kmajor<MAIN>(qa, kBQ, kk),
-                     desc_kmajor<MAIN>(sk, kBK, kk));
-#pragma unroll
-      for (int kk = 0; kk < TAIL / 16; ++kk)
-        wgmma_ss_n64(sc, desc_tail_kmajor<D>(qa_t, kk),
-                     desc_tail_kmajor<D>(sk + kBK * MAIN * 2, kk));
+      wgmma_over_d<D>(sc, qa, kBQ, Rows64<D>(sk, kBK, 0), kBK);
       wg_commit();
       wg_wait();
       reg_fence(sc);
@@ -508,18 +450,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        // keys 16 kk .. 16 kk + 15
-        const uint64_t dv = desc_nmajor<MAIN>(sv, kBK, kk);
-        wgmma_rs<MAIN>(acc, phi + 4 * kk, dv);
-        wgmma_rs<MAIN>(acc, plo + 4 * kk, dv);
-        if constexpr (TAIL > 0) {
-          const uint64_t dvt =
-              desc_tail_nmajor<D>(sv + kBK * MAIN * 2, kBK, kk);
-          wgmma_rs<TAIL>(acc_t, phi + 4 * kk, dvt);
-          wgmma_rs<TAIL>(acc_t, plo + 4 * kk, dvt);
-        }
-      }
+      for (int kk = 0; kk < kBK / 16; ++kk)  // keys 16 kk .. 16 kk + 15
+        wgmma_rs_d<D>(acc, acc_t, phi + 4 * kk, plo + 4 * kk, sv, kBK, kk);
       wg_commit();
       wg_wait();
       reg_fence(acc);
@@ -599,26 +531,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* o32, float* lse, int B, int H, int KH, int S, Strides qs,
                 Strides ks, Strides vs, Strides os, int causal, int window,
                 float scale, cudaStream_t stream) {
-  using C = tc::Cols<D>;
+  // at D 80 and 96 each map has a tail map over its view from column 64 on
   CUtensorMap tq, tk, tv, tq_tail{}, tk_tail{}, tv_tail{};
   using G = tc::Geom<D>;
-  if (!encode<C::MAIN>(&tq, q, S, H, B, qs, tc::kBQ) ||
-      !encode<C::MAIN>(&tk, k, S, KH, B, ks, tc::kBK) ||
-      !encode<C::MAIN>(&tv, v, S, KH, B, vs, tc::kBK))
+  if (!attn::encode_cols<D>(&tq, &tq_tail, q, S, H, B, qs, tc::kBQ) ||
+      !attn::encode_cols<D>(&tk, &tk_tail, k, S, KH, B, ks, tc::kBK) ||
+      !attn::encode_cols<D>(&tv, &tv_tail, v, S, KH, B, vs, tc::kBK))
     return kErrTensorMap;
-  if constexpr (C::TAIL > 0) {
-    // the views from column MAIN on, in one box of the tail's width
-    auto tail = [](const void* p) {
-      return static_cast<const __nv_bfloat16*>(p) + C::MAIN;
-    };
-    if (!encode_box(&tq_tail, tail(q), C::TAIL, S, H, B, qs, tc::kBQ,
-                    C::TAIL, C::TSW) ||
-        !encode_box(&tk_tail, tail(k), C::TAIL, S, KH, B, ks, tc::kBK,
-                    C::TAIL, C::TSW) ||
-        !encode_box(&tv_tail, tail(v), C::TAIL, S, KH, B, vs, tc::kBK,
-                    C::TAIL, C::TSW))
-      return kErrTensorMap;
-  }
   const long long blocks =
       static_cast<long long>((S + tc::kBQ - 1) / tc::kBQ) * H * B;
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);

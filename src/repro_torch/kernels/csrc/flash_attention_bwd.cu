@@ -38,22 +38,29 @@
 // are recomputed in both passes: 7 products where an atomic dQ would take
 // 5, which keeps every output owned by one block.
 //
-// bf16 at D 32, 64 and 128 (the forward's tensor-core set): tensor cores.
-// Both passes have the forward's shape: blocks of 384 threads, two
-// consumer warpgroups that own 64 rows each of the block's 128 rows (keys
-// in (b), queries in (c)) and a producer warpgroup, one warp of which
-// issues the TMA loads (setmaxnreg: 240 registers a consumer thread, 24 a
-// producer thread, for the f32 accumulators); the block's two own tiles
-// (K and V, or Q and dO) are loaded once, and a ring of kStages stages
-// streams the other two in 64-row tiles (Q and dO with their lse and delta
-// rows, or K and V), each stage signalled by a "full" mbarrier that counts
-// the bytes and released by an "empty" one every consumer thread arrives
-// on.  Tiles use the forward's swizzled boxes (128-byte, 64-byte at D 32),
-// rows past S come in as zeros (TMA's out-of-bounds fill), blocks with the
-// most work start first, and tiles wholly outside a warpgroup's masks are
-// skipped; only those that cross the diagonal, the window's edge or S are
-// masked element by element.  Every product is a wgmma in one of the
-// forward's two forms:
+// bf16 at D 32, 64, 80, 96 and 128: tensor cores.  Both passes have the
+// forward's shape: blocks of 384 threads, two consumer warpgroups that own
+// 64 rows each of the block's 128 rows (keys in (b), queries in (c)) and a
+// producer warpgroup, one warp of which issues the TMA loads (setmaxnreg:
+// 240 registers a consumer thread, 24 a producer thread, for the f32
+// accumulators); the block's two own tiles (K and V, or Q and dO) are
+// loaded once, and a ring of kStages stages streams the other two in
+// 64-row tiles (Q and dO with their lse and delta rows, or K and V), each
+// stage signalled by a "full" mbarrier that counts the bytes and released
+// by an "empty" one every consumer thread arrives on.  Tiles use the
+// forward's swizzled boxes (128-byte, 64-byte at D 32; at D 80 and 96 a
+// row is one 64-column box and a tail box of its last 16 or 32 columns
+// with its own tensor map and 32- or 64-byte swizzle, Cols<D> of
+// attention_common.cuh), rows past S come in as zeros (TMA's
+// out-of-bounds fill), blocks with the most work start first, and tiles
+// wholly outside a warpgroup's masks are skipped; only those that cross
+// the diagonal, the window's edge or S are masked element by element.
+// Every product is a wgmma in one of the forward's two forms, at the true
+// width (a reduction over D in MAIN / 16 k-steps through the main boxes
+// and TAIL / 16 through the tail boxes; a product with N = D as an n64
+// product and an n16 or n32 one into a tail accumulator of its own: at D
+// 96 dK and dV take 2 x 48 f32 registers a consumer thread, against 2 x 64
+// at D 128):
 //   (b) S^T = K Q^T and dP^T = V dO^T, both operands K-major in shared
 //       memory (the forward's S = Q K^T); P^T = exp2(scale log2e S^T -
 //       log2e lse) and dS^T = P^T (dP^T - delta) in registers, where the
@@ -74,9 +81,9 @@
 // product on the tensor cores, every operand tile in shared memory once,
 // and P^T / dS^T in registers (PERF.md has its measured time).
 //
-// CUDA cores: f32 at every D, and bf16 at D 80, 96 and 256 (not whole
-// tensor-core boxes, which only the forward splits into a main part and a
-// tail box): the same three launches with f32 FMAs.
+// CUDA cores: f32 at every D, and bf16 at D 256 (a consumer warpgroup's
+// f32 dK and dV of 64 keys x 256 columns would take 256 registers a
+// thread, past setmaxnreg's 240): the same three launches with f32 FMAs.
 // (b) one block per (64-key tile, kv head, batch) stages K and V as f32
 // once, then Q and dO of each query tile and head, recomputes P^T and dS^T
 // (in shared memory) and accumulates dK and dV in registers: a thread owns
@@ -95,7 +102,6 @@
 
 namespace {
 
-using attn::encode;
 using attn::from_f32;
 using attn::kErrTensorMap;
 using attn::load_chunk;
@@ -484,7 +490,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D 32, 64 and 128: tensor cores (wgmma), tiles fed by TMA
+// bf16 at D 32, 64, 80, 96 and 128: tensor cores (wgmma), tiles fed by TMA
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -501,15 +507,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // shared memory of either pass: the block's two own tiles of kBlockRows
 // rows, kStages stages of two kRows-row tiles, kStages x (lse, delta) rows
-// (the dK/dV pass), the mbarriers
+// (the dK/dV pass), the mbarriers.  A tile holds its main part's boxes,
+// then at D 80 and 96 its tail box (Cols<D>).
 template <int D>
-struct Geom : Swz<D> {
+struct Geom {
   static constexpr int OWN_BYTES = kBlockRows * D * 2;
   static constexpr int TILE_BYTES = kRows * D * 2;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr int ROWS_BYTES = 2 * kRows * 4;
   static constexpr int BAR_BYTES = 8 * (1 + 2 * kStages);
-  // the tiles start on a 1024-byte boundary (the swizzle pattern's period)
+  // the tiles start on a 1024-byte boundary (the swizzle pattern's period;
+  // every tile's main part and tail box is a multiple of it)
   static constexpr int SMEM = 1024 + 2 * OWN_BYTES +
                               kStages * (STAGE_BYTES + ROWS_BYTES) + BAR_BYTES;
 };
@@ -554,6 +562,29 @@ struct Smem {
   }
 };
 
+// row `row` of (acc, acc_t) times `scale`, columns (col, col + 1) of each
+// 8-column group, stored as bf16 at `dst` (row stride `stride`)
+template <int D>
+__device__ __forceinline__ void store_rows(
+    __nv_bfloat16* dst, long long stride, int kr0, int c0, int S,
+    const float (&acc)[Cols<D>::MAIN / 2],
+    const float (&acc_t)[Cols<D>::TAIL > 0 ? Cols<D>::TAIL / 2 : 1],
+    float scale) {
+  using C = Cols<D>;
+  auto put = [&](float x0, float x1, int j, int col0) {
+    const int row = kr0 + 8 * ((j >> 1) & 1);
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * stride + col0 +
+                                         8 * (j / 4) + c0) =
+          __floats2bfloat162_rn(x0 * scale, x1 * scale);
+  };
+#pragma unroll
+  for (int j = 0; j < C::MAIN / 2; j += 2) put(acc[j], acc[j + 1], j, 0);
+#pragma unroll
+  for (int j = 0; j < C::TAIL / 2; j += 2)
+    put(acc_t[j], acc_t[j + 1], j, C::MAIN);
+}
+
 // (b) dK and dV of one (128-key tile, kv head, batch)
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -561,6 +592,10 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tq_tail,
+                    const __grid_constant__ CUtensorMap tk_tail,
+                    const __grid_constant__ CUtensorMap tv_tail,
+                    const __grid_constant__ CUtensorMap tdo_tail,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dk,
@@ -568,6 +603,7 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
                     int S, Strides dks, Strides dvs, int causal, int window,
                     float scale, float scale_log2) {
   using G = Geom<D>;
+  using C = Cols<D>;
   extern __shared__ uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);  // own tiles K, V; stages Q, dO
 
@@ -594,8 +630,8 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
     const int lane = tid - kConsumers;
     if (lane == 0) {
       mbar_expect_tx(sm.bar, 2 * G::OWN_BYTES);
-      tma_tile<D>(sm.own0, &tk, sm.bar, kBlockRows, k0, hk, b);
-      tma_tile<D>(sm.own1, &tv, sm.bar, kBlockRows, k0, hk, b);
+      load_tile<D>(sm.own0, &tk, &tk_tail, sm.bar, kBlockRows, k0, hk, b);
+      load_tile<D>(sm.own1, &tv, &tv_tail, sm.bar, kBlockRows, k0, hk, b);
     }
     for (int i = 0; i < n_iter; ++i) {
       const int s = i % kStages;
@@ -611,9 +647,10 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
       }
       if (lane == 0) {
         mbar_expect_tx(sm.full(s), G::STAGE_BYTES);
-        tma_tile<D>(sm.stage(s), &tq, sm.full(s), kRows, q0, h, b);
-        tma_tile<D>(sm.stage(s) + G::TILE_BYTES, &tdo, sm.full(s), kRows, q0,
-                    h, b);
+        load_tile<D>(sm.stage(s), &tq, &tq_tail, sm.full(s), kRows, q0, h,
+                     b);
+        load_tile<D>(sm.stage(s) + G::TILE_BYTES, &tdo, &tdo_tail,
+                     sm.full(s), kRows, q0, h, b);
       } else {
         mbar_arrive(sm.full(s));
       }
@@ -628,11 +665,15 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
   const int wg = tid / 128, t = tid % 128, lane = t % 32;
   const int wk0 = k0 + kRows * wg, wk_hi = min(wk0 + kRows, S);
   const int kr0 = wk0 + 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
-  const uint32_t ka = sm.own0 + wg * kRows * G::SW;
-  const uint32_t va = sm.own1 + wg * kRows * G::SW;
-  float acc_k[D / 2], acc_v[D / 2];
+  const Rows64<D> ka(sm.own0, kBlockRows, kRows * wg);
+  const Rows64<D> va(sm.own1, kBlockRows, kRows * wg);
+  // dK and dV: the main columns', and the tail's (unused at TAIL 0)
+  constexpr int NT = C::TAIL > 0 ? C::TAIL / 2 : 1;
+  float acc_k[C::MAIN / 2], acc_v[C::MAIN / 2], acc_kt[NT], acc_vt[NT];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
+  for (int j = 0; j < C::MAIN / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc_kt[j] = acc_vt[j] = 0.f;
   mbar_wait(sm.bar, 0);
 
   for (int i = 0; i < n_iter; ++i) {
@@ -649,15 +690,9 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
       wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(st, desc_kmajor<D>(ka, kBlockRows, kk),
-                     desc_kmajor<D>(sq, kRows, kk));
+      wgmma_over_d<D>(st, ka, kBlockRows, Rows64<D>(sq, kRows, 0), kRows);
       wg_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dpt, desc_kmajor<D>(va, kBlockRows, kk),
-                     desc_kmajor<D>(sdo, kRows, kk));
+      wgmma_over_d<D>(dpt, va, kBlockRows, Rows64<D>(sdo, kRows, 0), kRows);
       wg_commit();
       wg_wait<1>();  // S^T is in; dP^T runs on while P^T is computed
       reg_fence(st);
@@ -697,35 +732,29 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk) {
-        // queries 16 kk .. 16 kk + 15 of the Q and dO tiles, read N-major
-        const uint64_t do_n = desc_nmajor<D>(sdo, kRows, kk);
-        const uint64_t q_n = desc_nmajor<D>(sq, kRows, kk);
-        wgmma_rs<D>(acc_v, phi + 4 * kk, do_n);
-        wgmma_rs<D>(acc_v, plo + 4 * kk, do_n);
-        wgmma_rs<D>(acc_k, shi + 4 * kk, q_n);
-        wgmma_rs<D>(acc_k, slo + 4 * kk, q_n);
+        // queries 16 kk .. 16 kk + 15 of the dO and Q tiles, read N-major
+        wgmma_rs_d<D>(acc_v, acc_vt, phi + 4 * kk, plo + 4 * kk, sdo, kRows,
+                      kk);
+        wgmma_rs_d<D>(acc_k, acc_kt, shi + 4 * kk, slo + 4 * kk, sq, kRows,
+                      kk);
       }
       wg_commit();
       wg_wait();
       reg_fence(acc_k);
       reg_fence(acc_v);
+      if constexpr (C::TAIL > 0) {
+        reg_fence(acc_kt);
+        reg_fence(acc_vt);
+      }
     }
     mbar_arrive(sm.empty(s));
   }
 
   if (wk0 >= S) return;
-  __nv_bfloat16* dkb = dk + b * dks.b + hk * dks.h;
-  __nv_bfloat16* dvb = dv + b * dvs.b + hk * dvs.h;
-#pragma unroll
-  for (int j = 0; j < D / 2; j += 2) {
-    const int row = kr0 + 8 * ((j >> 1) & 1), col = 8 * (j / 4) + c0;
-    if (row < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + row * dks.s + col) =
-          __floats2bfloat162_rn(acc_k[j] * scale, acc_k[j + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + row * dvs.s + col) =
-          __floats2bfloat162_rn(acc_v[j], acc_v[j + 1]);
-    }
-  }
+  store_rows<D>(dk + b * dks.b + hk * dks.h, dks.s, kr0, c0, S, acc_k, acc_kt,
+                scale);
+  store_rows<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, kr0, c0, S, acc_v, acc_vt,
+                1.f);
 }
 
 // (c) dQ of one (128-query tile, head, batch)
@@ -735,12 +764,17 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tq_tail,
+                  const __grid_constant__ CUtensorMap tk_tail,
+                  const __grid_constant__ CUtensorMap tv_tail,
+                  const __grid_constant__ CUtensorMap tdo_tail,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dq, int H, int KH, int B, int S,
                   Strides dqs, int causal, int window, float scale,
                   float scale_log2) {
   using G = Geom<D>;
+  using C = Cols<D>;
   extern __shared__ uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);  // own tiles Q, dO; stages K, V
 
@@ -761,15 +795,16 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<kProducerRegs>();
     if (tid == kConsumers) {
       mbar_expect_tx(sm.bar, 2 * G::OWN_BYTES);
-      tma_tile<D>(sm.own0, &tq, sm.bar, kBlockRows, q0, h, b);
-      tma_tile<D>(sm.own1, &tdo, sm.bar, kBlockRows, q0, h, b);
+      load_tile<D>(sm.own0, &tq, &tq_tail, sm.bar, kBlockRows, q0, h, b);
+      load_tile<D>(sm.own1, &tdo, &tdo_tail, sm.bar, kBlockRows, q0, h, b);
       for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
         const int s = i % kStages;
         mbar_wait(sm.empty(s), ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(sm.full(s), G::STAGE_BYTES);
-        tma_tile<D>(sm.stage(s), &tk, sm.full(s), kRows, kt * kRows, hk, b);
-        tma_tile<D>(sm.stage(s) + G::TILE_BYTES, &tv, sm.full(s), kRows,
-                    kt * kRows, hk, b);
+        load_tile<D>(sm.stage(s), &tk, &tk_tail, sm.full(s), kRows,
+                     kt * kRows, hk, b);
+        load_tile<D>(sm.stage(s) + G::TILE_BYTES, &tv, &tv_tail, sm.full(s),
+                     kRows, kt * kRows, hk, b);
       }
     }
     return;
@@ -791,11 +826,15 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     lse2[r] = row < S ? lse[row0 + row] * kLog2e : 0.f;
     dl[r] = row < S ? delta[row0 + row] : 0.f;
   }
-  const uint32_t qa = sm.own0 + wg * kRows * G::SW;
-  const uint32_t doa = sm.own1 + wg * kRows * G::SW;
-  float acc[D / 2];
+  const Rows64<D> qa(sm.own0, kBlockRows, kRows * wg);
+  const Rows64<D> doa(sm.own1, kBlockRows, kRows * wg);
+  // dQ: the main columns', and the tail's (unused at TAIL 0)
+  constexpr int NT = C::TAIL > 0 ? C::TAIL / 2 : 1;
+  float acc[C::MAIN / 2], acc_t[NT];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < C::MAIN / 2; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc_t[j] = 0.f;
   mbar_wait(sm.bar, 0);
 
   for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
@@ -807,15 +846,9 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
       wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(sc, desc_kmajor<D>(qa, kBlockRows, kk),
-                     desc_kmajor<D>(sk, kRows, kk));
+      wgmma_over_d<D>(sc, qa, kBlockRows, Rows64<D>(sk, kRows, 0), kRows);
       wg_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dp, desc_kmajor<D>(doa, kBlockRows, kk),
-                     desc_kmajor<D>(sv, kRows, kk));
+      wgmma_over_d<D>(dp, doa, kBlockRows, Rows64<D>(sv, kRows, 0), kRows);
       wg_commit();
       wg_wait<1>();  // S is in; dP runs on while P is computed
       reg_fence(sc);
@@ -847,28 +880,20 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
 
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kRows / 16; ++kk) {
+      for (int kk = 0; kk < kRows / 16; ++kk)
         // keys 16 kk .. 16 kk + 15 of the K tile, read N-major
-        const uint64_t k_n = desc_nmajor<D>(sk, kRows, kk);
-        wgmma_rs<D>(acc, shi + 4 * kk, k_n);
-        wgmma_rs<D>(acc, slo + 4 * kk, k_n);
-      }
+        wgmma_rs_d<D>(acc, acc_t, shi + 4 * kk, slo + 4 * kk, sk, kRows, kk);
       wg_commit();
       wg_wait();
       reg_fence(acc);
+      if constexpr (C::TAIL > 0) reg_fence(acc_t);
     }
     mbar_arrive(sm.empty(s));
   }
 
   if (wr_lo >= S) return;
-  __nv_bfloat16* dqb = dq + b * dqs.b + h * dqs.h;
-#pragma unroll
-  for (int j = 0; j < D / 2; j += 2) {
-    const int row = r0 + 8 * ((j >> 1) & 1), col = 8 * (j / 4) + c0;
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + row * dqs.s + col) =
-          __floats2bfloat162_rn(acc[j] * scale, acc[j + 1] * scale);
-  }
+  store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, r0, c0, S, acc, acc_t,
+                scale);
 }
 
 }  // namespace tc
@@ -945,19 +970,24 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
               cudaStream_t stream) {
   using tc::kBlockRows;
   using tc::kRows;
-  static_assert(D % attn::Swz<D>::AC == 0,
-                "the backward takes whole boxes only");
   // the dK/dV pass streams 64-row Q and dO tiles past 128-row K and V
-  // tiles; the dQ pass the other way round
+  // tiles; the dQ pass the other way round.  At D 80 and 96 each map has a
+  // tail map over its view from column 64 on (Cols<D>).
   CUtensorMap q_s, do_s, k_own, v_own, q_own, do_own, k_s, v_s;
-  if (!encode<D>(&q_s, q, S, H, B, st.q, kRows) ||
-      !encode<D>(&do_s, dout, S, H, B, st.dout, kRows) ||
-      !encode<D>(&k_own, k, S, KH, B, st.k, kBlockRows) ||
-      !encode<D>(&v_own, v, S, KH, B, st.v, kBlockRows) ||
-      !encode<D>(&q_own, q, S, H, B, st.q, kBlockRows) ||
-      !encode<D>(&do_own, dout, S, H, B, st.dout, kBlockRows) ||
-      !encode<D>(&k_s, k, S, KH, B, st.k, kRows) ||
-      !encode<D>(&v_s, v, S, KH, B, st.v, kRows))
+  CUtensorMap q_st{}, do_st{}, k_ownt{}, v_ownt{}, q_ownt{}, do_ownt{},
+      k_st{}, v_st{};
+  if (!attn::encode_cols<D>(&q_s, &q_st, q, S, H, B, st.q, kRows) ||
+      !attn::encode_cols<D>(&do_s, &do_st, dout, S, H, B, st.dout, kRows) ||
+      !attn::encode_cols<D>(&k_own, &k_ownt, k, S, KH, B, st.k,
+                            kBlockRows) ||
+      !attn::encode_cols<D>(&v_own, &v_ownt, v, S, KH, B, st.v,
+                            kBlockRows) ||
+      !attn::encode_cols<D>(&q_own, &q_ownt, q, S, H, B, st.q,
+                            kBlockRows) ||
+      !attn::encode_cols<D>(&do_own, &do_ownt, dout, S, H, B, st.dout,
+                            kBlockRows) ||
+      !attn::encode_cols<D>(&k_s, &k_st, k, S, KH, B, st.k, kRows) ||
+      !attn::encode_cols<D>(&v_s, &v_st, v, S, KH, B, st.v, kRows))
     return kErrTensorMap;
   const long long n_tiles = (S + kBlockRows - 1) / kBlockRows;
   if (n_tiles * H * B >= (1ll << 31))
@@ -975,8 +1005,8 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   tc::flash_bwd_dkdv_bf16<D>
       <<<static_cast<unsigned>(n_tiles * KH * B), tc::kThreads, bytes,
-         stream>>>(q_s, k_own, v_own, do_s, lse, delta,
-                   static_cast<__nv_bfloat16*>(dk),
+         stream>>>(q_s, k_own, v_own, do_s, q_st, k_ownt, v_ownt, do_st,
+                   lse, delta, static_cast<__nv_bfloat16*>(dk),
                    static_cast<__nv_bfloat16*>(dv), H, KH, B, S, st.dk, st.dv,
                    causal, window, scale, scale_log2);
   err = cudaGetLastError();
@@ -988,9 +1018,9 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   tc::flash_bwd_dq_bf16<D>
       <<<static_cast<unsigned>(n_tiles * H * B), tc::kThreads, bytes,
-         stream>>>(q_own, k_s, v_s, do_own, lse, delta,
-                   static_cast<__nv_bfloat16*>(dq), H, KH, B, S, st.dq,
-                   causal, window, scale, scale_log2);
+         stream>>>(q_own, k_s, v_s, do_own, q_ownt, k_st, v_st, do_ownt,
+                   lse, delta, static_cast<__nv_bfloat16*>(dq), H, KH, B, S,
+                   st.dq, causal, window, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1025,7 +1055,7 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // the D axis is contiguous and every row starts on a 16-byte boundary.  lse
 // (the forward's) and delta (scratch) are f32 (B, H, S) contiguous.
 // *design is set to the design launched: 1 = the tensor-core kernels
-// (bf16 at D 32, 64, 128), 0 = the CUDA-core ones.
+// (bf16 at D 32, 64, 80, 96, 128), 0 = the CUDA-core ones.
 extern "C" int flash_attention_bwd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     const float* o, const void* dout, const float* lse, float* delta,

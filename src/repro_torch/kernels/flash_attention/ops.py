@@ -50,20 +50,22 @@ run: ``delta = rowsum(dO * O)``; a dK/dV pass, one block per (key tile, kv
 head, batch) looping over the query tiles its masks leave and the query
 heads of its group; a dQ pass, one block per (query tile, head, batch).
 Both recompute P from ``lse``, so S and dP are computed twice (7 products
-for 5).  In bf16 at D ``BWD_TENSOR_CORE_DIMS`` (32, 64, 128: whole
-64-column boxes, unpadded) both passes have the forward's design: a TMA
-producer warp streams 64-row tiles past the block's own 128 rows, and two
-consumer warpgroups run every product as ``wgmma`` -- S^T = K Q^T and
-dP^T = V dO^T with both operands in shared memory, dV += P^T dO and dK +=
-dS^T Q with P^T and dS^T from registers (and S = Q K^T, dP = dO V^T, dQ +=
-dS K in the dQ pass) -- with P and dS split into bf16 hi + lo, as one
-bf16 P or dS misses the backward's tolerance.
-In f32 at every D and in bf16 at D 80, 96 and 256: the same three launches
-with f32 FMAs on the CUDA cores.  The dispatch is fixed by dtype and D in
-the C launcher, which reports the design it launched; a failure raises.
-``counter_bwd`` counts one per backward (three kernel launches), tallied
-by head dim, and ``counter_bwd_tc`` the backwards the launcher ran on the
-tensor-core kernels.
+for 5).  In bf16 at D ``BWD_TENSOR_CORE_DIMS`` (32, 64, 80, 96, 128)
+both passes have the forward's design: a TMA producer warp streams 64-row
+tiles past the block's own 128 rows, and two consumer warpgroups run
+every product as ``wgmma`` -- S^T = K Q^T and dP^T = V dO^T with both
+operands in shared memory, dV += P^T dO and dK += dS^T Q with P^T and
+dS^T from registers (and S = Q K^T, dP = dO V^T, dQ += dS K in the dQ
+pass) -- with P and dS split into bf16 hi + lo, as one bf16 P or dS
+misses the backward's tolerance.  At D 80 and 96 a row is the forward's
+64-column box and 16- or 32-column tail box, every product at the true
+width (unpadded).  In f32 at every D and in bf16 at D 256 (whose f32 dK
+and dV would not fit a consumer thread's registers): the same three
+launches with f32 FMAs on the CUDA cores.  The dispatch is fixed by
+dtype and D in the C launcher, which reports the design it launched; a
+failure raises.  ``counter_bwd`` counts one per backward (three kernel
+launches), tallied by head dim, and ``counter_bwd_tc`` the backwards the
+launcher ran on the tensor-core kernels.
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 # csrc/attention_common.cuh); f32, and bf16 at the others, run the
 # CUDA-core kernels
 FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128, 256)
-BWD_TENSOR_CORE_DIMS = (32, 64, 128)
+BWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

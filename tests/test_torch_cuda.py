@@ -1183,12 +1183,18 @@ def _check_bwd_on_card(cuda_device, dtype, b, h, kh, s, d, causal, window):
 @pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
     (2, 16, 8, 4096, 128, True, 0),      # the training shape, in full
     (1, 4, 4, 130, 128, False, 0),       # a 128-row tile of 2 rows (g = 1)
-    (2, 8, 2, 190, 64, True, 48)])       # of 62 rows, a window (g = 4)
+    (2, 8, 2, 190, 64, True, 48),        # of 62 rows, a window (g = 4)
+    (2, 16, 16, 1024, 80, False, 0),     # hubert-xlarge's training shape
+    (1, 32, 32, 640, 96, True, 0),       # phi-3-vision's
+    (1, 4, 4, 130, 96, False, 0),        # D 96: a tile of 2 rows
+    (2, 8, 2, 190, 80, True, 48)])       # D 80: of 62 rows, a window, GQA
 def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
         cuda_device, b, h, kh, s, d, causal, window):
     """bf16 at the shapes the tensor-core design's tiles meet: the training
-    shape, and an S whose last 128-row tile is partly filled, so that a
-    consumer warpgroup of the last tile has fewer than 64 rows or none."""
+    shapes (D 128; hubert-xlarge's D 80 and phi-3-vision's D 96, a row a
+    64-column box and a tail box), and an S whose last 128-row tile is
+    partly filled, so that a consumer warpgroup of the last tile has fewer
+    than 64 rows or none."""
     _check_bwd_on_card(cuda_device, torch.bfloat16, b, h, kh, s, d, causal,
                        window)
 
@@ -1297,13 +1303,14 @@ def test_flash_attention_fwd_design_on_card(cuda_device, dt, d, design):
 
 @pytest.mark.parametrize("dt,d,design", [
     ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 128, "tc"),
-    ("bf16", 80, "cc"), ("f32", 64, "cc"), ("f32", 128, "cc")])
+    ("bf16", 80, "tc"), ("bf16", 96, "tc"), ("bf16", 256, "cc"),
+    ("f32", 64, "cc"), ("f32", 80, "cc"), ("f32", 128, "cc")])
 def test_flash_attention_bwd_design_on_card(cuda_device, dt, d, design):
-    """bf16 at D 32/64/128 runs the tensor-core entries; f32, and bf16 at
-    the other head dims, the CUDA-core ``flash_bwd_dkdv`` and
-    ``flash_bwd_dq``: the design the launcher reports (``counter_bwd_tc``)
-    and, where the profiler records the call, three kernels, one of each
-    of the design's entries."""
+    """bf16 at D 32/64/80/96/128 runs the tensor-core entries; f32 at
+    every D, and bf16 at D 256, the CUDA-core ``flash_bwd_dkdv`` and
+    ``flash_bwd_dq``: the design the launcher reports
+    (``counter_bwd_tc``) and, where the profiler records the call, three
+    kernels, one of each of the design's entries."""
     dtype = ATT_DTYPES[dt][0]
     assert (d in fa.BWD_TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
     q, do = (_randn((1, 4, 256, d), dtype, cuda_device, i) for i in (1, 2))
@@ -1349,7 +1356,8 @@ def test_flash_fn_on_card_matches_cpu(cuda_device, upstream):
 @pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
     (1, 4, 2, 512, 128, True, 0), (1, 4, 2, 512, 64, False, 0),
     (1, 4, 2, 512, 128, True, 100), (1, 4, 2, 300, 64, True, 0),
-    (1, 4, 2, 512, 32, True, 0)])
+    (1, 4, 2, 512, 32, True, 0), (1, 4, 4, 256, 80, False, 0),
+    (1, 4, 4, 256, 96, True, 0)])
 def test_flash_fn_backward_takes_delta_from_f32_out_on_card(
         cuda_device, b, h, kh, s, d, causal, window):
     """``gqa_attention``'s bf16 gradients through ``_FlashFn`` (the forward
@@ -1407,6 +1415,32 @@ def test_training_step_on_card_matches_cpu(cuda_device):
         assert g is not None and bool(g.abs().sum() > 0)
         rel = float((g.float().cpu() - w.float()).norm() / w.float().norm())
         assert rel <= 2e-2, rel
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its phase helpers take ``dev``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b",
+                                  "recurrentgemma-9b", "hubert-xlarge",
+                                  "phi-3-vision-4.2b"])
+def test_family_training_step_on_card_matches_cpu(cuda_device, arch):
+    """``chip_smoke.py`` phase 15's check of a family's training step:
+    the loss and every gradient leaf at 2 layers of full width (the hybrid
+    6), B 1 x S 256, on the card against the CPU on the same weights and
+    batch (``TRAIN_TOL``, the hybrid's leaves 6e-2), every leaf's gradient
+    present and nonzero on the card (the encoder's unread token embedding
+    none on either side); the MoE replays the CPU's expert choices, its
+    own held to ``FLIP_MAX``."""
+    smoke = _chip_smoke()
+    smoke.train_vs_cpu(cuda_device, torch.cuda.get_device_name(0), arch)
 
 
 def test_flash_attention_bwd_wrapper_checks_inputs_on_card(cuda_device):

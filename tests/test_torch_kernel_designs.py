@@ -18,7 +18,8 @@ JAX reference, so that it is held to the reference before it runs on a card.
 * ``flash_attention_bwd`` (bf16, tensor cores): a plain emulation of the
   two passes' arithmetic -- bf16 q, k, v and dO, the forward's f32 output
   (the one the forward kernel writes for training, emulated above); f32 S
-  and dP; P = exp2(S scale log2 e - lse log2 e) under the masks; dS = P
+  and dP summed over 16-column k-steps; P = exp2(S scale log2 e - lse
+  log2 e) under the masks; dS = P
   (dP - delta); P and dS rounded to bf16 as hi + lo, both multiplied into
   f32 accumulators, dK and dV over 64-row query tiles and the group's
   heads, dQ over 64-key tiles; the scale at the store -- has no element
@@ -29,7 +30,9 @@ JAX reference, so that it is held to the reference before it runs on a card.
   instead, delta moves by its rounding and both backwards miss the f32
   gradient: that is why the forward writes its f32 output for training.
   With one bf16 P, dV misses it; with one bf16 dS, dQ and dK do: that is
-  why the kernel splits both.
+  why the kernel splits both.  At D 80 and 96 (hubert-xlarge's and
+  phi-3-vision's) a row is read as the forward's 64-column box and tail
+  box, and gives the same bits as tiles padded with zero columns to 128.
 * ``paged_attention`` (flash decoding): ``paged_attention_split_ref``, the
   split-and-merge the kernel computes, equals ``paged_attention_ref``, the
   JAX reference and the Pallas kernel in interpret mode, at splits and
@@ -213,23 +216,40 @@ def _bf16_parts(x: torch.Tensor, split: bool) -> list[torch.Tensor]:
     return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
 
 
+def _over_d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b^T summed over 16-column k-steps of the shared D axis, in order:
+    the kernel's wgmma k-steps, through a row's 64-column boxes and then,
+    at D 80 and 96, its 16- or 32-column tail box."""
+    out = torch.zeros(a.shape[:-1] + (b.shape[-2],))
+    for c0 in range(0, a.shape[-1], 16):
+        out = out + a[..., c0:c0 + 16] @ b[..., c0:c0 + 16].transpose(-1, -2)
+    return out
+
+
 def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
-                                    window, split_p, split_ds, tile=64):
+                                    window, split_p, split_ds, tile=64,
+                                    width=None):
     """The bf16 tensor-core backward's arithmetic in plain PyTorch: q, out,
     dout (B, H, S, D), k/v (B, KH, S, D) in bf16, lse (B, H, S) f32.  delta
-    = rowsum(dout * out) in f32; S and dP in f32; P = exp2(S scale log2 e -
-    lse log2 e), 0 where masked; dS = P (dP - delta); P and dS as bf16
-    operands (hi, or hi + lo); the dK/dV pass accumulates in f32 over
-    ``tile``-row query tiles and, inside each, the g query heads of a kv
-    head; the dQ pass over ``tile``-key tiles; dK and dQ scaled at the
-    store; each output rounded once to bf16."""
+    = rowsum(dout * out) in f32 (its own launch, over the D columns); S and
+    dP in f32, summed over 16-column k-steps (``_over_d``); P = exp2(S
+    scale log2 e - lse log2 e), 0 where masked; dS = P (dP - delta); P and
+    dS as bf16 operands (hi, or hi + lo); the dK/dV pass accumulates in f32
+    over ``tile``-row query tiles and, inside each, the g query heads of a
+    kv head; the dQ pass over ``tile``-key tiles; dK and dQ scaled at the
+    store; each output rounded once to bf16.  With ``width``, q, k, v and
+    dout are first padded with zero columns to that many (tiles padded to
+    whole boxes) and the gradients cut back to D."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     g = h // kh
     c = d ** -0.5 * math.log2(math.e)
+    delta = (dout.float() * out.float()).sum(-1)
+    if width is not None:
+        q, k, v, dout = (torch.nn.functional.pad(x, (0, width - d))
+                         for x in (q, k, v, dout))
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = dout.float()
-    delta = (dof * out.float()).sum(-1)
     lse2 = lse * math.log2(math.e)
     pos = torch.arange(s)
     ok = torch.ones((s, s), dtype=torch.bool)
@@ -241,14 +261,15 @@ def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
     def p_ds(hh, qs, ks):
         """P and dS of query head ``hh``'s rows ``qs`` and keys ``ks``."""
         kv = hh // g
-        sc = qf[:, hh, qs] @ kf[:, kv, ks].transpose(-1, -2)
+        sc = _over_d(qf[:, hh, qs], kf[:, kv, ks])
         p = torch.where(ok[qs, ks], torch.exp2(
             sc * c - lse2[:, hh, qs, None]), 0.0)
-        dp = dof[:, hh, qs] @ vf[:, kv, ks].transpose(-1, -2)
+        dp = _over_d(dof[:, hh, qs], vf[:, kv, ks])
         return p, p * (dp - delta[:, hh, qs, None])
 
-    dk = torch.zeros((b, kh, s, d))
-    dv = torch.zeros((b, kh, s, d))
+    w = q.shape[-1]
+    dk = torch.zeros((b, kh, s, w))
+    dv = torch.zeros((b, kh, s, w))
     for q0 in range(0, s, tile):
         qs = slice(q0, min(q0 + tile, s))
         for hh in range(h):
@@ -257,7 +278,7 @@ def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
                 dv[:, hh // g] += part.transpose(-1, -2) @ dof[:, hh, qs]
             for part in _bf16_parts(ds, split_ds):
                 dk[:, hh // g] += part.transpose(-1, -2) @ qf[:, hh, qs]
-    dq = torch.zeros((b, h, s, d))
+    dq = torch.zeros((b, h, s, w))
     for k0 in range(0, s, tile):
         ks = slice(k0, min(k0 + tile, s))
         for hh in range(h):
@@ -265,7 +286,8 @@ def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
             for part in _bf16_parts(ds, split_ds):
                 dq[:, hh] += part @ kf[:, hh // g, ks]
     scale = d ** -0.5
-    return tuple(x.to(torch.bfloat16) for x in (dq * scale, dk * scale, dv))
+    return tuple(x[..., :d].to(torch.bfloat16)
+                 for x in (dq * scale, dk * scale, dv))
 
 
 def _beyond_bwd_tol(got, want) -> int:
@@ -283,6 +305,8 @@ BWD_EMU_CASES = [
     (1, 4, 2, 512, 128, True, 100),  # a window that ends inside a tile
     (1, 4, 2, 300, 64, True, 0),     # ragged S
     (1, 4, 2, 512, 32, True, 0),     # D 32 (64-byte swizzle)
+    (1, 4, 4, 256, 80, False, 0),    # hubert-xlarge's: D 80, no mask
+    (1, 4, 4, 256, 96, True, 0),     # phi-3-vision's: D 96, causal
 ]
 
 
@@ -311,25 +335,34 @@ def test_flash_bwd_split_p_and_ds_within_tolerance_single_not(
     # the port's plain backward fed the f32 output is the JAX one
     assert [_beyond_bwd_tol(x, w) for x, w in zip(want_t, want_j)] == [0] * 3
 
-    def emulate(split_p, split_ds, o=out):
-        got = flash_bwd_tensor_core_emulation(
-            qt, kt, vt, o, dot, lse, split_p=split_p, split_ds=split_ds, **kw)
+    def emulate(split_p, split_ds, o=out, width=None):
+        return flash_bwd_tensor_core_emulation(
+            qt, kt, vt, o, dot, lse, split_p=split_p, split_ds=split_ds,
+            width=width, **kw)
+
+    def beyond(got):
         for x, w in zip(got, want_t):
             assert x.dtype == torch.bfloat16 and x.shape == w.shape
         return [(_beyond_bwd_tol(x, w), _beyond_bwd_tol(x, wj))
                 for x, w, wj in zip(got, want_t, want_j)]
 
     # (dq, dk, dv), each (beyond the port's ref, beyond the JAX vjp)
-    assert emulate(True, True) == [(0, 0)] * 3
+    split = emulate(True, True)
+    assert beyond(split) == [(0, 0)] * 3
+    if padded_width(d) != d:
+        # a row read as a 64-column box and a tail box gives the bits of
+        # tiles padded with zero columns to whole boxes (128)
+        padded = emulate(True, True, width=padded_width(d))
+        assert all(torch.equal(x, y) for x, y in zip(split, padded))
     if (b, h, kh, s, d, causal, window) == BWD_EMU_CASES[0]:
         # fed the bf16 output, as the card's residual was before, dq and dk
         # miss the f32 gradient
-        bf16_out = emulate(True, True, out.to(torch.bfloat16))
+        bf16_out = beyond(emulate(True, True, out.to(torch.bfloat16)))
         assert bf16_out[0][1] > 0 and bf16_out[1][1] > 0
-    single_p = emulate(False, True)
+    single_p = beyond(emulate(False, True))
     assert single_p[:2] == [(0, 0)] * 2
     assert min(single_p[2]) > 0
-    single_ds = emulate(True, False)
+    single_ds = beyond(emulate(True, False))
     assert min(single_ds[0]) > 0 and min(single_ds[1]) > 0
     assert single_ds[2] == (0, 0)
 
@@ -1048,8 +1081,8 @@ def test_scratch_is_cached_and_grows_zeroed():
 def test_tensor_core_head_dims_match_the_sources():
     """The head dims at which bf16 runs the tensor-core kernels, forward
     and backward, are ``ops.py``'s two sets; each source dispatches on its
-    own; only D 80 and 96 are not whole boxes (the forward's tail box), and
-    the backward takes whole boxes only."""
+    own; only D 80 and 96 are not whole boxes (both directions read their
+    tail box), and the backward runs every D but 256 on the tensor cores."""
     src = (build.CSRC / "attention_common.cuh").read_text()
 
     def dims(name):
@@ -1066,7 +1099,13 @@ def test_tensor_core_head_dims_match_the_sources():
     assert "kTensorCoresBwd<" in bwd and "kTensorCoresFwd" not in bwd
     assert [d for d in fa.FWD_TENSOR_CORE_DIMS if padded_width(d) != d] == \
         [80, 96]
-    assert all(padded_width(d) == d for d in fa.BWD_TENSOR_CORE_DIMS)
+    assert [d for d in fa.BWD_TENSOR_CORE_DIMS if padded_width(d) != d] == \
+        [80, 96]
+    assert set(fa.FWD_TENSOR_CORE_DIMS) - set(fa.BWD_TENSOR_CORE_DIMS) == \
+        {256}
+    for text in (fwd, bwd):     # one copy of the tail-box machinery
+        assert "struct Cols" not in text and "Cols<D>" in text
+    assert "struct Cols" in src
 
 
 @pytest.mark.parametrize("name,mod", [("wc_combine", wcc), ("scan_probe", sp)])

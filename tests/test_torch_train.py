@@ -217,6 +217,61 @@ def test_adamw_update_matches_reference(qwen):
                                    err_msg=str(path))
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 1 << 25])
+def test_adamw_update_in_chunks_gives_the_whole_leaf_bits(monkeypatch,
+                                                           chunk):
+    """``adamw_update`` takes each leaf in chunks of ``CHUNK`` elements,
+    clipping as it goes: its parameters, moments, step and norm equal bit
+    for bit the whole-leaf formula (the clipped tree of
+    ``clip_by_global_norm``, then one pass over each leaf), at chunks that
+    cut every leaf (1, 7) or none, and its arguments are left as they
+    were."""
+    from repro_torch.train import optimizer as topt_mod
+    rng = np.random.default_rng(3)
+
+    def leaf(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+
+    shapes = {"a": ((3, 5, 7), torch.bfloat16), "b": ((11,), torch.bfloat16),
+              "c": ((4, 4), torch.float32), "d": ((), torch.float32)}
+    params = {k: leaf(*v) for k, v in shapes.items()}
+    grads = {k: leaf(*v) * 3 for k, v in shapes.items()}
+    opt = topt_mod.OptState(
+        m={k: leaf(v[0], torch.float32) * 0.1 for k, v in shapes.items()},
+        v={k: leaf(v[0], torch.float32).square() for k, v in shapes.items()},
+        step=torch.tensor(2, dtype=torch.int32))
+    def args():
+        return [x for t in (params, grads, opt.m, opt.v)
+                for x in tree_leaves(t)]
+
+    before = [x.clone() for x in args()]
+    kw = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+
+    # the whole-leaf formula
+    clipped, want_gn = clip_by_global_norm(grads, 0.5)
+    t = torch.tensor(3.0)
+    c1, c2 = 1 - torch.tensor(0.9) ** t, 1 - torch.tensor(0.95) ** t
+    want = {}
+    for k in shapes:
+        p, g32 = params[k], clipped[k].to(torch.float32)
+        m2 = 0.9 * opt.m[k] + (1 - 0.9) * g32
+        v2 = 0.95 * opt.v[k] + (1 - 0.95) * g32.square()
+        u = (m2 / c1) / (torch.sqrt(v2 / c2) + 1e-8) + 0.1 * p.to(
+            torch.float32)
+        want[k] = ((p.to(torch.float32) - 1e-2 * u).to(p.dtype), m2, v2)
+
+    monkeypatch.setattr(topt_mod, "CHUNK", chunk)
+    got_p, got_opt, got_gn = adamw_update(params, grads, opt, max_norm=0.5,
+                                          **kw)
+    assert torch.equal(got_gn, want_gn) and int(got_opt.step) == 3
+    for k, (p2, m2, v2) in want.items():
+        for got, w in ((got_p[k], p2), (got_opt.m[k], m2),
+                       (got_opt.v[k], v2)):
+            assert got.dtype == w.dtype and torch.equal(got, w), k
+    assert all(torch.equal(x, y) for x, y in zip(before, args()))
+
+
 def test_clip_by_global_norm_matches_reference(qwen):
     _, _, _, _, _, jg = qwen
     for max_norm in (1e-3, 1e6):

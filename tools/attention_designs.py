@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time the attention kernels' designs at recurrentgemma-9b's D-256 shapes,
-and the rows of the kernel table beside them, on one card, for one or more
-trees in turns.
+"""Time the attention kernels' rows of the kernel table on one card, for
+one or more trees in turns.
 
     python3 tools/attention_designs.py                  # this tree
     python3 tools/attention_designs.py --trees build/parent . . build/parent
@@ -18,10 +17,13 @@ table; ``paged_attention`` at the 40-row serve slots (length 40) of
 qwen3-0.6b (H 16, KH 8, D 128), deepseek-moe-16b (16, 16, 128),
 phi-3-vision-4.2b (32, 32, 96) and recurrentgemma-9b (16, 1, 256), at
 recurrentgemma-9b's 2,048-row ring (length 2,048) and at decode_32k (B 8,
-16-row pages, lengths up to 32,768).  Every call goes through the public
-wrappers (``flash_attention_cuda``, ``paged_attention_cuda``), so that a
-parent tree runs its own design.  Prints one JSON line a tree, then a
-table.
+16-row pages, lengths up to 32,768); ``flash_attention_bwd`` at the
+training shapes of qwen3-0.6b (D 128), hubert-xlarge (D 80),
+phi-3-vision-4.2b (D 96) and recurrentgemma-9b (D 256), each held to the
+plain backward within ``chip_smoke.BWD_TOL``.  Every call goes through
+the public wrappers (``flash_attention_cuda``, ``paged_attention_cuda``,
+``flash_attention_bwd_cuda``), so that a parent tree runs its own design.
+Prints one JSON line a tree, then a table.
 Needs one CUDA card; the time of every row is the card's (its name and
 power limit are printed first).
 """
@@ -41,6 +43,12 @@ FLASH_ROWS = (("flash_d256", 1, 4096, 16, 1, 256, True, 2048),
               ("flash_d128_mha", 1, 2048, 16, 16, 128, True, 0),
               ("flash_d80", 2, 1024, 16, 16, 80, False, 0),
               ("flash_d96", 1, 640, 32, 32, 96, True, 0))
+# the backward at each family's training shape (row, B, S, H, KH, D,
+# causal, window)
+BWD_ROWS = (("bwd_d128", 2, 4096, 16, 8, 128, True, 0),
+            ("bwd_d80", 2, 1024, 16, 16, 80, False, 0),
+            ("bwd_d96", 1, 640, 32, 32, 96, True, 0),
+            ("bwd_d256", 1, 4096, 16, 1, 256, True, 2048))
 # (row, H, KH, D, span): one page of `span` rows, B 1, length span
 PAGED_ROWS = (("paged_d128", 16, 8, 128, 40),
               ("paged_d128_mha", 16, 16, 128, 40),
@@ -58,7 +66,8 @@ def child(tree: Path) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
 
-    build.build(("flash_attention", "paged_attention"))
+    build.build(("flash_attention", "paged_attention",
+                 "flash_attention_bwd"))
     dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
     rows: dict[str, float] = {}
@@ -81,6 +90,30 @@ def child(tree: Path) -> dict:
 
     for row in FLASH_ROWS:
         flash_row(*row)
+
+    def bwd_row(name, b, s, h, kh, d, causal, window):
+        q, do = (cs._randn((b, h, s, d), bf16, dev, i) for i in (21, 24))
+        k, v = (cs._randn((b, kh, s, d), bf16, dev, i) for i in (22, 23))
+        kw = dict(causal=causal, window=window)
+        _, lse, o = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        args = (q, k, v, o, do, lse)
+        want = fa.flash_attention_bwd_ref(*args, **kw)
+        got = fa.flash_attention_bwd_cuda(*args, **kw)
+        rtol, atol = cs.BWD_TOL["bfloat16"]
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            scale = max(float(w.abs().max()), 1.0)
+            bad = int(((g - w).abs() > atol * scale + rtol * w.abs()).sum())
+            cs.check(bad == 0, f"{tree} {name}: {bad} elements beyond "
+                               f"BWD_TOL")
+        del got, want
+        flops = 10 * b * h * d * cs.flash_pairs(s, causal, window)
+        rows[name], _ = cs.timed(
+            lambda: fa.flash_attention_bwd_cuda(*args, **kw), 3,
+            floor=cs.floor_ms(0, flops))
+
+    for row in BWD_ROWS:
+        bwd_row(*row)
 
     ident = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     for name, h, kh, d, span in PAGED_ROWS:
