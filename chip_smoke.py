@@ -48,8 +48,9 @@ Phases (any mismatch raises, and the script exits non-zero):
    recurrentgemma's windowed D 256); kernel, plain, SDPA backward (a
    window as a boolean ``attn_mask``) and bound times, and the design each
    case ran, checked from the profiler's kernel names (``BWD_ENTRIES``:
-   the tensor-core entries in bf16 at D 32/64/80/96/128, the CUDA-core
-   ones otherwise).
+   the tensor-core entries in bf16 at every D, with the reduce launch
+   where the launcher split D 256's dK/dV pass over head groups, by its
+   report (``counter_bwd_plan``); the CUDA-core ones in f32).
 2. the ``engine_json`` configuration (65,536 slots, batch 4096, 16 windows,
    write-intensive Zipf 0.99, 16 CNs) in all four SyncModes: every verb
    counter and the modeled Mops/s and latency percentiles must equal the
@@ -160,8 +161,8 @@ Phases (any mismatch raises, and the script exits non-zero):
     ``launch.train.train_step`` on one seeded batch: losses finite and
     falling, the step's peak under ``TRAIN_PEAK_GIB``, ms a step, positions
     a second, busy time and idle share of one profiled step, flash
-    launches a step and the backwards on the tensor cores (every one at D
-    80, 96 and 128, none at D 256), the backward's share of the busy time;
+    launches a step and the backwards on the tensor cores (every one, at
+    D 80, 96, 128 and 256), the backward's share of the busy time;
     then ``train_vs_cpu`` at 2 layers (the hybrid 6), B 1 x S 256, the MoE
     replaying the CPU's expert choices.
 
@@ -315,6 +316,7 @@ def card_line() -> str:
 
 _ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cc|flash_bwd_delta|"
                     r"flash_bwd_dkdv_bf16|flash_bwd_dq_bf16|"
+                    r"flash_bwd_reduce_bf16|"
                     r"flash_bwd_dkdv|flash_bwd_dq|paged_split_kernel|"
                     r"paged_merge_kernel)I((?:13__nv_bfloat16|f)*)Li(\d+)E")
 _SWEEP_ENTRY = re.compile(r"(wc_combine_kernel|scan_probe_kernel)")
@@ -670,6 +672,31 @@ def flash_pairs(s: int, causal: bool, window: int) -> int:
     lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
     hi = i if causal else np.full_like(i, s - 1)
     return int((hi - lo + 1).sum())
+
+
+def bwd_tile_bytes(b: int, s: int, h: int, kh: int, d: int, causal: bool,
+                   window: int, head_groups: int) -> dict:
+    """Bytes each pass of the bf16 tensor-core backward loads by TMA (from
+    L2, or from device memory on a miss), by the kernels' own loops:
+    every block its two own tiles (128 rows, 64 at D 256) once and a tile
+    pair (64 rows of each of two tensors) a streamed tile; the dK/dV pass
+    over the query tiles its keys see, once for each query head of its
+    group, the dQ pass over the key tiles its queries see."""
+    own = 64 if d > 128 else 128
+    pair = 2 * 64 * d * 2
+    dkdv = dq = 0
+    for k0 in range(0, s, own):
+        kmax = min(k0 + own, s) - 1
+        q_hi = min(s, kmax + window) if window else s
+        tiles = -(-q_hi // 64) - (k0 if causal else 0) // 64
+        dkdv += tiles * h // kh * pair + head_groups * 2 * own * d * 2
+    for q0 in range(0, s, own):
+        hi = -(-s // 64)
+        if causal:
+            hi = min(hi, -(-min(q0 + own, s) // 64))
+        lo = max(0, q0 - window + 1) // 64 if window else 0
+        dq += h * ((hi - lo) * pair + 2 * own * d * 2)
+    return {"dkdv": b * kh * dkdv, "dq": b * dq}
 
 
 def phase1_attention(dev, card: str) -> dict:
@@ -1045,6 +1072,8 @@ BWD_ENTRIES = {"tensor cores": ("flash_bwd_delta", "flash_bwd_dkdv_bf16",
                                 "flash_bwd_dq_bf16"),
                "CUDA cores": ("flash_bwd_delta", "flash_bwd_dkdv<",
                               "flash_bwd_dq<")}
+# the fourth launch of a dK/dV pass split over head groups (D 256)
+BWD_REDUCE = "flash_bwd_reduce_bf16"
 
 
 def fwd_design(fa, dtype, d: int) -> str:
@@ -1058,6 +1087,21 @@ def bwd_design(dtype_name: str, d: int) -> str:
     from repro_torch.kernels.flash_attention.ops import BWD_TENSOR_CORE_DIMS
     return ("tensor cores" if dtype_name == "bfloat16"
             and d in BWD_TENSOR_CORE_DIMS else "CUDA cores")
+
+
+def bwd_entries(design: str, plan) -> tuple:
+    """The entries of a backward of ``design`` whose dK/dV pass ran
+    ``plan`` (a ``BwdPlan``): the design's three, and the reduce launch
+    when the pass was split over head groups."""
+    return BWD_ENTRIES[design] + ((BWD_REDUCE,) if plan.head_groups > 1
+                                  else ())
+
+
+def new_plans(fa, before: dict) -> list:
+    """The dK/dV plans ``counter_bwd_plan`` tallied since ``before`` (a
+    copy of its ``by_size``)."""
+    return [p for p, n in fa.counter_bwd_plan.by_size.items()
+            if n > before.get(p, 0)]
 
 
 def fwd_checked(fa, design: str, q, k, v, kw: dict):
@@ -1092,8 +1136,10 @@ def phase1_backward(dev, card: str, out: dict) -> None:
     plain version's), then at the families' training shapes
     (``BWD_NEW``), with kernel, plain, SDPA-backward and bound times and
     the design each ran (its entries checked in the profile: the tensor
-    cores in bf16 at D 32/64/80/96/128, the CUDA cores otherwise); fills
-    ``out["flash_attention_bwd"]`` and the ``BWD_NEW`` rows.  A windowed
+    cores in bf16 at every D, the CUDA cores in f32), the dK/dV plan the
+    launcher reported and each entry's time (the reduce's where the plan
+    split the pass); fills ``out["flash_attention_bwd"]`` and the
+    ``BWD_NEW`` rows.  A windowed
     case's SDPA backward takes the mask as a boolean ``attn_mask`` over
     k/v expanded to q's heads (timed, not checked)."""
     import torch
@@ -1130,7 +1176,12 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                   f"flash_attention lse {label} {dname}: max |diff| "
                   f"{lse_err}")
             del lse_ref, o16
+            plans0 = dict(fa.counter_bwd_plan.by_size)
             got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            plans = new_plans(fa, plans0)
+            check(len(plans) == 1, f"flash_attention_bwd {label} {dname}: "
+                                   f"plans {plans}")
+            plan = plans[0]
             want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
             torch.cuda.synchronize()
             rtol, atol = BWD_TOL[dname]
@@ -1166,7 +1217,7 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                 events=True, floor=fl)
             design = bwd_design(dname, d)
             entries = (check_entries("flash_attention_bwd", top,
-                                     BWD_ENTRIES[design], design,
+                                     bwd_entries(design, plan), design,
                                      f"{label} {dname}") if top else None)
             plain, plain_call = timed(
                 lambda: fa.flash_attention_bwd_ref(*args, **kw), 2, floor=fl)
@@ -1196,19 +1247,33 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                        else "operations", call_ms=call,
                        plain_call_ms=plain_call, library_call_ms=lib_call,
                        bound_f32_ms=flops / FLOPS["float32"] * 1e3,
-                       design=design, ms_by_entry=entries)
+                       design=design, ms_by_entry=entries,
+                       plan=plan._asdict())
+            if design == "tensor cores" and entries:
+                # each pass's tile loads over its profiled time
+                tiles = bwd_tile_bytes(b, s, h, kh, d, causal, window,
+                                       plan.head_groups)
+                row["tile_bytes_by_pass"] = tiles
+                row["tile_tb_per_s_by_pass"] = {
+                    p: n / (entries[f"flash_bwd_{p}_bf16"] * 1e-3) / 1e12
+                    for p, n in tiles.items()
+                    if entries[f"flash_bwd_{p}_bf16"] > 0}
             if target is not None and dtype == torch.bfloat16:
                 target.update(row)
             say(f"  flash_attention_bwd {label} B{b} S{s} H{h} KH{kh} D{d} "
                 f"causal={causal} window={window}, {dname} on the {design} "
-                f"(ms a call by entry {entries}): max |diff| "
+                f"(dK/dV plan {tuple(plan)}; ms a call by entry {entries}): "
+                f"max |diff| "
                 f"{err:.3g} (lse {lse_err:.3g}); device: kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
                 f"SDPA backward {lib} ms; per call: {call:.4f} / "
                 f"{plain_call:.4f} / {lib_call} ms; bound "
                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
                 f"{flops / 1e9:.2f} GFLOP; f32 CUDA-core bound "
-                f"{row['bound_f32_ms']:.4f} ms) [{card}]")
+                f"{row['bound_f32_ms']:.4f} ms)"
+                + (f"; tile loads by pass {row['tile_bytes_by_pass']} B, "
+                   f"{row['tile_tb_per_s_by_pass']} TB/s"
+                   if "tile_bytes_by_pass" in row else "") + f" [{card}]")
             del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     flash_fn_backward(dev, card)
@@ -1220,7 +1285,7 @@ def phase1_backward(dev, card: str, out: dict) -> None:
 BWD_EMU_CASES = ((1, 4, 2, 512, 128, True, 0), (1, 4, 2, 512, 64, False, 0),
                  (1, 4, 2, 512, 128, True, 100), (1, 4, 2, 300, 64, True, 0),
                  (1, 4, 2, 512, 32, True, 0), (1, 4, 4, 256, 80, False, 0),
-                 (1, 4, 4, 256, 96, True, 0))
+                 (1, 4, 4, 256, 96, True, 0), (1, 4, 1, 320, 256, True, 64))
 
 
 def flash_fn_backward(dev, card: str) -> None:
@@ -3912,6 +3977,7 @@ def train_family(dev, card: str, arch: str, spec: dict) -> dict:
     torch.cuda.synchronize()
     f0, b0, tc0 = fa.counter.count, fa.counter_bwd.count, \
         fa.counter_bwd_tc.count
+    plans0 = dict(fa.counter_bwd_plan.by_size)
     t0 = time.perf_counter()
     per = TRAIN_FAMILY_STEPS - 1
     for _ in range(per):
@@ -3928,8 +3994,13 @@ def train_family(dev, card: str, arch: str, spec: dict) -> dict:
     check(bwd_tc == (bwd if design == "tensor cores" else 0),
           f"train {arch}: {bwd_tc} of {bwd} backwards a step on the tensor "
           f"cores at D {cfg.head_dim}, expected the {design}")
+    # every layer's backward has the step's shape, so one dK/dV plan
+    plans = new_plans(fa, plans0)
+    check(len(plans) == (1 if n_attn else 0),
+          f"train {arch}: dK/dV plans {plans}")
+    plan = plans[0] if plans else None
 
-    entries = BWD_ENTRIES[design]
+    entries = bwd_entries(design, plan) if plan else BWD_ENTRIES[design]
     # a session that records no GPU events, or drops some, is run again
     for _ in range(3):
         busy, _, events = profile_device(one, iters=1, n_top=None)
@@ -3948,6 +4019,7 @@ def train_family(dev, card: str, arch: str, spec: dict) -> dict:
                allocated_before_gib=before,
                busy_ms=busy, fwd_per_step=fwd, bwd_per_step=bwd,
                bwd_tc_per_step=bwd_tc, design=design,
+               bwd_plan=plan._asdict() if plan else None,
                idle_share=None if busy is None else 1 - busy / (step_s * 1e3))
     if busy is not None and n_attn:
         other = BWD_ENTRIES["CUDA cores" if design == "tensor cores"
@@ -3967,7 +4039,8 @@ def train_family(dev, card: str, arch: str, spec: dict) -> dict:
         f"peak {peak:.2f} GiB ({before:.2f} allocated before); profiled: "
         f"busy {busy} ms, idle share {res['idle_share']}; flash a step: "
         f"forward {fwd:g}, backward {bwd:g} (tensor cores {bwd_tc:g}, D "
-        f"{cfg.head_dim}: {design})"
+        f"{cfg.head_dim}: {design}; dK/dV plan "
+        f"{tuple(plan) if plan else None})"
         + (f"; backward {res['bwd_ms']:.3f} ms, {res['bwd_share']:.3f} of "
            f"busy, by entry (ms, launches) "
            f"{[(w, round(ms_by[w], 3), n_by[w]) for w in entries]}"
@@ -4431,7 +4504,8 @@ def main() -> int:
     say(f"  (t = {time.perf_counter() - t_start:.1f} s)")
     att = phase1_attention(dev, card)
 
-    for c in (*counters.values(), fa.counter_tc, fa.counter_bwd_tc):
+    for c in (*counters.values(), fa.counter_tc, fa.counter_bwd_tc,
+              fa.counter_bwd_plan):
         c.reset()              # the main paths' runs start here
     per_phase = {1: {n: 0 for n in counters}}
     steps = (
@@ -4578,6 +4652,10 @@ def main() -> int:
                 fa.counter_bwd_tc.count if kernel == name
                 else fa.counter_bwd_tc.by_size.get(meta["d"], 0))
             row["note"] = "delta from the forward's f32 output"
+            if kernel == name:   # the main path's dK/dV plans
+                row["launches_by_plan"] = {
+                    str(tuple(p)): n
+                    for p, n in fa.counter_bwd_plan.by_size.items()}
         elif kernel == "flash_attention":
             row["launches_tensor_cores"] = (
                 fa.counter_tc.count if kernel == name

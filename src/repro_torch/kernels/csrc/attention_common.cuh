@@ -53,18 +53,20 @@ constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 // Hopper: tiles in shared memory, TMA, wgmma
 // ---------------------------------------------------------------------------
 
-// the head dims at which bf16 runs the tensor-core kernels: both
-// directions load a row of D 80 or 96 as a whole box and a narrower tail
-// box (Cols<D>); the forward at D 256 runs a geometry of its own (two K/V
-// stages, a producer warpgroup that hands its registers to the consumers:
-// flash_attention.cu, Geom<D>), while the backward's f32 dK and dV of 64
-// keys x 256 columns would not fit a consumer thread's 240 registers
+// the head dims at which bf16 runs the tensor-core kernels (every one; f32
+// runs the CUDA cores): both directions load a row of D 80 or 96 as a
+// whole box and a narrower tail box (Cols<D>); at D 256 each direction
+// runs a geometry of its own (Geom<D> of each source): the forward two K/V
+// stages and a producer warpgroup that hands its registers to the
+// consumers, the backward 64-row blocks whose two consumer warpgroups
+// split each tile pair's products between them, since one warpgroup's f32
+// dK and dV of 64 keys x 256 columns would not fit its 240 registers
 template <int D>
 constexpr bool kTensorCoresFwd =
     D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256;
 template <int D>
 constexpr bool kTensorCoresBwd =
-    D == 32 || D == 64 || D == 80 || D == 96 || D == 128;
+    D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256;
 
 // the key tiles [lo, hi) of `tile` keys that hold an unmasked key for some
 // query row of [r_lo, r_hi) (r_lo < r_hi <= S)

@@ -29,7 +29,8 @@
 // 5.1 ms at 67 TFLOP/s (f32, CUDA cores); the bytes (q, k, v, o, dO and
 // the three gradients, about 0.1 GB in bf16) are far below that.
 //
-// Three launches, no atomics, so the result does not depend on the order
+// Three launches (four where D 256 splits the dK/dV pass over head
+// groups, below), no atomics, so the result does not depend on the order
 // the blocks run in: (a) flash_bwd_delta, one warp per row, delta =
 // rowsum(dO * o) in f32; (b) a dK/dV pass, one block per (key tile, kv
 // head, batch) that loops over the query tiles its masks leave and the g
@@ -38,29 +39,26 @@
 // are recomputed in both passes: 7 products where an atomic dQ would take
 // 5, which keeps every output owned by one block.
 //
-// bf16 at D 32, 64, 80, 96 and 128: tensor cores.  Both passes have the
-// forward's shape: blocks of 384 threads, two consumer warpgroups that own
-// 64 rows each of the block's 128 rows (keys in (b), queries in (c)) and a
-// producer warpgroup, one warp of which issues the TMA loads (setmaxnreg:
-// 240 registers a consumer thread, 24 a producer thread, for the f32
-// accumulators); the block's two own tiles (K and V, or Q and dO) are
-// loaded once, and a ring of kStages stages streams the other two in
-// 64-row tiles (Q and dO with their lse and delta rows, or K and V), each
-// stage signalled by a "full" mbarrier that counts the bytes and released
-// by an "empty" one every consumer thread arrives on.  Tiles use the
-// forward's swizzled boxes (128-byte, 64-byte at D 32; at D 80 and 96 a
-// row is one 64-column box and a tail box of its last 16 or 32 columns
+// bf16 at every D (32, 64, 80, 96, 128 and 256): tensor cores.  Both
+// passes have the forward's shape: blocks of 384 threads, two consumer
+// warpgroups and a producer warpgroup, one warp of which issues the TMA
+// loads (setmaxnreg: 240 registers a consumer thread, 24 a producer
+// thread, for the f32 accumulators); the block's two own tiles (K and V,
+// or Q and dO) are loaded once, and a ring of stages streams the other
+// two in 64-row tiles (Q and dO with their lse and delta rows, or K and
+// V), each stage signalled by a "full" mbarrier that counts the bytes and
+// released by an "empty" one every consumer thread arrives on.  Tiles use
+// the forward's swizzled boxes (128-byte, 64-byte at D 32; at D 80 and 96
+// a row is one 64-column box and a tail box of its last 16 or 32 columns
 // with its own tensor map and 32- or 64-byte swizzle, Cols<D> of
 // attention_common.cuh), rows past S come in as zeros (TMA's
 // out-of-bounds fill), blocks with the most work start first, and tiles
-// wholly outside a warpgroup's masks are skipped; only those that cross
-// the diagonal, the window's edge or S are masked element by element.
-// Every product is a wgmma in one of the forward's two forms, at the true
-// width (a reduction over D in MAIN / 16 k-steps through the main boxes
-// and TAIL / 16 through the tail boxes; a product with N = D as an n64
-// product and an n16 or n32 one into a tail accumulator of its own: at D
-// 96 dK and dV take 2 x 48 f32 registers a consumer thread, against 2 x 64
-// at D 128):
+// wholly outside the masks are skipped; only those that cross the
+// diagonal, the window's edge or S are masked element by element.  Every
+// product is a wgmma in one of the forward's two forms, at the true width
+// (a reduction over D in MAIN / 16 k-steps through the main boxes and
+// TAIL / 16 through the tail boxes; a product with N = D as an n64 product
+// and an n16 or n32 one into a tail accumulator of its own):
 //   (b) S^T = K Q^T and dP^T = V dO^T, both operands K-major in shared
 //       memory (the forward's S = Q K^T); P^T = exp2(scale log2e S^T -
 //       log2e lse) and dS^T = P^T (dP^T - delta) in registers, where the
@@ -69,8 +67,6 @@
 //       and dO tiles read N-major (the forward's O += P V).
 //   (c) S = Q K^T and dP = dO V^T, K-major; dS = P (dP - delta); dQ += dS K
 //       with K read N-major.
-// The two shared-memory products of an iteration are two wgmma groups: P
-// (P^T) is computed while dP (dP^T) is still on the tensor cores.
 // P and dS are split into bf16 hi = bf16(x) and lo = bf16(x - hi), both
 // multiplied into the same f32 accumulator: one bf16 P or dS puts hundreds
 // of elements of dV, or of dQ and dK, beyond BWD_TOL at the tests' shapes,
@@ -80,10 +76,39 @@
 // the design is held to that (and to its 0.35 ms bound) by keeping every
 // product on the tensor cores, every operand tile in shared memory once,
 // and P^T / dS^T in registers (PERF.md has its measured time).
+// Two geometries (Geom<D>):
+//  * D <= 128: a block owns 128 rows (keys in (b), queries in (c)), 64 a
+//    consumer warpgroup, and three stages stream.  Each warpgroup runs
+//    every product of its rows; the two shared-memory products of an
+//    iteration are two wgmma groups, P (P^T) computed while dP (dP^T) is
+//    still on the tensor cores.  At D 96 dK and dV take 2 x 48 f32
+//    registers a consumer thread, at D 128 2 x 64.
+//  * D 256: a warpgroup's f32 dK and dV of 64 keys would take 256
+//    registers a thread, past setmaxnreg's 240, and two 128-row own tiles
+//    with three 64-row stages about 321 KB of shared memory.  So a block
+//    owns 64 rows, two stages stream (231,464 bytes with two 16 KB
+//    exchange buffers), and the two warpgroups split each tile pair's
+//    products instead of its rows.  (b): warpgroup 0 computes S^T, makes
+//    P^T, writes it to an exchange buffer and accumulates dV += P^T dO
+//    (4 x 2 m64n256k16); warpgroup 1 computes dP^T, reads P^T, makes dS^T
+//    and accumulates dK += dS^T Q.  (c): warpgroup 0 computes S and makes
+//    P; warpgroup 1 computes dP, reads P, makes dS (hi and lo) and writes
+//    it back; each accumulates dQ += dS K over half of dQ's columns (an
+//    m64n128k16 through the K tile's boxes 2 wg and 2 wg + 1).  Both
+//    warpgroups hold the same (row, column) in the same register, so the
+//    buffers are [register][thread] words that a thread writes and its
+//    twin reads back, conflict-free; named barriers over the 256 consumer
+//    threads order them (in (b) two buffers, so that warpgroup 0 runs a
+//    tile pair ahead).  A thread holds 128 (b) or 64 (c) f32 of
+//    accumulator, 32 of S or dP and 32 hi/lo words.
+//    At recurrentgemma's MQA (B 1, KH 1, S 4096) the dK/dV grid would be
+//    64 blocks on 132 SMs: a kv head's g query heads are then split over
+//    n_groups blocks (the fewest, a divisor of g, that fill the card; the
+//    launcher's caller picks it), each writing f32 partial dK and dV to a
+//    scratch, and a fourth launch, (d) flash_bwd_reduce_bf16, adds the
+//    groups in a fixed order and rounds once.
 //
-// CUDA cores: f32 at every D, and bf16 at D 256 (a consumer warpgroup's
-// f32 dK and dV of 64 keys x 256 columns would take 256 registers a
-// thread, past setmaxnreg's 240): the same three launches with f32 FMAs.
+// CUDA cores: f32 at every D: the same three launches with f32 FMAs.
 // (b) one block per (64-key tile, kv head, batch) stages K and V as f32
 // once, then Q and dO of each query tile and head, recomputes P^T and dS^T
 // (in shared memory) and accumulates dK and dV in registers: a thread owns
@@ -490,54 +515,72 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D 32, 64, 80, 96 and 128: tensor cores (wgmma), tiles fed by TMA
+// bf16 at every D: tensor cores (wgmma), tiles fed by TMA
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 using namespace attn;  // the Hopper helpers
 
-constexpr int kRows = 64;                   // rows a warpgroup, a streamed tile
-constexpr int kBlockRows = 2 * kRows;       // rows a block owns
-constexpr int kStages = 3;                  // ring of streamed tile pairs
+constexpr int kRows = 64;                   // rows of a product, a streamed tile
 constexpr int kConsumers = 256;             // two warpgroups
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
 constexpr float kLog2e = 1.4426950408889634f;
+// named barriers between the consumer warpgroups of the D-256 geometry
+// (0 is __syncthreads'): P (P^T) written to exchange buffer b, at kBarP
+// + b; buffer b read, at kBarRead + b (dK/dV pass); dS written (dQ pass)
+constexpr int kBarP = 1, kBarRead = 3, kBarDs = 5;
 
-// shared memory of either pass: the block's two own tiles of kBlockRows
-// rows, kStages stages of two kRows-row tiles, kStages x (lse, delta) rows
-// (the dK/dV pass), the mbarriers.  A tile holds its main part's boxes,
-// then at D 80 and 96 its tail box (Cols<D>).
+// The block's geometry at head dim D (the source's header): up to D 128
+// a block owns 128 rows, 64 a consumer warpgroup, and three stages
+// stream; at D 256 (SPLIT) it owns 64 rows, both warpgroups' rows, two
+// stages stream, and the warpgroups split each tile pair's products,
+// handing P or dS over through two exchange buffers of 32 words a
+// consumer thread ([register][thread]).  Shared memory: the two own
+// tiles, the stages and their (lse, delta) rows (read in the dK/dV pass),
+// the exchange buffers, the mbarriers.  A tile holds its main part's
+// boxes, then at D 80 and 96 its tail box (Cols<D>).
 template <int D>
 struct Geom {
-  static constexpr int OWN_BYTES = kBlockRows * D * 2;
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int OWN_ROWS = SPLIT ? kRows : 2 * kRows;
+  static constexpr int STAGES = SPLIT ? 2 : 3;
+  static constexpr int OWN_BYTES = OWN_ROWS * D * 2;
   static constexpr int TILE_BYTES = kRows * D * 2;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr int ROWS_BYTES = 2 * kRows * 4;
-  static constexpr int BAR_BYTES = 8 * (1 + 2 * kStages);
+  static constexpr int XCHG_WORDS = 32 * 128;  // one buffer
+  static constexpr int XCHG_BYTES = SPLIT ? 2 * XCHG_WORDS * 4 : 0;
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
   // the tiles start on a 1024-byte boundary (the swizzle pattern's period;
   // every tile's main part and tail box is a multiple of it)
   static constexpr int SMEM = 1024 + 2 * OWN_BYTES +
-                              kStages * (STAGE_BYTES + ROWS_BYTES) + BAR_BYTES;
+                              STAGES * (STAGE_BYTES + ROWS_BYTES) +
+                              XCHG_BYTES + BAR_BYTES;
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 // The shared-memory map of a block: own tiles at `own0`, `own1`; stage s at
 // stage(s) (its two tiles one after the other) with its rows at rows(s);
-// the barrier of the own tiles, full(s) and empty(s).
+// the exchange buffers at `xchg` (SPLIT); the barrier of the own tiles,
+// full(s) and empty(s).
 template <int D>
 struct Smem {
   using G = Geom<D>;
   uint32_t own0, own1, stage0, rows0, bar;
   float* rows_ptr;
+  float* xchg;
   __device__ __forceinline__ explicit Smem(uint8_t* raw) {
     const uint32_t base = smem_u32(raw);
     own0 = (base + 1023) & ~1023u;
     own1 = own0 + G::OWN_BYTES;
     stage0 = own1 + G::OWN_BYTES;
-    rows0 = stage0 + kStages * G::STAGE_BYTES;
-    bar = rows0 + kStages * G::ROWS_BYTES;
+    rows0 = stage0 + G::STAGES * G::STAGE_BYTES;
+    const uint32_t xchg0 = rows0 + G::STAGES * G::ROWS_BYTES;
+    bar = xchg0 + G::XCHG_BYTES;
     rows_ptr = reinterpret_cast<float*>(raw + (rows0 - base));
+    xchg = reinterpret_cast<float*>(raw + (xchg0 - base));
   }
   __device__ __forceinline__ uint32_t stage(int s) const {
     return stage0 + s * G::STAGE_BYTES;
@@ -549,12 +592,12 @@ struct Smem {
     return bar + 8 * (1 + s);
   }
   __device__ __forceinline__ uint32_t empty(int s) const {
-    return bar + 8 * (1 + kStages + s);
+    return bar + 8 * (1 + G::STAGES + s);
   }
   // thread 0: the barriers, `full_count` arrivals completing a full phase
   __device__ __forceinline__ void init(int full_count) const {
     mbar_init(bar, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < G::STAGES; ++s) {
       mbar_init(full(s), full_count);
       mbar_init(empty(s), kConsumers);
     }
@@ -562,8 +605,36 @@ struct Smem {
   }
 };
 
-// row `row` of (acc, acc_t) times `scale`, columns (col, col + 1) of each
-// 8-column group, stored as bf16 at `dst` (row stride `stride`)
+// named barrier `id` over the 256 consumer threads: wait at it, or arrive
+// and go on; every thread of a warpgroup executes the same one
+__device__ __forceinline__ void bar_sync(int id) {
+  static_assert(kConsumers == 256, "the barriers' thread count");
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// rows kr0 and kr0 + 8 of an accumulator of N columns times `scale`,
+// columns (c0, c0 + 1) of each 8-column group, stored as bf16 from column
+// col0 of `dst` (row stride `stride`)
+template <int N>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* dst,
+                                           long long stride, int kr0, int c0,
+                                           int S, const float (&acc)[N / 2],
+                                           int col0, float scale) {
+#pragma unroll
+  for (int j = 0; j < N / 2; j += 2) {
+    const int row = kr0 + 8 * ((j >> 1) & 1);
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * stride + col0 +
+                                         8 * (j / 4) + c0) =
+          __floats2bfloat162_rn(acc[j] * scale, acc[j + 1] * scale);
+  }
+}
+
+// the main columns' accumulator and the tail's (Cols<D>) of rows kr0 and
+// kr0 + 8, stored by store_cols
 template <int D>
 __device__ __forceinline__ void store_rows(
     __nv_bfloat16* dst, long long stride, int kr0, int c0, int S,
@@ -571,21 +642,15 @@ __device__ __forceinline__ void store_rows(
     const float (&acc_t)[Cols<D>::TAIL > 0 ? Cols<D>::TAIL / 2 : 1],
     float scale) {
   using C = Cols<D>;
-  auto put = [&](float x0, float x1, int j, int col0) {
-    const int row = kr0 + 8 * ((j >> 1) & 1);
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row * stride + col0 +
-                                         8 * (j / 4) + c0) =
-          __floats2bfloat162_rn(x0 * scale, x1 * scale);
-  };
-#pragma unroll
-  for (int j = 0; j < C::MAIN / 2; j += 2) put(acc[j], acc[j + 1], j, 0);
-#pragma unroll
-  for (int j = 0; j < C::TAIL / 2; j += 2)
-    put(acc_t[j], acc_t[j + 1], j, C::MAIN);
+  store_cols<C::MAIN>(dst, stride, kr0, c0, S, acc, 0, scale);
+  if constexpr (C::TAIL > 0)
+    store_cols<C::TAIL>(dst, stride, kr0, c0, S, acc_t, C::MAIN, scale);
 }
 
-// (b) dK and dV of one (128-key tile, kv head, batch)
+// (b) dK and dV of one (key tile, group of a kv head's query heads, kv
+// head, batch); one group (n_groups 1) but at D 256, where n_groups > 1
+// makes each group write its f32 partial sums to `part` ([dK, dV][group]
+// [B][KH][S][D]) for (d) to add up
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
@@ -599,26 +664,31 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int H, int KH, int B,
-                    int S, Strides dks, Strides dvs, int causal, int window,
-                    float scale, float scale_log2) {
+                    __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                    int H, int KH, int B, int S, int n_groups, Strides dks,
+                    Strides dvs, int causal, int window, float scale,
+                    float scale_log2) {
   using G = Geom<D>;
   using C = Cols<D>;
+  constexpr int OWN = G::OWN_ROWS, STAGES = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);  // own tiles K, V; stages Q, dO
 
   // key tile 0 first: under the causal mask it sees the most queries
-  const int kt = static_cast<int>(blockIdx.x) / (KH * B);
-  const int rem = static_cast<int>(blockIdx.x) % (KH * B);
-  const int hk = rem % KH, b = rem / KH, g = H / KH;
-  const int k0 = kt * kBlockRows;
+  const int per_tile = n_groups * KH * B;
+  const int kt = static_cast<int>(blockIdx.x) / per_tile;
+  const int rem = static_cast<int>(blockIdx.x) % per_tile;
+  const int hk = rem % KH, b = rem / KH % B, grp = rem / (KH * B);
+  const int gn = H / KH / n_groups;     // the group's query heads
+  const int h0 = hk * (H / KH) + grp * gn;
+  const int k0 = kt * OWN;
   // the query tiles holding a query that sees a key of the block, each
   // once for every query head of the group
-  const int kmax = min(k0 + kBlockRows, S) - 1;
+  const int kmax = min(k0 + OWN, S) - 1;
   const int qt_lo = (causal ? k0 : 0) / kRows;
   const int qt_hi =
       ((window > 0 ? min(S, kmax + window) : S) + kRows - 1) / kRows;
-  const int n_iter = (qt_hi - qt_lo) * g;
+  const int n_iter = (qt_hi - qt_lo) * gn;
 
   const int tid = threadIdx.x;
   if (tid == 0) sm.init(32);  // every lane of the producer warp arrives
@@ -630,14 +700,14 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
     const int lane = tid - kConsumers;
     if (lane == 0) {
       mbar_expect_tx(sm.bar, 2 * G::OWN_BYTES);
-      load_tile<D>(sm.own0, &tk, &tk_tail, sm.bar, kBlockRows, k0, hk, b);
-      load_tile<D>(sm.own1, &tv, &tv_tail, sm.bar, kBlockRows, k0, hk, b);
+      load_tile<D>(sm.own0, &tk, &tk_tail, sm.bar, OWN, k0, hk, b);
+      load_tile<D>(sm.own1, &tv, &tv_tail, sm.bar, OWN, k0, hk, b);
     }
     for (int i = 0; i < n_iter; ++i) {
-      const int s = i % kStages;
-      const int q0 = (qt_lo + i / g) * kRows, h = hk * g + i % g;
+      const int s = i % STAGES;
+      const int q0 = (qt_lo + i / gn) * kRows, h = h0 + i % gn;
       const long long row0 = (static_cast<long long>(b) * H + h) * S + q0;
-      mbar_wait(sm.empty(s), ((i / kStages) & 1) ^ 1);
+      mbar_wait(sm.empty(s), ((i / STAGES) & 1) ^ 1);
       // lse (in log2 units) and delta of the tile's rows; rows past S as 0
       float* rows = sm.rows(s);
       for (int r = lane; r < kRows; r += 32) {
@@ -659,105 +729,220 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
   }
 
   setmaxnreg_inc<kConsumerRegs>();
-  // warpgroup wg owns keys [wk0, wk0 + 64); in the accumulator layout a
-  // thread holds rows kr0 and kr0 + 8, columns 8 j + c0 and 8 j + c0 + 1
-  // of each 8-column group j
+  // in the accumulator layout a thread holds rows kr0 and kr0 + 8, columns
+  // 8 j + c0 and 8 j + c0 + 1 of each 8-column group j
   const int wg = tid / 128, t = tid % 128, lane = t % 32;
-  const int wk0 = k0 + kRows * wg, wk_hi = min(wk0 + kRows, S);
-  const int kr0 = wk0 + 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
-  const Rows64<D> ka(sm.own0, kBlockRows, kRows * wg);
-  const Rows64<D> va(sm.own1, kBlockRows, kRows * wg);
-  // dK and dV: the main columns', and the tail's (unused at TAIL 0)
-  constexpr int NT = C::TAIL > 0 ? C::TAIL / 2 : 1;
-  float acc_k[C::MAIN / 2], acc_v[C::MAIN / 2], acc_kt[NT], acc_vt[NT];
-#pragma unroll
-  for (int j = 0; j < C::MAIN / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc_kt[j] = acc_vt[j] = 0.f;
-  mbar_wait(sm.bar, 0);
+  const int c0 = 2 * (lane % 4);
 
-  for (int i = 0; i < n_iter; ++i) {
-    const int s = i % kStages;
-    const int q0 = (qt_lo + i / g) * kRows;
-    mbar_wait(sm.full(s), (i / kStages) & 1);
-    // skip a tile whose pairs the masks cover wholly: keys past S, every
-    // query before every key, or every query past its keys' window
-    const bool skip = wk0 >= S || (causal && q0 + kRows - 1 < wk0) ||
-                      (window > 0 && q0 >= wk_hi - 1 + window);
-    if (!skip) {
-      const uint32_t sq = sm.stage(s), sdo = sq + G::TILE_BYTES;
-      float st[32], dpt[32];
+  if constexpr (G::SPLIT) {
+    // The block's 64 keys are both warpgroups' rows.  Warpgroup 0: S^T =
+    // K Q^T, P^T to the exchange buffer, dV += P^T dO; warpgroup 1: dP^T
+    // = V dO^T, P^T from the buffer, dK += dS^T Q.  Whether a tile is
+    // skipped depends on the block's keys alone, so both warpgroups meet
+    // the same barriers.
+    const int kr0 = k0 + 16 * (t / 32) + lane / 4;
+    const Rows64<D> own(wg == 0 ? sm.own0 : sm.own1, OWN, 0);
+    float acc[D / 2], unused[1] = {0.f};  // dV (warpgroup 0), dK (1)
 #pragma unroll
-      for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
-      wg_fence();
-      wgmma_over_d<D>(st, ka, kBlockRows, Rows64<D>(sq, kRows, 0), kRows);
-      wg_commit();
-      wgmma_over_d<D>(dpt, va, kBlockRows, Rows64<D>(sdo, kRows, 0), kRows);
-      wg_commit();
-      wg_wait<1>();  // S^T is in; dP^T runs on while P^T is computed
-      reg_fence(st);
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    mbar_wait(sm.bar, 0);
 
-      const bool edge = (causal && q0 < wk0 + kRows - 1) ||
-                        (window > 0 && q0 + kRows - 1 >= wk0 + window) ||
-                        q0 + kRows > S || wk0 + kRows > S;
-      const float* rows = sm.rows(s);
-      // P^T in place of S^T; column j of the accumulator is query column
-      // 8 (j / 4) + c0 + (j & 1) of the tile
+    int n = 0;  // tile pairs handed over
+    for (int i = 0; i < n_iter; ++i) {
+      const int s = i % STAGES;
+      const int q0 = (qt_lo + i / gn) * kRows;
+      mbar_wait(sm.full(s), (i / STAGES) & 1);
+      const bool skip = (causal && q0 + kRows - 1 < k0) ||
+                        (window > 0 && q0 >= kmax + window);
+      if (!skip) {
+        const uint32_t sq = sm.stage(s), sdo = sq + G::TILE_BYTES;
+        const float* rows = sm.rows(s);
+        float* buf = sm.xchg + (n & 1) * G::XCHG_WORDS;
+        float x[32];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
 #pragma unroll
-      for (int j = 0; j < 32; j += 2) {
-        const int col = 8 * (j / 4) + c0;
-        const float2 l2 = *reinterpret_cast<const float2*>(rows + col);
-        st[j] = exp2f(fmaf(st[j], scale_log2, -l2.x));
-        st[j + 1] = exp2f(fmaf(st[j + 1], scale_log2, -l2.y));
-        if (edge) {
-          const int kpos = kr0 + 8 * ((j >> 1) & 1), qpos = q0 + col;
-          if (!unmasked(qpos, kpos, S, causal, window)) st[j] = 0.f;
-          if (!unmasked(qpos + 1, kpos, S, causal, window)) st[j + 1] = 0.f;
+        for (int j = 0; j < 32; ++j) x[j] = 0.f;
+        wg_fence();
+        wgmma_over_d<D>(x, own, OWN, Rows64<D>(wg == 0 ? sq : sdo, kRows, 0),
+                        kRows);
+        wg_commit();
+        wg_wait();
+        reg_fence(x);
+        uint32_t hi[16], lo[16];  // P^T or dS^T in the A-fragment layout
+        if (wg == 0) {
+          const bool edge = (causal && q0 < k0 + kRows - 1) ||
+                            (window > 0 && q0 + kRows - 1 >= k0 + window) ||
+                            q0 + kRows > S || k0 + kRows > S;
+          // P^T in place of S^T; column j of the accumulator is query
+          // column 8 (j / 4) + c0 + (j & 1) of the tile
+#pragma unroll
+          for (int j = 0; j < 32; j += 2) {
+            const int col = 8 * (j / 4) + c0;
+            const float2 l2 = *reinterpret_cast<const float2*>(rows + col);
+            x[j] = exp2f(fmaf(x[j], scale_log2, -l2.x));
+            x[j + 1] = exp2f(fmaf(x[j + 1], scale_log2, -l2.y));
+            if (edge) {
+              const int kpos = kr0 + 8 * ((j >> 1) & 1), qpos = q0 + col;
+              if (!unmasked(qpos, kpos, S, causal, window)) x[j] = 0.f;
+              if (!unmasked(qpos + 1, kpos, S, causal, window))
+                x[j + 1] = 0.f;
+            }
+          }
+          // the twin has read what this buffer held two tile pairs ago
+          if (n >= 2) bar_sync(kBarRead + (n & 1));
+#pragma unroll
+          for (int j = 0; j < 32; ++j) buf[j * 128 + t] = x[j];
+          bar_arrive(kBarP + (n & 1));
+#pragma unroll
+          for (int j = 0; j < 32; j += 2)
+            split_bf16(x[j], x[j + 1], hi[j / 2], lo[j / 2]);
+        } else {
+          bar_sync(kBarP + (n & 1));
+#pragma unroll
+          for (int j = 0; j < 32; j += 2) {
+            const float2 d2 = *reinterpret_cast<const float2*>(
+                rows + kRows + 8 * (j / 4) + c0);
+            split_bf16(buf[j * 128 + t] * (x[j] - d2.x),
+                       buf[(j + 1) * 128 + t] * (x[j + 1] - d2.y),
+                       hi[j / 2], lo[j / 2]);
+          }
+          bar_arrive(kBarRead + (n & 1));
+        }
+
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          // queries 16 kk .. 16 kk + 15 of the dO (Q) tile, read N-major
+          wgmma_rs_d<D>(acc, unused, hi + 4 * kk, lo + 4 * kk,
+                        wg == 0 ? sdo : sq, kRows, kk);
+        wg_commit();
+        wg_wait();
+        reg_fence(acc);
+        ++n;
+      }
+      mbar_arrive(sm.empty(s));
+    }
+    // the reads of the last two hand-overs: every arrival has its wait
+    if (wg == 0)
+      for (int m = max(0, n - 2); m < n; ++m) bar_sync(kBarRead + (m & 1));
+
+    if (n_groups == 1) {
+      if (wg == 0)
+        store_rows<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, kr0, c0, S, acc,
+                      unused, 1.f);
+      else
+        store_rows<D>(dk + b * dks.b + hk * dks.h, dks.s, kr0, c0, S, acc,
+                      unused, scale);
+      return;
+    }
+    float* dst = part + ((static_cast<long long>(wg == 0) * n_groups + grp) *
+                             B * KH + b * KH + hk) *
+                            S * D;
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int row = kr0 + 8 * ((j >> 1) & 1);
+      if (row < S)
+        *reinterpret_cast<float2*>(dst + static_cast<long long>(row) * D +
+                                   8 * (j / 4) + c0) =
+            make_float2(acc[j], acc[j + 1]);
+    }
+  } else {
+    // warpgroup wg owns keys [wk0, wk0 + 64)
+    const int wk0 = k0 + kRows * wg, wk_hi = min(wk0 + kRows, S);
+    const int kr0 = wk0 + 16 * (t / 32) + lane / 4;
+    const Rows64<D> ka(sm.own0, OWN, kRows * wg);
+    const Rows64<D> va(sm.own1, OWN, kRows * wg);
+    // dK and dV: the main columns', and the tail's (unused at TAIL 0)
+    constexpr int NT = C::TAIL > 0 ? C::TAIL / 2 : 1;
+    float acc_k[C::MAIN / 2], acc_v[C::MAIN / 2], acc_kt[NT], acc_vt[NT];
+#pragma unroll
+    for (int j = 0; j < C::MAIN / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc_kt[j] = acc_vt[j] = 0.f;
+    mbar_wait(sm.bar, 0);
+
+    for (int i = 0; i < n_iter; ++i) {
+      const int s = i % STAGES;
+      const int q0 = (qt_lo + i / gn) * kRows;
+      mbar_wait(sm.full(s), (i / STAGES) & 1);
+      // skip a tile whose pairs the masks cover wholly: keys past S, every
+      // query before every key, or every query past its keys' window
+      const bool skip = wk0 >= S || (causal && q0 + kRows - 1 < wk0) ||
+                        (window > 0 && q0 >= wk_hi - 1 + window);
+      if (!skip) {
+        const uint32_t sq = sm.stage(s), sdo = sq + G::TILE_BYTES;
+        float st[32], dpt[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+        wg_fence();
+        wgmma_over_d<D>(st, ka, OWN, Rows64<D>(sq, kRows, 0), kRows);
+        wg_commit();
+        wgmma_over_d<D>(dpt, va, OWN, Rows64<D>(sdo, kRows, 0), kRows);
+        wg_commit();
+        wg_wait<1>();  // S^T is in; dP^T runs on while P^T is computed
+        reg_fence(st);
+
+        const bool edge = (causal && q0 < wk0 + kRows - 1) ||
+                          (window > 0 && q0 + kRows - 1 >= wk0 + window) ||
+                          q0 + kRows > S || wk0 + kRows > S;
+        const float* rows = sm.rows(s);
+        // P^T in place of S^T; column j of the accumulator is query column
+        // 8 (j / 4) + c0 + (j & 1) of the tile
+#pragma unroll
+        for (int j = 0; j < 32; j += 2) {
+          const int col = 8 * (j / 4) + c0;
+          const float2 l2 = *reinterpret_cast<const float2*>(rows + col);
+          st[j] = exp2f(fmaf(st[j], scale_log2, -l2.x));
+          st[j + 1] = exp2f(fmaf(st[j + 1], scale_log2, -l2.y));
+          if (edge) {
+            const int kpos = kr0 + 8 * ((j >> 1) & 1), qpos = q0 + col;
+            if (!unmasked(qpos, kpos, S, causal, window)) st[j] = 0.f;
+            if (!unmasked(qpos + 1, kpos, S, causal, window)) st[j + 1] = 0.f;
+          }
+        }
+        wg_wait();
+        reg_fence(dpt);
+        // P^T and dS^T in the A-fragment layout: pair j / 2 holds columns
+        // (j, j + 1)
+        uint32_t phi[16], plo[16], shi[16], slo[16];
+#pragma unroll
+        for (int j = 0; j < 32; j += 2) {
+          const float2 d2 = *reinterpret_cast<const float2*>(
+              rows + kRows + 8 * (j / 4) + c0);
+          split_bf16(st[j], st[j + 1], phi[j / 2], plo[j / 2]);
+          split_bf16(st[j] * (dpt[j] - d2.x), st[j + 1] * (dpt[j + 1] - d2.y),
+                     shi[j / 2], slo[j / 2]);
+        }
+
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          // queries 16 kk .. 16 kk + 15 of the dO and Q tiles, read N-major
+          wgmma_rs_d<D>(acc_v, acc_vt, phi + 4 * kk, plo + 4 * kk, sdo, kRows,
+                        kk);
+          wgmma_rs_d<D>(acc_k, acc_kt, shi + 4 * kk, slo + 4 * kk, sq, kRows,
+                        kk);
+        }
+        wg_commit();
+        wg_wait();
+        reg_fence(acc_k);
+        reg_fence(acc_v);
+        if constexpr (C::TAIL > 0) {
+          reg_fence(acc_kt);
+          reg_fence(acc_vt);
         }
       }
-      wg_wait();
-      reg_fence(dpt);
-      // P^T and dS^T in the A-fragment layout: pair j / 2 holds columns
-      // (j, j + 1)
-      uint32_t phi[16], plo[16], shi[16], slo[16];
-#pragma unroll
-      for (int j = 0; j < 32; j += 2) {
-        const float2 d2 = *reinterpret_cast<const float2*>(
-            rows + kRows + 8 * (j / 4) + c0);
-        split_bf16(st[j], st[j + 1], phi[j / 2], plo[j / 2]);
-        split_bf16(st[j] * (dpt[j] - d2.x), st[j + 1] * (dpt[j + 1] - d2.y),
-                   shi[j / 2], slo[j / 2]);
-      }
-
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kRows / 16; ++kk) {
-        // queries 16 kk .. 16 kk + 15 of the dO and Q tiles, read N-major
-        wgmma_rs_d<D>(acc_v, acc_vt, phi + 4 * kk, plo + 4 * kk, sdo, kRows,
-                      kk);
-        wgmma_rs_d<D>(acc_k, acc_kt, shi + 4 * kk, slo + 4 * kk, sq, kRows,
-                      kk);
-      }
-      wg_commit();
-      wg_wait();
-      reg_fence(acc_k);
-      reg_fence(acc_v);
-      if constexpr (C::TAIL > 0) {
-        reg_fence(acc_kt);
-        reg_fence(acc_vt);
-      }
+      mbar_arrive(sm.empty(s));
     }
-    mbar_arrive(sm.empty(s));
-  }
 
-  if (wk0 >= S) return;
-  store_rows<D>(dk + b * dks.b + hk * dks.h, dks.s, kr0, c0, S, acc_k, acc_kt,
-                scale);
-  store_rows<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, kr0, c0, S, acc_v, acc_vt,
-                1.f);
+    if (wk0 >= S) return;
+    store_rows<D>(dk + b * dks.b + hk * dks.h, dks.s, kr0, c0, S, acc_k,
+                  acc_kt, scale);
+    store_rows<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, kr0, c0, S, acc_v,
+                  acc_vt, 1.f);
+  }
 }
 
-// (c) dQ of one (128-query tile, head, batch)
+// (c) dQ of one (query tile, head, batch): 128 queries, or 64 at D 256
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
@@ -775,17 +960,18 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
                   float scale_log2) {
   using G = Geom<D>;
   using C = Cols<D>;
+  constexpr int OWN = G::OWN_ROWS, STAGES = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);  // own tiles Q, dO; stages K, V
 
   // longest query tiles first: the query tile is the slowest-varying index
-  const int n_qt = (S + kBlockRows - 1) / kBlockRows;
+  const int n_qt = (S + OWN - 1) / OWN;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / (H * B);
   const int hb = static_cast<int>(blockIdx.x) % (H * B);
   const int h = hb % H, b = hb / H, hk = h / (H / KH);
-  const int q0 = qt * kBlockRows;
+  const int q0 = qt * OWN;
   int lo, hi;  // the 64-key tiles of the block
-  key_tiles<kRows>(q0, min(q0 + kBlockRows, S), S, causal, window, lo, hi);
+  key_tiles<kRows>(q0, min(q0 + OWN, S), S, causal, window, lo, hi);
 
   const int tid = threadIdx.x;
   if (tid == 0) sm.init(1);
@@ -795,11 +981,11 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<kProducerRegs>();
     if (tid == kConsumers) {
       mbar_expect_tx(sm.bar, 2 * G::OWN_BYTES);
-      load_tile<D>(sm.own0, &tq, &tq_tail, sm.bar, kBlockRows, q0, h, b);
-      load_tile<D>(sm.own1, &tdo, &tdo_tail, sm.bar, kBlockRows, q0, h, b);
+      load_tile<D>(sm.own0, &tq, &tq_tail, sm.bar, OWN, q0, h, b);
+      load_tile<D>(sm.own1, &tdo, &tdo_tail, sm.bar, OWN, q0, h, b);
       for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
-        const int s = i % kStages;
-        mbar_wait(sm.empty(s), ((i / kStages) & 1) ^ 1);
+        const int s = i % STAGES;
+        mbar_wait(sm.empty(s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(sm.full(s), G::STAGE_BYTES);
         load_tile<D>(sm.stage(s), &tk, &tk_tail, sm.full(s), kRows,
                      kt * kRows, hk, b);
@@ -811,13 +997,12 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
   }
 
   setmaxnreg_inc<kConsumerRegs>();
-  // warpgroup wg owns queries [wr_lo, wr_hi); a thread holds rows r0 and
-  // r0 + 8 of the accumulators
+  // a thread holds rows r0 and r0 + 8 of the accumulators
   const int wg = tid / 128, t = tid % 128, lane = t % 32;
-  const int wr_lo = q0 + kRows * wg, wr_hi = min(wr_lo + kRows, S);
+  // the rows of warpgroup wg: [wr_lo, wr_hi); at D 256 both warpgroups'
+  const int wr_lo = q0 + (G::SPLIT ? 0 : kRows * wg);
+  const int wr_hi = min(wr_lo + kRows, S);
   const int r0 = wr_lo + 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
-  int wlo = 0, whi = 0;  // this warpgroup's key tiles (none past S)
-  if (wr_lo < S) key_tiles<kRows>(wr_lo, wr_hi, S, causal, window, wlo, whi);
   const long long row0 = (static_cast<long long>(b) * H + h) * S;
   float lse2[2], dl[2];  // lse (log2 units) and delta of rows r0, r0 + 8
 #pragma unroll
@@ -826,74 +1011,213 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     lse2[r] = row < S ? lse[row0 + row] * kLog2e : 0.f;
     dl[r] = row < S ? delta[row0 + row] : 0.f;
   }
-  const Rows64<D> qa(sm.own0, kBlockRows, kRows * wg);
-  const Rows64<D> doa(sm.own1, kBlockRows, kRows * wg);
-  // dQ: the main columns', and the tail's (unused at TAIL 0)
-  constexpr int NT = C::TAIL > 0 ? C::TAIL / 2 : 1;
-  float acc[C::MAIN / 2], acc_t[NT];
-#pragma unroll
-  for (int j = 0; j < C::MAIN / 2; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc_t[j] = 0.f;
-  mbar_wait(sm.bar, 0);
 
-  for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
-    const int s = i % kStages;
-    mbar_wait(sm.full(s), (i / kStages) & 1);
-    if (kt >= wlo && kt < whi) {
+  if constexpr (G::SPLIT) {
+    // The block's 64 queries are both warpgroups' rows.  Warpgroup 0: S =
+    // Q K^T, P to the exchange buffer, dS (hi, lo) from the other one;
+    // warpgroup 1: dP = dO V^T, P from the buffer, dS to the other one.
+    // Each accumulates dQ += dS K over D / 2 columns from column D / 2 wg,
+    // the K tile's boxes 2 wg and 2 wg + 1.
+    const Rows64<D> own(wg == 0 ? sm.own0 : sm.own1, OWN, 0);
+    float acc[D / 4];
+#pragma unroll
+    for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
+    float* px = sm.xchg;
+    uint32_t* sx = reinterpret_cast<uint32_t*>(sm.xchg + G::XCHG_WORDS);
+    mbar_wait(sm.bar, 0);
+
+    for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
+      const int s = i % STAGES;
+      mbar_wait(sm.full(s), (i / STAGES) & 1);
       const uint32_t sk = sm.stage(s), sv = sk + G::TILE_BYTES;
-      float sc[32], dp[32];
+      float x[32];  // S (warpgroup 0) or dP (warpgroup 1)
 #pragma unroll
-      for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+      for (int j = 0; j < 32; ++j) x[j] = 0.f;
       wg_fence();
-      wgmma_over_d<D>(sc, qa, kBlockRows, Rows64<D>(sk, kRows, 0), kRows);
+      wgmma_over_d<D>(x, own, OWN, Rows64<D>(wg == 0 ? sk : sv, kRows, 0),
+                      kRows);
       wg_commit();
-      wgmma_over_d<D>(dp, doa, kBlockRows, Rows64<D>(sv, kRows, 0), kRows);
-      wg_commit();
-      wg_wait<1>();  // S is in; dP runs on while P is computed
-      reg_fence(sc);
-
-      const int k0 = kt * kRows;
-      const bool edge = (causal && k0 + kRows - 1 > wr_lo) ||
-                        (window > 0 && k0 <= wr_hi - 1 - window) ||
-                        k0 + kRows > S;
-#pragma unroll
-      for (int j = 0; j < 32; j += 2) {  // P in place of S
-        const int r = (j >> 1) & 1;
-        sc[j] = exp2f(fmaf(sc[j], scale_log2, -lse2[r]));
-        sc[j + 1] = exp2f(fmaf(sc[j + 1], scale_log2, -lse2[r]));
-        if (edge) {
-          const int kpos = k0 + 8 * (j / 4) + c0, qpos = r0 + 8 * r;
-          if (!unmasked(qpos, kpos, S, causal, window)) sc[j] = 0.f;
-          if (!unmasked(qpos, kpos + 1, S, causal, window)) sc[j + 1] = 0.f;
-        }
-      }
       wg_wait();
-      reg_fence(dp);
+      reg_fence(x);
       uint32_t shi[16], slo[16];  // dS in the A-fragment layout
+      if (wg == 0) {
+        const int k0 = kt * kRows;
+        const bool edge = (causal && k0 + kRows - 1 > wr_lo) ||
+                          (window > 0 && k0 <= wr_hi - 1 - window) ||
+                          k0 + kRows > S;
 #pragma unroll
-      for (int j = 0; j < 32; j += 2) {
-        const int r = (j >> 1) & 1;
-        split_bf16(sc[j] * (dp[j] - dl[r]), sc[j + 1] * (dp[j + 1] - dl[r]),
-                   shi[j / 2], slo[j / 2]);
+        for (int j = 0; j < 32; j += 2) {  // P in place of S
+          const int r = (j >> 1) & 1;
+          x[j] = exp2f(fmaf(x[j], scale_log2, -lse2[r]));
+          x[j + 1] = exp2f(fmaf(x[j + 1], scale_log2, -lse2[r]));
+          if (edge) {
+            const int kpos = k0 + 8 * (j / 4) + c0, qpos = r0 + 8 * r;
+            if (!unmasked(qpos, kpos, S, causal, window)) x[j] = 0.f;
+            if (!unmasked(qpos, kpos + 1, S, causal, window)) x[j + 1] = 0.f;
+          }
+        }
+        // the twin read the last P before it wrote the last dS, which this
+        // warpgroup read before this P
+#pragma unroll
+        for (int j = 0; j < 32; ++j) px[j * 128 + t] = x[j];
+        bar_arrive(kBarP);
+        bar_sync(kBarDs);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          shi[j] = sx[j * 128 + t];
+          slo[j] = sx[(16 + j) * 128 + t];
+        }
+      } else {
+        bar_sync(kBarP);
+#pragma unroll
+        for (int j = 0; j < 32; j += 2) {
+          const int r = (j >> 1) & 1;
+          split_bf16(px[j * 128 + t] * (x[j] - dl[r]),
+                     px[(j + 1) * 128 + t] * (x[j + 1] - dl[r]), shi[j / 2],
+                     slo[j / 2]);
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          sx[j * 128 + t] = shi[j];
+          sx[(16 + j) * 128 + t] = slo[j];
+        }
+        bar_arrive(kBarDs);
       }
 
       wg_fence();
+      // this warpgroup's D / 2 columns of the K tile: D / 128 boxes from
+      // box D / 128 wg
+      const uint32_t kcols = sk + wg * (D / 128) * kRows * Swz<D>::SW;
 #pragma unroll
-      for (int kk = 0; kk < kRows / 16; ++kk)
+      for (int kk = 0; kk < kRows / 16; ++kk) {
         // keys 16 kk .. 16 kk + 15 of the K tile, read N-major
-        wgmma_rs_d<D>(acc, acc_t, shi + 4 * kk, slo + 4 * kk, sk, kRows, kk);
+        const uint64_t bd = desc_nmajor<D>(kcols, kRows, kk);
+        wgmma_rs<D / 2>(acc, shi + 4 * kk, bd);
+        wgmma_rs<D / 2>(acc, slo + 4 * kk, bd);
+      }
       wg_commit();
       wg_wait();
       reg_fence(acc);
-      if constexpr (C::TAIL > 0) reg_fence(acc_t);
+      mbar_arrive(sm.empty(s));
     }
-    mbar_arrive(sm.empty(s));
-  }
 
-  if (wr_lo >= S) return;
-  store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, r0, c0, S, acc, acc_t,
-                scale);
+    store_cols<D / 2>(dq + b * dqs.b + h * dqs.h, dqs.s, r0, c0, S, acc,
+                      wg * (D / 2), scale);
+  } else {
+    int wlo = 0, whi = 0;  // this warpgroup's key tiles (none past S)
+    if (wr_lo < S) key_tiles<kRows>(wr_lo, wr_hi, S, causal, window, wlo, whi);
+    const Rows64<D> qa(sm.own0, OWN, kRows * wg);
+    const Rows64<D> doa(sm.own1, OWN, kRows * wg);
+    // dQ: the main columns', and the tail's (unused at TAIL 0)
+    constexpr int NT = C::TAIL > 0 ? C::TAIL / 2 : 1;
+    float acc[C::MAIN / 2], acc_t[NT];
+#pragma unroll
+    for (int j = 0; j < C::MAIN / 2; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc_t[j] = 0.f;
+    mbar_wait(sm.bar, 0);
+
+    for (int i = 0, kt = lo; kt < hi; ++i, ++kt) {
+      const int s = i % STAGES;
+      mbar_wait(sm.full(s), (i / STAGES) & 1);
+      if (kt >= wlo && kt < whi) {
+        const uint32_t sk = sm.stage(s), sv = sk + G::TILE_BYTES;
+        float sc[32], dp[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+        wg_fence();
+        wgmma_over_d<D>(sc, qa, OWN, Rows64<D>(sk, kRows, 0), kRows);
+        wg_commit();
+        wgmma_over_d<D>(dp, doa, OWN, Rows64<D>(sv, kRows, 0), kRows);
+        wg_commit();
+        wg_wait<1>();  // S is in; dP runs on while P is computed
+        reg_fence(sc);
+
+        const int k0 = kt * kRows;
+        const bool edge = (causal && k0 + kRows - 1 > wr_lo) ||
+                          (window > 0 && k0 <= wr_hi - 1 - window) ||
+                          k0 + kRows > S;
+#pragma unroll
+        for (int j = 0; j < 32; j += 2) {  // P in place of S
+          const int r = (j >> 1) & 1;
+          sc[j] = exp2f(fmaf(sc[j], scale_log2, -lse2[r]));
+          sc[j + 1] = exp2f(fmaf(sc[j + 1], scale_log2, -lse2[r]));
+          if (edge) {
+            const int kpos = k0 + 8 * (j / 4) + c0, qpos = r0 + 8 * r;
+            if (!unmasked(qpos, kpos, S, causal, window)) sc[j] = 0.f;
+            if (!unmasked(qpos, kpos + 1, S, causal, window)) sc[j + 1] = 0.f;
+          }
+        }
+        wg_wait();
+        reg_fence(dp);
+        uint32_t shi[16], slo[16];  // dS in the A-fragment layout
+#pragma unroll
+        for (int j = 0; j < 32; j += 2) {
+          const int r = (j >> 1) & 1;
+          split_bf16(sc[j] * (dp[j] - dl[r]), sc[j + 1] * (dp[j + 1] - dl[r]),
+                     shi[j / 2], slo[j / 2]);
+        }
+
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          // keys 16 kk .. 16 kk + 15 of the K tile, read N-major
+          wgmma_rs_d<D>(acc, acc_t, shi + 4 * kk, slo + 4 * kk, sk, kRows, kk);
+        wg_commit();
+        wg_wait();
+        reg_fence(acc);
+        if constexpr (C::TAIL > 0) reg_fence(acc_t);
+      }
+      mbar_arrive(sm.empty(s));
+    }
+
+    if (wr_lo >= S) return;
+    store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, r0, c0, S, acc, acc_t,
+                  scale);
+  }
+}
+
+// (d) dK and dV of a dK/dV pass split over n_groups head groups: each
+// element the sum of the groups' f32 partials (`part`, [dK, dV][group][B]
+// [KH][S][D]) in group order, dK times `scale`, rounded once; a thread
+// takes 4 columns of a row of dK or dV
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_reduce_bf16(const float* __restrict__ part,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int n_groups, int B,
+                      int KH, int S, Strides dks, Strides dvs, float scale) {
+  constexpr int CH = D / 4;  // chunks a row
+  const long long rows = static_cast<long long>(B) * KH * S;
+  const long long chunks = rows * CH;  // of dK, and of dV
+  const long long idx = blockIdx.x * 256ll + threadIdx.x;
+  if (idx >= 2 * chunks) return;
+  const int which = idx >= chunks;  // 0: dK, 1: dV
+  const long long e = idx - which * chunks, row = e / CH;
+  const int col = static_cast<int>(e % CH) * 4;
+  const float* src = part + (which * n_groups * rows + row) * D + col;
+  float4 a = *reinterpret_cast<const float4*>(src);
+  for (int grp = 1; grp < n_groups; ++grp) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(src + grp * rows * D);
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  const float sc = which ? 1.f : scale;
+  const int s = static_cast<int>(row % S);
+  const long long bk = row / S;
+  const int hk = static_cast<int>(bk % KH), b = static_cast<int>(bk / KH);
+  const Strides st = which ? dvs : dks;
+  __nv_bfloat16* dst = (which ? dv : dk) + b * st.b + hk * st.h + s * st.s +
+                       col;
+  const __nv_bfloat162 v0 = __floats2bfloat162_rn(a.x * sc, a.y * sc);
+  const __nv_bfloat162 v1 = __floats2bfloat162_rn(a.z * sc, a.w * sc);
+  uint2 out;
+  out.x = *reinterpret_cast<const uint32_t*>(&v0);
+  out.y = *reinterpret_cast<const uint32_t*>(&v1);
+  *reinterpret_cast<uint2*>(dst) = out;
 }
 
 }  // namespace tc
@@ -919,12 +1243,14 @@ int launch_delta(const float* o, const void* dout, float* delta, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+// f32 on the CUDA cores; plan[1] = the dK/dV pass's blocks
+template <int D>
 int launch_cc(const void* q, const void* k, const void* v, const float* o,
               const void* dout, const float* lse, float* delta, void* dq,
               void* dk, void* dv, int B, int H, int KH, int S,
               const Views& st, int causal, int window, float scale,
-              cudaStream_t stream) {
+              int* plan, cudaStream_t stream) {
+  using T = float;
   using C = Cfg<D>;
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
@@ -935,6 +1261,8 @@ int launch_cc(const void* q, const void* k, const void* v, const float* o,
   const long long n_dq = static_cast<long long>((S + C::BQ - 1) / C::BQ) * H *
                          B;
   if (n_dq >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = 1;
+  plan[1] = static_cast<int>(n_dkdv);
 
   int code = launch_delta<T, D>(o, dout, delta, B, H, S, st, stream);
   if (code != 0) return code;
@@ -962,55 +1290,75 @@ int launch_cc(const void* q, const void* k, const void* v, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 on the tensor cores, the dK/dV pass over n_groups head groups (1
+// but at D 256; more need `part`, n_groups x B x KH x S x D x 2 f32);
+// plan = {n_groups, the dK/dV pass's blocks}
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const float* o,
               const void* dout, const float* lse, float* delta, void* dq,
-              void* dk, void* dv, int B, int H, int KH, int S,
-              const Views& st, int causal, int window, float scale,
-              cudaStream_t stream) {
-  using tc::kBlockRows;
+              void* dk, void* dv, float* part, int B, int H, int KH, int S,
+              int n_groups, const Views& st, int causal, int window,
+              float scale, int* plan, cudaStream_t stream) {
+  using G = tc::Geom<D>;
   using tc::kRows;
-  // the dK/dV pass streams 64-row Q and dO tiles past 128-row K and V
-  // tiles; the dQ pass the other way round.  At D 80 and 96 each map has a
-  // tail map over its view from column 64 on (Cols<D>).
+  constexpr int OWN = G::OWN_ROWS;
+  if (n_groups < 1 || (H / KH) % n_groups != 0 ||
+      (n_groups > 1 && (!G::SPLIT || part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the dK/dV pass streams 64-row Q and dO tiles past OWN-row K and V
+  // tiles; the dQ pass the other way round.  At D 80 and 96 each map has
+  // a tail map over its view from column 64 on (Cols<D>).
   CUtensorMap q_s, do_s, k_own, v_own, q_own, do_own, k_s, v_s;
   CUtensorMap q_st{}, do_st{}, k_ownt{}, v_ownt{}, q_ownt{}, do_ownt{},
       k_st{}, v_st{};
   if (!attn::encode_cols<D>(&q_s, &q_st, q, S, H, B, st.q, kRows) ||
       !attn::encode_cols<D>(&do_s, &do_st, dout, S, H, B, st.dout, kRows) ||
-      !attn::encode_cols<D>(&k_own, &k_ownt, k, S, KH, B, st.k,
-                            kBlockRows) ||
-      !attn::encode_cols<D>(&v_own, &v_ownt, v, S, KH, B, st.v,
-                            kBlockRows) ||
-      !attn::encode_cols<D>(&q_own, &q_ownt, q, S, H, B, st.q,
-                            kBlockRows) ||
+      !attn::encode_cols<D>(&k_own, &k_ownt, k, S, KH, B, st.k, OWN) ||
+      !attn::encode_cols<D>(&v_own, &v_ownt, v, S, KH, B, st.v, OWN) ||
+      !attn::encode_cols<D>(&q_own, &q_ownt, q, S, H, B, st.q, OWN) ||
       !attn::encode_cols<D>(&do_own, &do_ownt, dout, S, H, B, st.dout,
-                            kBlockRows) ||
+                            OWN) ||
       !attn::encode_cols<D>(&k_s, &k_st, k, S, KH, B, st.k, kRows) ||
       !attn::encode_cols<D>(&v_s, &v_st, v, S, KH, B, st.v, kRows))
     return kErrTensorMap;
-  const long long n_tiles = (S + kBlockRows - 1) / kBlockRows;
-  if (n_tiles * H * B >= (1ll << 31))
+  const long long n_tiles = (S + OWN - 1) / OWN;
+  const long long n_dkdv = n_tiles * n_groups * KH * B;
+  const long long n_reduce =
+      (2ll * B * KH * S * (D / 4) + 255) / 256;  // (d), when split
+  if (n_tiles * H * B >= (1ll << 31) || n_dkdv >= (1ll << 31) ||
+      n_reduce >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = n_groups;
+  plan[1] = static_cast<int>(n_dkdv);
 
   int code = launch_delta<__nv_bfloat16, D>(o, dout, delta, B, H, S, st,
                                             stream);
   if (code != 0) return code;
 
-  const int bytes = tc::Geom<D>::SMEM;
+  const int bytes = G::SMEM;
   const float scale_log2 = scale * tc::kLog2e;
   cudaError_t err = cudaFuncSetAttribute(
       tc::flash_bwd_dkdv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   tc::flash_bwd_dkdv_bf16<D>
-      <<<static_cast<unsigned>(n_tiles * KH * B), tc::kThreads, bytes,
-         stream>>>(q_s, k_own, v_own, do_s, q_st, k_ownt, v_ownt, do_st,
-                   lse, delta, static_cast<__nv_bfloat16*>(dk),
-                   static_cast<__nv_bfloat16*>(dv), H, KH, B, S, st.dk, st.dv,
-                   causal, window, scale, scale_log2);
+      <<<static_cast<unsigned>(n_dkdv), tc::kThreads, bytes, stream>>>(
+          q_s, k_own, v_own, do_s, q_st, k_ownt, v_ownt, do_st, lse, delta,
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          part, H, KH, B, S, n_groups, st.dk, st.dv, causal, window, scale,
+          scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (n_groups > 1) {
+    tc::flash_bwd_reduce_bf16<D>
+        <<<static_cast<unsigned>(n_reduce), 256, 0, stream>>>(
+            part, static_cast<__nv_bfloat16*>(dk),
+            static_cast<__nv_bfloat16*>(dv), n_groups, B, KH, S, st.dk,
+            st.dv, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   err = cudaFuncSetAttribute(tc::flash_bwd_dq_bf16<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1028,23 +1376,21 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const float* o, const void* dout, const float* lse, float* delta,
-           void* dq, void* dk, void* dv, int B, int H, int KH, int S,
-           const Views& st, int causal, int window, float scale,
-           int* design, cudaStream_t stream) {
+           void* dq, void* dk, void* dv, float* part, int B, int H, int KH,
+           int S, int n_groups, const Views& st, int causal, int window,
+           float scale, int* design, int* plan, cudaStream_t stream) {
+  static_assert(kTensorCoresBwd<D>, "bf16 runs the tensor cores at every D");
   *design = 0;
-  if (dtype == 0)
-    return launch_cc<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               H, KH, S, st, causal, window, scale, stream);
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kTensorCoresBwd<D>) {
-    *design = 1;
-    return launch_tc<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KH,
-                        S, st, causal, window, scale, stream);
-  } else {
-    return launch_cc<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, B, H, KH, S, st, causal, window,
-                                       scale, stream);
+  if (dtype == 0) {
+    if (n_groups != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_cc<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KH,
+                        S, st, causal, window, scale, plan, stream);
   }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  *design = 1;
+  return launch_tc<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, H,
+                      KH, S, n_groups, st, causal, window, scale, plan,
+                      stream);
 }
 
 }  // namespace
@@ -1054,30 +1400,35 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // is taken).  Strides are in elements, each view's (batch, position, head);
 // the D axis is contiguous and every row starts on a 16-byte boundary.  lse
 // (the forward's) and delta (scratch) are f32 (B, H, S) contiguous.
+// n_groups: the head groups of the dK/dV pass, 1 but in bf16 at D 256,
+// where more need `part`, f32 scratch of n_groups x B x KH x S x D x 2.
 // *design is set to the design launched: 1 = the tensor-core kernels
-// (bf16 at D 32, 64, 80, 96, 128), 0 = the CUDA-core ones.
+// (bf16 at every D), 0 = the CUDA-core ones (f32); plan[0] to the head
+// groups and plan[1] to the dK/dV pass's blocks.
 extern "C" int flash_attention_bwd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     const float* o, const void* dout, const float* lse, float* delta,
-    void* dq, void* dk, void* dv, int B, int H, int KH, int S, int D,
-    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
-    long long ksh, long long vsb, long long vss, long long vsh, long long osb,
-    long long oss, long long osh, long long dsb, long long dss, long long dsh,
-    long long dqsb, long long dqss, long long dqsh, long long dksb,
-    long long dkss, long long dksh, long long dvsb, long long dvss,
-    long long dvsh, int causal, int window, float scale, int* design,
-    cudaStream_t stream) {
+    void* dq, void* dk, void* dv, float* part, int B, int H, int KH, int S,
+    int D, int n_groups, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long osb, long long oss, long long osh, long long dsb,
+    long long dss, long long dsh, long long dqsb, long long dqss,
+    long long dqsh, long long dksb, long long dkss, long long dksh,
+    long long dvsb, long long dvss, long long dvsh, int causal, int window,
+    float scale, int* design, int* plan, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = plan[1] = 0;
   if (B == 0 || S == 0 || H == 0) return 0;
   const Views st{{qsb, qss, qsh},    {ksb, kss, ksh},    {vsb, vss, vsh},
                  {osb, oss, osh},    {dsb, dss, dsh},    {dqsb, dqss, dqsh},
                  {dksb, dkss, dksh}, {dvsb, dvss, dvsh}};
   switch (D) {
-#define BWD_CASE(DD)                                                       \
-  case DD:                                                                 \
-    return launch<DD>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, \
-                      H, KH, S, st, causal, window, scale, design, stream);
+#define BWD_CASE(DD)                                                        \
+  case DD:                                                                  \
+    return launch<DD>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, part, \
+                      B, H, KH, S, n_groups, st, causal, window, scale,      \
+                      design, plan, stream);
     BWD_CASE(32)
     BWD_CASE(64)
     BWD_CASE(80)
@@ -1094,10 +1445,9 @@ extern "C" int flash_attention_bwd_launch(
 // (which = 0) or the dQ (which = 1) kernel, 0 for an unknown D
 extern "C" int flash_attention_bwd_smem_bytes(int dtype, int D, int which) {
   switch (D) {
-#define BWD_SMEM(DD)                                          \
-  case DD:                                                    \
-    if constexpr (kTensorCoresBwd<DD>)                        \
-      if (dtype) return tc::Geom<DD>::SMEM;                   \
+#define BWD_SMEM(DD)                                 \
+  case DD:                                           \
+    if (dtype) return tc::Geom<DD>::SMEM;            \
     return which ? Cfg<DD>::SMEM_DQ : Cfg<DD>::SMEM_DKDV;
     BWD_SMEM(32)
     BWD_SMEM(64)

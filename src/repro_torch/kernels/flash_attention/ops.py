@@ -50,49 +50,64 @@ run: ``delta = rowsum(dO * O)``; a dK/dV pass, one block per (key tile, kv
 head, batch) looping over the query tiles its masks leave and the query
 heads of its group; a dQ pass, one block per (query tile, head, batch).
 Both recompute P from ``lse``, so S and dP are computed twice (7 products
-for 5).  In bf16 at D ``BWD_TENSOR_CORE_DIMS`` (32, 64, 80, 96, 128)
-both passes have the forward's design: a TMA producer warp streams 64-row
-tiles past the block's own 128 rows, and two consumer warpgroups run
-every product as ``wgmma`` -- S^T = K Q^T and dP^T = V dO^T with both
-operands in shared memory, dV += P^T dO and dK += dS^T Q with P^T and
-dS^T from registers (and S = Q K^T, dP = dO V^T, dQ += dS K in the dQ
-pass) -- with P and dS split into bf16 hi + lo, as one bf16 P or dS
-misses the backward's tolerance.  At D 80 and 96 a row is the forward's
-64-column box and 16- or 32-column tail box, every product at the true
-width (unpadded).  In f32 at every D and in bf16 at D 256 (whose f32 dK
-and dV would not fit a consumer thread's registers): the same three
-launches with f32 FMAs on the CUDA cores.  The dispatch is fixed by
-dtype and D in the C launcher, which reports the design it launched; a
-failure raises.  ``counter_bwd`` counts one per backward (three kernel
-launches), tallied by head dim, and ``counter_bwd_tc`` the backwards the
-launcher ran on the tensor-core kernels.
+for 5).  In bf16, at every D (``BWD_TENSOR_CORE_DIMS``), both passes have
+the forward's design: a TMA producer streams 64-row tiles past the
+block's own rows, and two consumer warpgroups run every product as
+``wgmma`` -- S^T = K Q^T and dP^T = V dO^T with both operands in shared
+memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers
+(and S = Q K^T, dP = dO V^T, dQ += dS K in the dQ pass) -- with P and dS
+split into bf16 hi + lo, as one bf16 P or dS misses the backward's
+tolerance.  Up to D 128 a block owns 128 rows, 64 a warpgroup (at D 80
+and 96 a row is the forward's 64-column box and 16- or 32-column tail
+box, every product at the true width).  At D 256 a block owns 64 rows and
+its two warpgroups split each tile pair's products (one makes P, the
+other dP and dS, handed over through shared memory; each accumulates dV
+or dK, or half of dQ's columns); where that dK/dV grid would leave SMs
+idle, a kv head's query heads are split over ``bwd_head_groups`` groups,
+each writing f32 partial dK and dV to a scratch that a fourth launch sums
+in group order and rounds once.  In f32, at every D: the same three
+launches with f32 FMAs on the CUDA cores.  The dispatch is fixed by dtype
+and D in the C launcher, which reports the design and the dK/dV plan it
+launched; a failure raises.  ``counter_bwd`` counts one per backward
+(three or four kernel launches), tallied by head dim, ``counter_bwd_tc``
+the backwards the launcher ran on the tensor-core kernels, and
+``counter_bwd_plan`` the backwards by the dK/dV grid it reported (a
+``BwdPlan``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                     flash_attention_ref)
+from repro_torch.kernels.paged_attention.ops import (fill_blocks,
+                                                    groups_to_fill)
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "flash_attention_ref", "flash_attention_bwd_ref", "counter",
-           "counter_tc", "counter_bwd", "counter_bwd_tc", "HEAD_DIMS",
-           "FWD_TENSOR_CORE_DIMS", "BWD_TENSOR_CORE_DIMS"]
+           "counter_tc", "counter_bwd", "counter_bwd_tc", "counter_bwd_plan",
+           "bwd_head_groups", "BwdPlan", "HEAD_DIMS", "FWD_TENSOR_CORE_DIMS",
+           "BWD_TENSOR_CORE_DIMS", "BWD_GROUPED_DIMS"]
 
 counter = build.LaunchCounter("flash_attention")
 counter_tc = build.LaunchCounter("flash_attention_tc")
 counter_bwd = build.LaunchCounter("flash_attention_bwd")
 counter_bwd_tc = build.LaunchCounter("flash_attention_bwd_tc")
+counter_bwd_plan = build.LaunchCounter("flash_attention_bwd_plan")
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 # the head dims at which bf16 runs the tensor-core (wgmma) kernels, by
 # direction (``kTensorCoresFwd`` and ``kTensorCoresBwd`` of
-# csrc/attention_common.cuh); f32, and bf16 at the others, run the
-# CUDA-core kernels
+# csrc/attention_common.cuh): every one; f32 runs the CUDA-core kernels
 FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128, 256)
-BWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128)
+BWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128, 256)
+# the head dims whose bf16 dK/dV pass (64-key blocks, ``Geom<D>::SPLIT``)
+# may split a kv head's query heads over groups; the others run one group
+BWD_GROUPED_DIMS = (256,)
+_BWD_KEY_ROWS = 64      # keys a dK/dV block owns at BWD_GROUPED_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -102,8 +117,30 @@ _SIGNATURES = {"flash_attention_launch": (
     + [_I, _I, ctypes.c_float, _P, _P, ctypes.POINTER(ctypes.c_int), _P])}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": (
     ctypes.c_int,
-    [_I, _I] + [_P] * 10 + [_I] * 5 + [_L] * 24
-    + [_I, _I, ctypes.c_float, ctypes.POINTER(ctypes.c_int), _P])}
+    [_I, _I] + [_P] * 11 + [_I] * 6 + [_L] * 24
+    + [_I, _I, ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+       ctypes.POINTER(ctypes.c_int * 2), _P])}
+
+
+class BwdPlan(NamedTuple):
+    """The dK/dV pass of one backward, as the C launcher reports it:
+    ``head_groups`` blocks per (key tile, kv head, batch), each over its
+    share of the kv head's query heads, and ``blocks`` in all; a fourth
+    launch sums the groups when ``head_groups > 1``."""
+    head_groups: int
+    blocks: int
+
+
+def bwd_head_groups(b: int, kh: int, g: int, s: int, fill: int) -> int:
+    """The head groups of a grouped dK/dV pass (``BWD_GROUPED_DIMS``) of
+    ``b`` sequences of ``s`` positions and ``kh`` kv heads of ``g`` query
+    heads each: the fewest (a divisor of ``g``) that give the grid of
+    64-key blocks ``fill`` blocks (``fill_blocks``), or ``g`` when none
+    does (``paged_attention``'s ``head_group_plan`` rule).  One group reads
+    each Q and dO tile once and rounds in the kernel; more read K and V
+    once a group and sum f32 partials in a fourth launch, but put more SMs
+    on a short grid."""
+    return groups_to_fill(b * kh * -(-s // _BWD_KEY_ROWS), g, fill)
 
 
 def _check_shapes(what: str, q, k, v, window: int) -> None:
@@ -204,18 +241,27 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dk = torch.empty((b, kh, s, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    n_groups = (bwd_head_groups(b, kh, h // kh, s, fill_blocks(q.device))
+                if q.dtype == torch.bfloat16 and d in BWD_GROUPED_DIMS
+                else 1)
+    # the groups' f32 partial dK and dV, which the fourth launch sums
+    part = (torch.empty((2, n_groups, b, kh, s, d), dtype=torch.float32,
+                        device=q.device) if n_groups > 1 else None)
     lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
     design = ctypes.c_int(-1)
+    plan = (ctypes.c_int * 2)()
     err = lib.flash_attention_bwd_launch(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, kh, s, d, *_strides(q), *_strides(k), *_strides(v),
-        *_strides(out), *_strides(dout), *_strides(dq), *_strides(dk),
-        *_strides(dv), int(bool(causal)),
-        int(window), d ** -0.5, ctypes.byref(design), build.stream_of(q))
+        None if part is None else part.data_ptr(), b, h, kh, s, d, n_groups,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        *_strides(dout), *_strides(dq), *_strides(dk), *_strides(dv),
+        int(bool(causal)), int(window), d ** -0.5, ctypes.byref(design),
+        ctypes.byref(plan), build.stream_of(q))
     build.check(lib, err, "flash_attention_bwd")
     counter_bwd.add(d)
     if design.value == 1:
         counter_bwd_tc.add(d)
+    counter_bwd_plan.add(BwdPlan(plan[0], plan[1]))
     return dq, dk, dv

@@ -54,8 +54,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 __all__ = ["paged_attention_cuda", "paged_attention_ref", "counter",
-           "counter_plan", "split_plan", "head_group_plan", "fill_blocks",
-           "Plan", "HEAD_DIMS", "SPLIT", "TILE"]
+           "counter_plan", "split_plan", "head_group_plan", "groups_to_fill",
+           "fill_blocks", "Plan", "HEAD_DIMS", "SPLIT", "TILE"]
 
 counter = build.LaunchCounter("paged_attention")
 counter_plan = build.LaunchCounter("paged_attention_plan")
@@ -92,19 +92,25 @@ def split_plan(span: int) -> tuple[int, int]:
     return split, -(-span // split)
 
 
+def groups_to_fill(blocks: int, g: int, fill: int) -> int:
+    """The fewest groups (a divisor of ``g``) over which to split each
+    block of a grid of ``blocks`` so that it has ``fill`` blocks, or ``g``
+    when none does."""
+    n = 1
+    while n < g and blocks * n < fill:
+        n = next(d for d in range(n + 1, g + 1) if g % d == 0)
+    return n
+
+
 def head_group_plan(b: int, kh: int, g: int, span: int, fill: int) -> int:
     """``n_hgroups``, the blocks over which each kv head's ``g`` query
     heads are split, for ``b`` sequences of ``kh`` kv heads over a block
     table that spans ``span`` rows: the fewest groups (a divisor of ``g``)
     that give the grid ``fill`` blocks (``fill_blocks``), or ``g`` groups
-    of one head when none does.  One group reads each K/V row once; more
-    read it once a group (from L2 after the first) but put more SMs on a
-    small grid."""
-    blocks = b * kh * split_plan(span)[1]
-    n = 1
-    while n < g and blocks * n < fill:
-        n = next(d for d in range(n + 1, g + 1) if g % d == 0)
-    return n
+    of one head when none does (``groups_to_fill``).  One group reads each
+    K/V row once; more read it once a group (from L2 after the first) but
+    put more SMs on a small grid."""
+    return groups_to_fill(b * kh * split_plan(span)[1], g, fill)
 
 
 @functools.cache

@@ -1187,16 +1187,30 @@ def _check_bwd_on_card(cuda_device, dtype, b, h, kh, s, d, causal, window):
     (2, 16, 16, 1024, 80, False, 0),     # hubert-xlarge's training shape
     (1, 32, 32, 640, 96, True, 0),       # phi-3-vision's
     (1, 4, 4, 130, 96, False, 0),        # D 96: a tile of 2 rows
-    (2, 8, 2, 190, 80, True, 48)])       # D 80: of 62 rows, a window, GQA
+    (2, 8, 2, 190, 80, True, 48),        # D 80: of 62 rows, a window, GQA
+    (1, 16, 1, 4096, 256, True, 2048),   # recurrentgemma-9b's, 4 groups
+    (1, 4, 1, 130, 256, True, 64),       # D 256: a 64-row tile of 2 rows
+    (2, 8, 4, 1100, 256, True, 0)])      # D 256, GQA, 144 blocks: one group
 def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
         cuda_device, b, h, kh, s, d, causal, window):
     """bf16 at the shapes the tensor-core design's tiles meet: the training
     shapes (D 128; hubert-xlarge's D 80 and phi-3-vision's D 96, a row a
-    64-column box and a tail box), and an S whose last 128-row tile is
-    partly filled, so that a consumer warpgroup of the last tile has fewer
-    than 64 rows or none."""
+    64-column box and a tail box; recurrentgemma-9b's D 256, 64-row blocks
+    whose warpgroups split each tile pair, its dK/dV pass over four head
+    groups), and an S whose last tile (128 rows, 64 at D 256) is partly
+    filled, so that a consumer warpgroup of the last tile has fewer than
+    64 rows or none; at D 256 the plan the launcher reports is
+    ``bwd_head_groups``'."""
+    p0 = dict(fa.counter_bwd_plan.by_size)
     _check_bwd_on_card(cuda_device, torch.bfloat16, b, h, kh, s, d, causal,
                        window)
+    plans = {p for p, n in fa.counter_bwd_plan.by_size.items()
+             if n > p0.get(p, 0)}
+    groups = (fa.bwd_head_groups(b, kh, h // kh, s,
+                                 pa.fill_blocks(cuda_device))
+              if d in fa.BWD_GROUPED_DIMS else 1)
+    own = 64 if d in fa.BWD_GROUPED_DIMS else 128
+    assert plans == {fa.BwdPlan(groups, -(-s // own) * groups * kh * b)}
 
 
 @pytest.mark.parametrize("d", [128, 80, 96, 256])
@@ -1303,30 +1317,38 @@ def test_flash_attention_fwd_design_on_card(cuda_device, dt, d, design):
 
 @pytest.mark.parametrize("dt,d,design", [
     ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 128, "tc"),
-    ("bf16", 80, "tc"), ("bf16", 96, "tc"), ("bf16", 256, "cc"),
+    ("bf16", 80, "tc"), ("bf16", 96, "tc"), ("bf16", 256, "tc"),
     ("f32", 64, "cc"), ("f32", 80, "cc"), ("f32", 128, "cc")])
 def test_flash_attention_bwd_design_on_card(cuda_device, dt, d, design):
-    """bf16 at D 32/64/80/96/128 runs the tensor-core entries; f32 at
-    every D, and bf16 at D 256, the CUDA-core ``flash_bwd_dkdv`` and
-    ``flash_bwd_dq``: the design the launcher reports
-    (``counter_bwd_tc``) and, where the profiler records the call, three
-    kernels, one of each of the design's entries."""
+    """bf16 at every D runs the tensor-core entries; f32 the CUDA-core
+    ``flash_bwd_dkdv`` and ``flash_bwd_dq``: the design the launcher
+    reports (``counter_bwd_tc``) and, where the profiler records the call,
+    three kernels, one of each of the design's entries, and a fourth, the
+    reduce, where the launcher reports a dK/dV pass split over head groups
+    (D 256 here: 8 blocks of 64 keys, g 2)."""
     dtype = ATT_DTYPES[dt][0]
     assert (d in fa.BWD_TENSOR_CORE_DIMS and dt == "bf16") == (design == "tc")
     q, do = (_randn((1, 4, 256, d), dtype, cuda_device, i) for i in (1, 2))
     k, v = (_randn((1, 2, 256, d), dtype, cuda_device, i) for i in (3, 4))
     _, lse, out = fa.flash_attention_cuda(q, k, v, return_lse=True)
     c0, t0 = fa.counter_bwd.count, fa.counter_bwd_tc.count
+    p0 = dict(fa.counter_bwd_plan.by_size)
     fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
     assert fa.counter_bwd.count == c0 + 1
     assert fa.counter_bwd_tc.count == t0 + (design == "tc")
-    names = _gpu_kernel_names(
-        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse), 3)
+    (plan,) = [p for p, n in fa.counter_bwd_plan.by_size.items()
+               if n > p0.get(p, 0)]
+    assert (plan.head_groups > 1) == (design == "tc" and d == 256), plan
     want = (("flash_bwd_delta", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")
             if design == "tc" else
             ("flash_bwd_delta", "flash_bwd_dkdv<", "flash_bwd_dq<"))
+    if plan.head_groups > 1:
+        want += ("flash_bwd_reduce_bf16",)
+    names = _gpu_kernel_names(
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse),
+        len(want))
     if names:
-        assert len(names) == 3, names
+        assert len(names) == len(want), names
         for w in want:
             assert sum(w in n for n in names) == 1, (w, names)
 

@@ -60,6 +60,7 @@ JAX reference, so that it is held to the reference before it runs on a card.
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
 
@@ -228,7 +229,7 @@ def _over_d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
                                     window, split_p, split_ds, tile=64,
-                                    width=None):
+                                    width=None, n_groups=1):
     """The bf16 tensor-core backward's arithmetic in plain PyTorch: q, out,
     dout (B, H, S, D), k/v (B, KH, S, D) in bf16, lse (B, H, S) f32.  delta
     = rowsum(dout * out) in f32 (its own launch, over the D columns); S and
@@ -236,13 +237,16 @@ def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
     scale log2 e - lse log2 e), 0 where masked; dS = P (dP - delta); P and
     dS as bf16 operands (hi, or hi + lo); the dK/dV pass accumulates in f32
     over ``tile``-row query tiles and, inside each, the g query heads of a
-    kv head; the dQ pass over ``tile``-key tiles; dK and dQ scaled at the
-    store; each output rounded once to bf16.  With ``width``, q, k, v and
-    dout are first padded with zero columns to that many (tiles padded to
-    whole boxes) and the gradients cut back to D."""
+    kv head -- with ``n_groups`` > 1 (the D-256 split) each group of g /
+    n_groups heads into an f32 partial of its own, the partials then summed
+    in group order -- the dQ pass over ``tile``-key tiles; dK and dQ scaled
+    at the store; each output rounded once to bf16.  With ``width``, q, k, v
+    and dout are first padded with zero columns to that many (tiles padded
+    to whole boxes) and the gradients cut back to D."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     g = h // kh
+    gn = g // n_groups
     c = d ** -0.5 * math.log2(math.e)
     delta = (dout.float() * out.float()).sum(-1)
     if width is not None:
@@ -268,16 +272,18 @@ def flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *, causal,
         return p, p * (dp - delta[:, hh, qs, None])
 
     w = q.shape[-1]
-    dk = torch.zeros((b, kh, s, w))
-    dv = torch.zeros((b, kh, s, w))
+    dk = torch.zeros((n_groups, b, kh, s, w))
+    dv = torch.zeros((n_groups, b, kh, s, w))
     for q0 in range(0, s, tile):
         qs = slice(q0, min(q0 + tile, s))
         for hh in range(h):
+            grp = hh % g // gn
             p, ds = p_ds(hh, qs, slice(0, s))
             for part in _bf16_parts(p, split_p):
-                dv[:, hh // g] += part.transpose(-1, -2) @ dof[:, hh, qs]
+                dv[grp, :, hh // g] += part.transpose(-1, -2) @ dof[:, hh, qs]
             for part in _bf16_parts(ds, split_ds):
-                dk[:, hh // g] += part.transpose(-1, -2) @ qf[:, hh, qs]
+                dk[grp, :, hh // g] += part.transpose(-1, -2) @ qf[:, hh, qs]
+    dk, dv = (functools.reduce(torch.add, x.unbind(0)) for x in (dk, dv))
     dq = torch.zeros((b, h, s, w))
     for k0 in range(0, s, tile):
         ks = slice(k0, min(k0 + tile, s))
@@ -307,6 +313,7 @@ BWD_EMU_CASES = [
     (1, 4, 2, 512, 32, True, 0),     # D 32 (64-byte swizzle)
     (1, 4, 4, 256, 80, False, 0),    # hubert-xlarge's: D 80, no mask
     (1, 4, 4, 256, 96, True, 0),     # phi-3-vision's: D 96, causal
+    (1, 4, 1, 320, 256, True, 64),   # recurrentgemma's: D 256, windowed MQA
 ]
 
 
@@ -354,6 +361,17 @@ def test_flash_bwd_split_p_and_ds_within_tolerance_single_not(
         # tiles padded with zero columns to whole boxes (128)
         padded = emulate(True, True, width=padded_width(d))
         assert all(torch.equal(x, y) for x, y in zip(split, padded))
+    if d in fa.BWD_GROUPED_DIMS:
+        # the dK/dV pass split over the head groups the launcher picks on
+        # an H100 SXM (132 SMs): the groups' f32 partials summed in group
+        # order, then rounded once; dq is the unsplit one
+        n = fa.bwd_head_groups(b, kh, h // kh, s, 132)
+        assert n > 1
+        grouped = flash_bwd_tensor_core_emulation(
+            qt, kt, vt, out, dot, lse, split_p=True, split_ds=True,
+            n_groups=n, **kw)
+        assert beyond(grouped) == [(0, 0)] * 3
+        assert torch.equal(grouped[0], split[0])
     if (b, h, kh, s, d, causal, window) == BWD_EMU_CASES[0]:
         # fed the bf16 output, as the card's residual was before, dq and dk
         # miss the f32 gradient
@@ -1082,7 +1100,7 @@ def test_tensor_core_head_dims_match_the_sources():
     """The head dims at which bf16 runs the tensor-core kernels, forward
     and backward, are ``ops.py``'s two sets; each source dispatches on its
     own; only D 80 and 96 are not whole boxes (both directions read their
-    tail box), and the backward runs every D but 256 on the tensor cores."""
+    tail box), and both directions run every D on the tensor cores."""
     src = (build.CSRC / "attention_common.cuh").read_text()
 
     def dims(name):
@@ -1101,11 +1119,27 @@ def test_tensor_core_head_dims_match_the_sources():
         [80, 96]
     assert [d for d in fa.BWD_TENSOR_CORE_DIMS if padded_width(d) != d] == \
         [80, 96]
-    assert set(fa.FWD_TENSOR_CORE_DIMS) - set(fa.BWD_TENSOR_CORE_DIMS) == \
-        {256}
+    assert set(fa.FWD_TENSOR_CORE_DIMS) == set(fa.BWD_TENSOR_CORE_DIMS)
     for text in (fwd, bwd):     # one copy of the tail-box machinery
         assert "struct Cols" not in text and "Cols<D>" in text
     assert "struct Cols" in src
+
+
+@pytest.mark.parametrize("b,kh,g,s,fill,want", [
+    (1, 1, 16, 4096, 132, 4),    # recurrentgemma's training shape: 64 -> 256
+    (1, 4, 1, 320, 132, 1),      # g 1: nothing to split
+    (1, 4, 4, 130, 132, 4),      # 3 key tiles: every head a group of its own
+    (2, 4, 2, 1100, 132, 1),     # 144 blocks fill the card unsplit
+    (1, 1, 6, 1024, 40, 3)])     # the fewest groups that fill, a divisor
+def test_bwd_head_groups_fill_the_card(b, kh, g, s, fill, want):
+    """The grouped dK/dV pass (D 256, 64-key blocks) splits a kv head's
+    query heads over the fewest groups, a divisor of g, that give the grid
+    ``fill`` blocks, or over g groups; ``paged_attention``'s rule."""
+    n = fa.bwd_head_groups(b, kh, g, s, fill)
+    assert n == want and g % n == 0
+    blocks = b * kh * -(-s // 64)
+    assert blocks * n >= fill or n == g
+    assert all(blocks * m < fill for m in range(1, n) if g % m == 0)
 
 
 @pytest.mark.parametrize("name,mod", [("wc_combine", wcc), ("scan_probe", sp)])

@@ -20,7 +20,9 @@ recurrentgemma-9b's 2,048-row ring (length 2,048) and at decode_32k (B 8,
 16-row pages, lengths up to 32,768); ``flash_attention_bwd`` at the
 training shapes of qwen3-0.6b (D 128), hubert-xlarge (D 80),
 phi-3-vision-4.2b (D 96) and recurrentgemma-9b (D 256), each held to the
-plain backward within ``chip_smoke.BWD_TOL``.  Every call goes through
+plain backward within ``chip_smoke.BWD_TOL``, with a row for each of its
+launches (``<row>.delta``, ``.dkdv``, ``.reduce`` where the dK/dV pass
+is split over head groups, ``.dq``) where the profiler recorded them.  Every call goes through
 the public wrappers (``flash_attention_cuda``, ``paged_attention_cuda``,
 ``flash_attention_bwd_cuda``), so that a parent tree runs its own design.
 Prints one JSON line a tree, then a table.
@@ -108,9 +110,13 @@ def child(tree: Path) -> dict:
                                f"BWD_TOL")
         del got, want
         flops = 10 * b * h * d * cs.flash_pairs(s, causal, window)
-        rows[name], _ = cs.timed(
+        rows[name], _, top = cs.timed(
             lambda: fa.flash_attention_bwd_cuda(*args, **kw), 3,
-            floor=cs.floor_ms(0, flops))
+            events=True, floor=cs.floor_ms(0, flops))
+        for entry in ("delta", "dkdv", "reduce", "dq"):
+            ms = sum(t for key, t, _ in top if f"flash_bwd_{entry}" in key)
+            if ms:
+                rows[f"{name}.{entry}"] = ms
 
     for row in BWD_ROWS:
         bwd_row(*row)
