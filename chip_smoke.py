@@ -178,7 +178,15 @@ Phases (any mismatch raises, and the script exits non-zero):
     rows within their f32 summation bound,
     the SGD step within the dense f32 step's bound; unique ids and times;
     (c) the dry-run of all 40 (arch x cell) on both production meshes on
-    the host (31 ok, 9 skipped a mesh), printed as ``report.table``; (d)
+    the host (31 ok, 9 skipped a mesh), each ok cell's collectives counted
+    as a DTensor program on a fake process group (``DryrunGrid``: started
+    after phase 14, beside phase 15's device-bound training steps, in
+    ``DRYRUN_JOBS`` niced processes; phase 16 waits for it), under a torch whose counts
+    of qwen3-0.6b's smoke steps on a 2 x 4 mesh equal ``counter.SMOKE``
+    (``check_torch``, which each count runs; phase 16 prints them): every
+    ok cell's collective bytes positive and its collective term set; both
+    meshes' ``report.table``, the cells whose bottleneck is the collective
+    term, the grid's host seconds; (d)
     the dry-run's parameter and AdamW-state bytes of qwen3-0.6b equal to
     the bytes of the tensors phase 15 created, and the allocator's growth
     then within its rounding of them (512 bytes, and up to 1 MiB of
@@ -197,15 +205,19 @@ the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -4382,24 +4394,103 @@ def embed_grad_paths(dev, card: str) -> dict:
     return out
 
 
-def dryrun_grid(card: str) -> dict:
+DRYRUN_JOBS = 4     # the background grid's counting processes (8 cores)
+
+
+class DryrunGrid:
+    """``python -m repro_torch.launch.dryrun`` over the whole grid, in the
+    background from its start on: ``DRYRUN_JOBS`` processes at nice 10
+    count the cells' collectives (minutes of host CPU) while the card's
+    phases run, and write the records under ``build/dryrun_torch``.  Its
+    own session, so that ``stop`` ends its children too; a thread notes
+    when it ends, on the script's clock (``t_start``)."""
+
+    def __init__(self, t_start: float):
+        self.outdir = ROOT / "build" / "dryrun_torch"
+        shutil.rmtree(self.outdir, ignore_errors=True)
+        self.outdir.parent.mkdir(parents=True, exist_ok=True)
+        self.log_path = ROOT / "build" / "dryrun_torch.log"
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if p]))
+        self.t_start = t_start
+        self.t0 = time.perf_counter()
+        self.t1 = None
+        self.proc = subprocess.Popen(
+            ["nice", "-n", "10", sys.executable, "-m",
+             "repro_torch.launch.dryrun", "--out", str(self.outdir),
+             "--jobs", str(DRYRUN_JOBS)],
+            stdout=self.log, stderr=subprocess.STDOUT, env=env,
+            start_new_session=True)
+        atexit.register(self.stop)
+        self.waiter = threading.Thread(target=self._note_end, daemon=True)
+        self.waiter.start()
+
+    def _note_end(self) -> None:
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def wait(self) -> int:
+        self.waiter.join()
+        return self.proc.returncode
+
+    def span(self) -> tuple[float, float]:
+        """The grid's start and end, seconds into the script."""
+        return self.t0 - self.t_start, self.t1 - self.t_start
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.log.close()
+
+
+def dryrun_grid(card: str, grid: DryrunGrid) -> dict:
     """The dry-run of every (arch x cell) on both production meshes, on the
-    host: 31 ok and 9 skipped a mesh; the report's tables."""
+    host (``grid``, running since phase 14): 31 ok and 9 skipped a mesh,
+    every ok cell's collectives counted and in its roofline; the report's
+    tables and the collective-bound cells."""
     from repro_torch.launch import dryrun
-    from repro_torch.rooflines import report
-    outdir = ROOT / "build" / "dryrun_torch"
-    shutil.rmtree(outdir, ignore_errors=True)
+    from repro_torch.rooflines import counter, report
     t0 = time.perf_counter()
-    n = dryrun.main(["--out", str(outdir)])
-    wall = time.perf_counter() - t0
+    rc = grid.wait()
+    waited = time.perf_counter() - t0
+    grid.log.close()
+    check(rc == 0, f"dry-run grid exited {rc}:\n"
+                   f"{grid.log_path.read_text()[-4000:]}")
+    say(f"  torch {counter.check_torch()} counts qwen3-0.6b's smoke steps "
+        f"on a 2 x 4 mesh as {counter.SMOKE}, the count's pins")
+    n = dryrun.main(["--out", str(grid.outdir)])   # reads the records back
     check(n == {"ok": 62, "skipped": 18}, f"dry-run grid {n}")
-    recs = report.load(str(outdir))
+    recs = report.load(str(grid.outdir))
+    ok = [r for r in recs if r["status"] == "ok"]
+    bad = [(r["arch"], r["cell"], r["mesh"]) for r in ok
+           if not (r["coll_bytes_per_chip"] > 0
+                   and r["roofline"]["collective_s"] is not None)]
+    check(not bad, f"dry-run cells without a collective term: {bad}")
+    bound = {}
     for mesh in ("16x16", "2x16x16"):
         say(f"  dry-run {mesh} (host accounting, H100 constants):")
         say(report.table(recs, mesh))
-    shutil.rmtree(outdir, ignore_errors=True)
-    say(f"  dry-run grid: {n} in {wall:.1f} s on the host [{card}]")
-    return {"wall_s": wall, **n}
+        bound[mesh] = sorted(f"{r['arch']} {r['cell']}" for r in ok
+                             if r["mesh"] == mesh
+                             and r["roofline"]["bottleneck"] == "collective")
+        say(f"  {mesh}: {len(bound[mesh])} of "
+            f"{sum(r['mesh'] == mesh for r in ok)} ok cells "
+            f"collective-bound: {bound[mesh]}")
+    count_s = sum(r["coll_count_s"] for r in ok)
+    flop_s = sum(r["count_s"] for r in ok)
+    shutil.rmtree(grid.outdir, ignore_errors=True)
+    start, end = grid.span()
+    say(f"  dry-run grid: {n} in {end - start:.1f} s of host wall time in the "
+        f"background ({DRYRUN_JOBS} processes at nice 10, from t = "
+        f"{start:.1f} s to t = {end:.1f} s of the script), {waited:.1f} s of "
+        f"it waited for in phase 16; collective counts {count_s:.1f} s and "
+        f"FLOP counts {flop_s:.1f} s of process time [{card}]")
+    return {"wall_s": end - start, "waited_s": waited,
+            "coll_count_s": count_s,
+            "collective_bound": {m: len(b) for m, b in bound.items()}, **n}
 
 
 def memory_accounting(dev, card: str, mem15: dict) -> None:
@@ -4433,14 +4524,14 @@ def memory_accounting(dev, card: str, mem15: dict) -> None:
             f" bytes of allocator rounding over {blocks} blocks [{card}]")
 
 
-def phase16_dist(dev, card: str, mem15: dict) -> dict:
+def phase16_dist(dev, card: str, mem15: dict, grid: DryrunGrid) -> dict:
     """(a) split-sequence decode, (b) the combined embedding gradient, (c)
     the dry-run grid, (d) the dry-run's memory accounting against the
     card's allocator."""
     out = {}
     for key, fn in (("split_decode", lambda: split_decode(dev, card)),
                     ("embed_grad", lambda: embed_grad_paths(dev, card)),
-                    ("dryrun", lambda: dryrun_grid(card)),
+                    ("dryrun", lambda: dryrun_grid(card, grid)),
                     ("memory", lambda: memory_accounting(dev, card, mem15))):
         t0 = time.perf_counter()
         out[key] = fn()
@@ -4543,7 +4634,9 @@ def main() -> int:
          lambda: phase15_train(dev, card)),
         (16, "the distribution and dry-run layer: split-sequence decode, "
              "the combined embedding gradient, the dry-run grid, memory "
-             "accounting", lambda: phase16_dist(dev, card, results[15])))
+             "accounting", lambda: phase16_dist(dev, card, results[15],
+                                                grid)))
+    grid = None
     results = {}
     # a graph's kernels are counted once, at capture: phase 13 returns its
     # replays' launches, added here
@@ -4560,6 +4653,11 @@ def main() -> int:
         result = results[n] = fn()
         phase_s[n] = time.perf_counter() - t_phase
         say(f"  phase {n} took {phase_s[n]:.1f} s")
+        if n == 14:
+            # phase 16's dry-run, on the host beside phase 15's training
+            # steps, which keep the card busy (phases 2-13 time host-bound
+            # runs)
+            grid = DryrunGrid(t_start)
         if n == 13:
             for (name, n_lanes), k in result.items():
                 replayed[name] += k

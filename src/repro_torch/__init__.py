@@ -20,3 +20,21 @@ ported module's reference sits at the same relative path:
 Entry points default to ``device="cuda"`` and raise when CUDA is absent;
 pass ``device="cpu"`` explicitly to run the plain PyTorch versions.
 """
+
+import os as _os
+
+
+def _cap_threads_per_xdist_worker() -> None:
+    """Under pytest-xdist (``PYTEST_XDIST_WORKER_COUNT`` set), give each
+    worker's torch an equal share of the machine's cores, at least one: n
+    workers each at torch's default of one thread a core oversubscribe the
+    machine n times, and a test of many small tensor ops then runs hundreds
+    of times slower than alone.  Elsewhere it does nothing."""
+    n = _os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not n:
+        return
+    import torch
+    torch.set_num_threads(max(1, (_os.cpu_count() or 1) // max(int(n), 1)))
+
+
+_cap_threads_per_xdist_worker()

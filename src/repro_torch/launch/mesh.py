@@ -24,7 +24,9 @@ sizes, which ``dist.ctx``, ``dist.sharding`` and ``dist.decode_attn`` read:
 ``model`` axis of its own (the split of a decode cache's sequence, all of
 its parts in this process).  :func:`make_production_mesh` returns an
 ``AbstractMesh``, the shape and axis names of the 256- or 512-chip
-production mesh and nothing else: it touches no device.
+production mesh and nothing else: it touches no device.  A
+``PlacedMesh`` pairs one with a ``DeviceMesh`` of the same axes, as the
+dry-run's collective count builds it over a fake process group.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import torch
 from repro_torch.core.types import as_device
 
 __all__ = ["Mesh", "LocalMesh", "ProcessGroupMesh", "AbstractMesh",
-           "make_local_mesh", "make_process_group_mesh",
+           "PlacedMesh", "make_local_mesh", "make_process_group_mesh",
            "make_production_mesh"]
 
 
@@ -118,6 +120,24 @@ class AbstractMesh:
         for s in self.axis_sizes:
             n *= s
         return n
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacedMesh:
+    """An ``AbstractMesh`` with a ``torch.distributed`` ``DeviceMesh`` of
+    the same axis names and sizes: ``.shape`` is the abstract mesh's (the
+    sharding rules read it), ``device_mesh`` what ``dist.ctx.shard``
+    redistributes ``DTensor`` activations on."""
+    abstract: AbstractMesh
+    device_mesh: Any
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return self.abstract.shape
+
+    @property
+    def size(self) -> int:
+        return self.abstract.size
 
 
 def make_local_mesh(data: int = 1, device: str | torch.device = "cuda", *,

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.combine import resolve_backend
+from repro_torch.dist.ctx import shard
 from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
 from repro_torch.kernels.paged_attention.ops import paged_attention_cuda
@@ -51,9 +52,12 @@ def _flash_fwd_plain(q, k, v, causal, window, qc, kc):
     d) f32 inputs, q scaled; lse (b, s, h) in natural-log units."""
     b, s, h, d = q.shape
     n_q, n_k = s // qc, s // kc
-    qr = q.reshape(b, n_q, qc, h, d)
-    kr = k.reshape(b, n_k, kc, h, d)
-    vr = v.reshape(b, n_k, kc, h, d)
+    qr = shard(q.reshape(b, n_q, qc, h, d),
+               ("act_batch", None, None, "act_heads", None))
+    kr = shard(k.reshape(b, n_k, kc, h, d),
+               ("act_batch", None, None, "act_heads", None))
+    vr = shard(v.reshape(b, n_k, kc, h, d),
+               ("act_batch", None, None, "act_heads", None))
     outs, lses = [], []
     for qi in range(n_q):
         qblk = qr[:, qi]
@@ -73,7 +77,8 @@ def _flash_fwd_plain(q, k, v, causal, window, qc, kc):
             m_run = m_new
         outs.append(acc / l_run.clamp_min(1e-30)[..., None])
         lses.append(m_run + torch.log(l_run.clamp_min(1e-30)))
-    return torch.cat(outs, 1), torch.cat(lses, 1)
+    out = shard(torch.cat(outs, 1), ("act_batch", None, "act_heads", None))
+    return out, torch.cat(lses, 1)
 
 
 def _flash_bwd_plain(q, k, v, out, lse, do, causal, window, qc):
@@ -165,6 +170,8 @@ def _core_inputs(q, k, v):
     if kh != h:
         k = k.repeat_interleave(h // kh, dim=2)
         v = v.repeat_interleave(h // kh, dim=2)
+    k = shard(k, ("act_batch", None, "act_heads", None))
+    v = shard(v, ("act_batch", None, "act_heads", None))
     return (q.to(torch.float32) * d ** -0.5, k.to(torch.float32),
             v.to(torch.float32))
 
@@ -208,6 +215,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     smax = k_cache.shape[1]
     qg = q.reshape(b, kh, h // kh, d).to(torch.float32) * d ** -0.5
     sc = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32))
+    sc = shard(sc, ("act_batch", None, None, "act_cache_seq"))
     pos = torch.arange(smax, device=q.device)
     sc = torch.where(pos[None, None, None, :] < length.view(b, 1, 1, 1), sc,
                      NEG_INF)

@@ -24,7 +24,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     masked mean (over at least one token), else the mean."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    gold = torch.gather(logits, -1, targets.long().unsqueeze(-1))[..., 0]
     nll = lse - gold
     if mask is not None:
         nll = nll * mask

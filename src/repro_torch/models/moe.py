@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.combine import _first_last_rank, lexsort2
+from repro_torch.dist.ctx import shard
 from repro_torch.kernels.build import launch_tag
 
 __all__ = ["route_topk", "moe_ffn", "moe_capacity", "pinned_routing"]
@@ -125,10 +126,11 @@ def _routed_ffn(x: torch.Tensor, router_w, experts_gate, experts_up,
     if _PINS:
         w, ix = _PINS[-1](logits, w, ix)
     me = torch.softmax(logits.to(torch.float32), -1).mean(1)
-    ce = torch.zeros((r, e), dtype=torch.float32, device=x.device)
-    ce.scatter_add_(1, ix.reshape(r, -1).long(),
-                    torch.ones((r, t * top_k), dtype=torch.float32,
-                               device=x.device))
+    ce = torch.zeros((r, e), dtype=torch.float32, device=x.device
+                     ).scatter_add(1, ix.reshape(r, -1).long(),
+                                   torch.ones((r, t * top_k),
+                                              dtype=torch.float32,
+                                              device=x.device))
     aux = e * (me * (ce / (t * top_k))).sum(-1)
     # ---- dispatch: sort-group (the global-WC primitive) ----
     row = torch.arange(r, dtype=torch.int32, device=x.device)[:, None]
@@ -159,17 +161,20 @@ def moe_ffn(x: torch.Tensor, router_w, experts_gate, experts_up,
     dtype, aux_loss f32 scalar)."""
     t, d = x.shape
     e = experts_gate.shape[0]
+    x = shard(x, ("act_tokens", None))
     if rows > 1 and t % rows == 0:
         cap = moe_capacity(t // rows, e, top_k, capacity_factor)
-        y, aux = _routed_ffn(x.reshape(rows, t // rows, d), router_w,
-                             experts_gate, experts_up, experts_down, top_k,
-                             cap)
-        y, aux = y.reshape(t, d), aux.mean()
+        xr = shard(x.reshape(rows, t // rows, d), ("act_rows", None, None))
+        y, aux = _routed_ffn(xr, router_w, experts_gate, experts_up,
+                             experts_down, top_k, cap)
+        y = shard(y, ("act_rows", None, None)).reshape(t, d)
+        aux = aux.mean()
     else:
         cap = moe_capacity(t, e, top_k, capacity_factor)
         y, aux = _routed_ffn(x[None], router_w, experts_gate, experts_up,
                              experts_down, top_k, cap)
         y, aux = y[0], aux[0]
+    y = shard(y, ("act_tokens", None))
     if shared_gate is not None:
         hs = F.silu(x @ shared_gate) * (x @ shared_up)
         y = y + hs @ shared_down

@@ -17,6 +17,12 @@ and a Python loop over it stands in for ``lax.scan``.  Under grad,
 as the reference's ``jax.checkpoint`` does: a block keeps only its inputs
 for the backward and recomputes its activations there.  The forward writes
 in place into no tensor that autograd saves.
+
+Activations carry the reference's sharding annotations (``dist.ctx.shard``)
+at the reference's sites with its logical axes: the blocks' inputs, q, k
+and v, the MLP's hidden activation, the SSD block's input projection, the
+embedding and the logits.  They change nothing on plain tensors; on
+DTensors (the dry-run's collective count) they lay the activations out.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.ctx import current_mesh
+from repro_torch.dist.ctx import current_mesh, shard
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssm as ssd
 from repro_torch.models.attention import decode_attention, gqa_attention
@@ -241,14 +247,20 @@ def param_axes(cfg: ModelConfig) -> dict:
 # Blocks
 # ===========================================================================
 
-def _qkv(cfg: ModelConfig, x, blk, sin, cos):
-    """Normed input -> roped q (B,S,H,hd), k, v (B,S,KH,hd) in x's dtype."""
+def _qkv(cfg: ModelConfig, x, blk, sin, cos, annotate: bool = False):
+    """Normed input -> roped q (B,S,H,hd), k, v (B,S,KH,hd) in x's dtype;
+    ``annotate`` lays the projections out over heads, as the reference's
+    forward does (its decode does not)."""
     b, s, d = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     xn = rms_norm(x, blk["ln1"])
     q = (xn @ blk["wq"].reshape(d, h * hd)).view(b, s, h, hd)
     k = (xn @ blk["wk"].reshape(d, kh * hd)).view(b, s, kh, hd)
     v = (xn @ blk["wv"].reshape(d, kh * hd)).view(b, s, kh, hd)
+    if annotate:
+        q = shard(q, ("act_batch", None, "act_heads", None))
+        k = shard(k, ("act_batch", None, "act_kv", None))
+        v = shard(v, ("act_batch", None, "act_kv", None))
     if cfg.qkv_bias:
         q, k, v = q + blk["bq"], k + blk["bk"], v + blk["bv"]
     if cfg.qk_norm:
@@ -265,7 +277,8 @@ def _attn_out(cfg: ModelConfig, x, att, blk):
 
 
 def _attn_fwd(cfg: ModelConfig, x, blk, sin, cos, *, window=0):
-    q, k, v = _qkv(cfg, x, blk, sin, cos)
+    x = shard(x, ("act_batch", None, None))
+    q, k, v = _qkv(cfg, x, blk, sin, cos, annotate=True)
     att = gqa_attention(q, k, v, causal=cfg.causal, window=window,
                         chunk=cfg.attn_chunk)
     return _attn_out(cfg, x, att, blk), (k, v)
@@ -273,7 +286,9 @@ def _attn_fwd(cfg: ModelConfig, x, blk, sin, cos, *, window=0):
 
 def _mlp_fwd(cfg: ModelConfig, x, blk):
     xn = rms_norm(x, blk["ln2"])
-    return x + swiglu(xn, blk["wi_gate"], blk["wi_up"], blk["wo_mlp"])
+    hgate = F.silu(xn @ blk["wi_gate"]) * (xn @ blk["wi_up"])
+    hgate = shard(hgate, ("act_batch", None, "act_mlp"))
+    return x + hgate @ blk["wo_mlp"]
 
 
 def _moe_fwd(cfg: ModelConfig, x, blk):
@@ -306,8 +321,10 @@ def _ssm_fwd(cfg: ModelConfig, x, blk):
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_headdim
     b, s, _ = x.shape
+    x = shard(x, ("act_batch", None, None))
     xn = rms_norm(x, blk["ln1"])
-    z, xin, B, C, dt = _ssm_split(cfg, xn @ blk["in_proj"])
+    z, xin, B, C, dt = _ssm_split(cfg, shard(
+        xn @ blk["in_proj"], ("act_batch", None, "act_mlp")))
     conv_out = F.silu(rg.causal_conv1d(torch.cat([xin, B, C], -1),
                                        blk["conv_w"]))
     xin, B, C = conv_out.split([di, g * n, g * n], dim=-1)
@@ -320,6 +337,7 @@ def _ssm_fwd(cfg: ModelConfig, x, blk):
 
 
 def _rec_fwd(cfg: ModelConfig, x, blk):
+    x = shard(x, ("act_batch", None, None))
     xn = rms_norm(x, blk["ln1"])
     gate = F.gelu(xn @ blk["wgate"], approximate="tanh")   # jax.nn.gelu
     u = rg.causal_conv1d(xn @ blk["wx"], blk["conv"])
@@ -347,7 +365,7 @@ def _remat(cfg: ModelConfig, fn, params):
 def _logits(cfg: ModelConfig, params, x):
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]
-    return x @ head
+    return shard(x @ head, ("act_batch", None, "act_vocab"))
 
 
 # ===========================================================================
@@ -363,7 +381,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     elsewhere); caches is ``(k, v)``, each stacked ``(L_attn, B, S, KH,
     hd)`` over the attention layers, when ``return_cache`` and the family
     has attention, else None."""
-    x = params["embed"][tokens]
+    x = shard(params["embed"][tokens], ("act_batch", None, None))
     if cfg.frontend:
         front = (frontend_feats @ params["front_proj"]).to(x.dtype)
         x = front if cfg.family == "encoder" else torch.cat([front, x], 1)
@@ -503,7 +521,9 @@ def _rec_decode(cfg: ModelConfig, x, blk, h_st, c_st):
     y, h = rg.rglru_step(h_st, u, blk["w_input"], blk["w_rec"], blk["lam"])
     h_st.copy_(h)
     x = x + ((gate * y.to(gate.dtype)) @ blk["wy"])[:, None, :]
-    return _mlp_fwd(cfg, x, blk)
+    # the reference's recurrent decode writes its MLP out, unannotated
+    xn = rms_norm(x, blk["ln2"])
+    return x + swiglu(xn, blk["wi_gate"], blk["wi_up"], blk["wo_mlp"])
 
 
 def decode_step(cfg: ModelConfig, params, state: dict, token: torch.Tensor,

@@ -1,7 +1,7 @@
 """Fold the dry-run's per-cell JSONs into the roofline table (port of
 ``repro.rooflines.report``, reading ``repro_torch.launch.dryrun``'s
-records: the collective term is ``None`` there, shown as "n/c", not
-counted).
+records): each ok cell's compute, memory and collective terms, its
+collective wire bytes a chip and its number of collectives.
 
     PYTHONPATH=src python -m repro_torch.rooflines.report results/dryrun_torch
 """
@@ -22,22 +22,18 @@ def load(outdir: str) -> list[dict]:
     return recs
 
 
-def _g(x) -> str:
-    return "n/c" if x is None else f"{x:.3g}"
-
-
 def table(recs, mesh: str = "16x16") -> str:
     rows = ["| arch | cell | status | compute s | memory s | coll s | "
             "bottleneck | MODEL_FLOPs | useful | roofline frac | "
-            "bytes/chip (args) |",
-            "|---|---|---|---|---|---|---|---|---|---|---|"]
+            "bytes/chip (args) | coll GB/chip | collectives |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in recs:
         if r["mesh"] != mesh:
             continue
         if r["status"] != "ok":
             rows.append(f"| {r['arch']} | {r['cell']} | {r['status']}: "
                         f"{r.get('reason', r.get('error', ''))[:60]} "
-                        f"| | | | | | | | |")
+                        f"| | | | | | | | | | |")
             continue
         t = r["roofline"]
         mem = r.get("bytes_per_chip", {})
@@ -45,10 +41,11 @@ def table(recs, mesh: str = "16x16") -> str:
               + mem.get("temp_size_in_bytes", 0)) / 1e9
         rows.append(
             f"| {r['arch']} | {r['cell']} | ok | {t['compute_s']:.3g} | "
-            f"{t['memory_s']:.3g} | {_g(t['collective_s'])} | "
+            f"{t['memory_s']:.3g} | {t['collective_s']:.3g} | "
             f"{t['bottleneck']} | {t['model_flops']:.3g} | "
             f"{t['useful_ratio']:.3f} | {t['roofline_fraction']:.4f} | "
-            f"{gb:.1f} GB |")
+            f"{gb:.1f} GB | {r['coll_bytes_per_chip'] / 1e9:.3g} | "
+            f"{r['n_collectives']} |")
     return "\n".join(rows)
 
 

@@ -9,8 +9,8 @@ Every per-chip quantity is one device's share of the step, so:
 
 The dominant term is the bottleneck; a cell's roofline fraction is
 useful_model_flops / (chips * peak * dominant term).  Where the collective
-bytes are not known (``None``: the dry-run reads no compiled program), the
-collective term is ``None`` and the other two decide.
+bytes are not known (``None``), the collective term is ``None`` and the
+other two decide.
 
 Constants (``H100``), NVIDIA's H100 SXM data sheet, dense rates without
 sparsity, at the full 700 W power limit: 989 TFLOP/s bf16 on the tensor

@@ -108,14 +108,16 @@ def adamw_update(params: dict, grads: dict, opt: OptState, lr=3e-4, b1=0.9,
         return (p.to(torch.float32) - lr * u).to(p.dtype), m2, v2
 
     def chunked(p, g, m, v):
+        if p.is_meta:
+            # the dry-run's accounting: a meta tensor holds no memory, and
+            # a sharded one (a DTensor) keeps its layout leaf-whole
+            return upd(p, g, m, v)
         new = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
                     for x in (p, m, v))
         flat = [x.reshape(-1) for x in (p, g, m, v)]
-        # a meta tensor (the dry-run's accounting) holds no memory
-        step = max(p.numel(), 1) if p.is_meta else CHUNK
-        for i in range(0, p.numel(), step):
-            for out, x in zip(new, upd(*(x[i:i + step] for x in flat))):
-                out.view(-1)[i:i + step].copy_(x)
+        for i in range(0, p.numel(), CHUNK):
+            for out, x in zip(new, upd(*(x[i:i + CHUNK] for x in flat))):
+                out.view(-1)[i:i + CHUNK].copy_(x)
         return new
 
     params, m, v = tree_unzip(tree_map(chunked, params, grads, opt.m, opt.v),

@@ -13,7 +13,8 @@ JAX reference:
 * the block-scaled count equals the full-depth count, and one attention
   chunk counts what the chunked loop does;
 * the skip rules, the 31 ``ok`` and 9 ``skipped`` cells a mesh with the
-  reference's reasons, the record's keys, ``report.table``;
+  reference's reasons, the record's keys (each ok cell's collectives
+  counted, under the reference's kind names), ``report.table``;
 * the ring formulas against ``parse_hlo``'s on one collective each, and
   the H100 roofline.
 """
@@ -115,9 +116,10 @@ def test_shapes_and_skip_rules_are_the_reference_s():
 
 
 def test_grid_records_and_report(tmp_path, capsys):
-    """The whole grid: 31 ok and 9 skipped a mesh, the records' keys, the
-    per-chip share and argument bytes of both meshes, a second run reading
-    the records back, and the report's tables."""
+    """The whole grid: 31 ok and 9 skipped a mesh, the records' keys, each
+    ok cell's collectives, the per-chip share and argument bytes of both
+    meshes, a second run reading the records back, and the report's
+    tables."""
     n = dryrun.main(["--out", str(tmp_path)])
     assert n == {"ok": 62, "skipped": 18}
     recs = report.load(str(tmp_path))
@@ -133,10 +135,17 @@ def test_grid_records_and_report(tmp_path, capsys):
         assert {"arch", "cell", "mesh", "chips", "status", "n_params",
                 "model_flops", "bytes_per_chip", "roofline", "flops",
                 "flops_per_chip", "count_s"} <= set(r)
-        assert r["coll_bytes_per_chip"] is None
+        assert r["coll_bytes_per_chip"] > 0 and r["n_collectives"] > 0
+        assert set(r["coll_by_kind"]) <= {
+            "all-gather", "reduce-scatter", "all-reduce", "all-to-all",
+            "collective-permute"}
+        assert r["coll_bytes_per_chip"] == pytest.approx(
+            sum(r["coll_by_kind"].values()))
         assert r["flops_per_chip"] == r["flops"] / r["chips"]
-        assert r["roofline"]["collective_s"] is None
-        assert r["roofline"]["bottleneck"] in ("compute", "memory")
+        assert r["roofline"]["collective_s"] == \
+            r["coll_bytes_per_chip"] / roofline.H100["link_bw"] > 0
+        assert r["roofline"]["bottleneck"] in ("compute", "memory",
+                                               "collective")
         mem = r["bytes_per_chip"]
         parts = sum(v for k, v in mem.items()
                     if k != "argument_size_in_bytes")
@@ -166,7 +175,7 @@ def test_grid_records_and_report(tmp_path, capsys):
     assert out.count("| ok |") == 62 and out.count("skipped:") == 18
     table = report.table(recs, "16x16")
     assert len(table.splitlines()) == 2 + 40
-    assert "| n/c |" in table
+    assert "| coll s |" in table and "| n/c |" not in table
 
 
 def test_wire_bytes_are_parse_hlo_s():
