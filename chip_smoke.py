@@ -105,8 +105,9 @@ Phases (any mismatch raises, and the script exits non-zero):
     CIDER with ``wc_off``, ``cas_off`` and 3 MN replicas, and the two crash
     configurations of ``tests/test_substrates.py``: every ``SimResult``
     field equal to ``SIM_PINS`` (pinned from the JAX reference by
-    ``tests/test_torch_sim_pins.py``), wall time and ms a tick each;
-    256 ticks eagerly and through the graphs from one full-width state in
+    ``tests/test_torch_sim_pins.py``; every run through
+    ``examples_torch/cider_sim_figures.py``'s ``sweep``), wall time and ms
+    a tick each; 256 ticks eagerly and through the graphs from one full-width state in
     all 4 modes, every ``SimState`` field equal; ms a tick by replay and
     eagerly, kernels a tick and the idle share of one profiled replay;
     replays and an engine window loop under
@@ -192,10 +193,26 @@ Phases (any mismatch raises, and the script exits non-zero):
     then within its rounding of them (512 bytes, and up to 1 MiB of
     unsplit remainder, a block).
 
+17. the reference's drivers (``examples_torch/*.py``, the counterparts of
+    ``examples/*.py``, and ``tools/analyze_torch.py``), each ``main`` in
+    this process on the card: quickstart (YCSB A-F x 4 modes, the modeled
+    Mops/s == ``QUICKSTART_MOPS``), dynamic_contention (16 windows of
+    pess, wc, credit mass and p99 == ``DYNAMIC_ROWS``), crash_recovery
+    (repair CAS and p99 a window and a mode == ``CRASH_WINDOWS``,
+    ``CRASH_SUMMARY``; the 2-shard failover's bill bit-equal to the single
+    device run, its reown reads == ``CRASH_FAILOVER``), serve_kv_cache
+    (stats == ``SERVE_KV_STATS``), train_lm (200 steps into a fresh
+    checkpoint directory, the loss falling; its first steps on the CPU from
+    the card's weights and batches within ``TRAIN_TOL``'s loss rtol) and
+    analyze_torch (all three passes clean on the card); the pins are the
+    reference examples' (``tests/test_torch_examples.py``).  Each driver's
+    seconds.  cider_sim_figures runs no new point here: phase 13's pinned
+    runs (its ``base_{mode}_{48,512}`` among them) go through its ``sweep``.
+
 Phases 7-12 print the wall time and peak device memory of their runs and
 the idle share of one profiled rerun each (phase 12: of its YCSB-A and
 hotspot runs only).  Every phase prints its time.  The launch counters
-are zeroed just before phase 2 and read after phase 16; every kernel must have launched in that run, in
+are zeroed just before phase 2 and read after phase 17; every kernel must have launched in that run, in
 the phases that run it, and every head-dim instance of the attention
 kernels and ``wc_combine`` from the MoE dispatch (a launch tag) in phase
 14.  A kernel captured into a CUDA graph (phase 13) is counted once at capture, so its replays' launches
@@ -301,6 +318,12 @@ BWD_NEW = (("flash_attention_bwd_d80", "hubert-xlarge", 80, 2, 1024, 16, 16,
             32, True, 0),
            ("flash_attention_bwd_d256", "recurrentgemma-9b", 256, 1, 4096,
             16, 1, True, 2048))
+# phase 17's attention shapes (the smoke qwen3-0.6b: H 4, KH 2, D 32):
+# serve_kv_cache's decode, (label, H, KH, D, page rows = prompt 32 + 6 new
+# tokens), and train_lm's causal training attention, (label, B, S, H, KH, D,
+# causal, window), forward and backward
+SMOKE_PAGED = ("smoke_serve", 4, 2, 32, 38)
+SMOKE_FLASH = ("smoke_train", 8, 64, 4, 2, 32, True, 0)
 for _kernel, _rows in (("flash_attention", FLASH_NEW),
                        ("paged_attention", PAGED_NEW),
                        ("flash_attention_bwd", BWD_NEW)):
@@ -883,13 +906,14 @@ def phase1_attention(dev, card: str) -> dict:
             del q, kp, vp, dk, dv
 
     # flash: the prefill shape (B 2, S 4096, H 16, KH 8, D 128, causal), a
-    # ragged S, no mask, and a 1024-token sliding window (the f32 output
-    # for training is checked with the backward, phase1_backward)
-    for label, s, causal, window in (("prefill", 4096, True, 0),
-                                     ("ragged", 1000, True, 0),
-                                     ("non_causal", 4096, False, 0),
-                                     ("window", 4096, True, 1024)):
-        b, h, kh, d = 2, 16, 8, 128
+    # ragged S, no mask, a 1024-token sliding window, and the training
+    # shape of phase 17's train_lm (SMOKE_FLASH; the f32 output for
+    # training is checked with the backward, phase1_backward)
+    for label, b, s, h, kh, d, causal, window in (
+            ("prefill", 2, 4096, 16, 8, 128, True, 0),
+            ("ragged", 2, 1000, 16, 8, 128, True, 0),
+            ("non_causal", 2, 4096, 16, 8, 128, False, 0),
+            ("window", 2, 4096, 16, 8, 128, True, 1024), SMOKE_FLASH):
         for dtype in (torch.bfloat16, torch.float32):
             q = _randn((b, h, s, d), dtype, dev, 4)
             k = _randn((b, kh, s, d), dtype, dev, 5)
@@ -1052,6 +1076,30 @@ def phase1_attention(dev, card: str) -> dict:
                     f"{plain_call:.5f} / {lib_call:.5f} ms; bound "
                     f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{card}]")
                 del q, kp, vp
+
+    # phase 17's serve_kv_cache decode (SMOKE_PAGED): B 1, one page of
+    # smax rows, every length 1-smax
+    label, h, kh, d, span = SMOKE_PAGED
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _randn((1, h, d), dtype, dev, 13)
+        kp = _randn((1, span, kh, d), dtype, dev, 14)
+        vp = _randn((1, span, kh, d), dtype, dev, 15)
+        err = 0.0
+        for n in range(1, span + 1):
+            ln = torch.full((1,), n, dtype=torch.int32, device=dev)
+            got, plan = planned(f"{label} {dtype}",
+                                lambda: pa.paged_attention_cuda(q, kp, vp, bt,
+                                                                ln),
+                                1, kh, h // kh, span)
+            err = max(err, compare(
+                "paged_attention", got,
+                pa.paged_attention_ref(q, kp, vp, bt, ln), dtype,
+                f"{label} length {n} {dtype}"))
+        say(f"  paged_attention {label} B1 H{h} KH{kh} D{d} page {span} x 1 "
+            f"({plan}), lengths 1-{span}, {dtype}: max |diff| {err:.3g} "
+            f"[{card}]")
+        del q, kp, vp
     torch.cuda.empty_cache()
     phase1_backward(dev, card, out)
     return out
@@ -1074,7 +1122,8 @@ BWD_CASES = (("train", 2, 4096, 16, 8, 128, True, 0),
              ("d64", 1, 512, 4, 2, 64, False, 0),
              ("d80", 1, 512, 4, 4, 80, False, 0),
              ("d96", 1, 640, 8, 8, 96, True, 0),
-             ("d256", 1, 1024, 4, 1, 256, True, 256))
+             ("d256", 1, 1024, 4, 1, 256, True, 256),
+             ("smoke_train",) + SMOKE_FLASH[1:])
 
 
 # the entry functions of each design, as the profiler names them
@@ -3192,11 +3241,17 @@ def graph_launches(record: list, out: dict) -> dict:
 
 
 def sim_pinned_runs(dev, card: str, streams: dict) -> dict:
-    """Every SIM_RUNS run through ``run_sim`` (CUDA graphs), each result
-    equal to its pin; returns the replays' extra launches by kernel."""
+    """Every SIM_RUNS run through ``examples_torch/cider_sim_figures.py``'s
+    ``sweep`` (``run_sim``, CUDA graphs) at its one client count and mode,
+    each result equal to its pin; returns the replays' extra launches by
+    kernel."""
     import torch
     from repro_torch.core import sim
     from repro_torch.core.types import SyncMode
+    figures = load_driver("examples_torch/cider_sim_figures.py")
+    check(figures.params() == sim.SimParams(**SIM_BASE)
+          and (figures.WORKLOAD, figures.N_KEYS) == SIM_WI,
+          "cider_sim_figures' size is not SIM_BASE's")
     extra: dict = {}
     for name, (over, mode, workload, clients) in SIM_RUNS.items():
         p, st = sim_streams(dev, over, workload, streams)
@@ -3204,7 +3259,8 @@ def sim_pinned_runs(dev, card: str, streams: dict) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        r = sim.run_sim(p, SyncMode[mode], st, clients, record=record)
+        r = figures.sweep(p, st, clients=(clients,), modes=(SyncMode[mode],),
+                          record=record)[clients][mode]
         wall = time.perf_counter() - t0
         got, want = dataclasses.asdict(r), SIM_PINS[name]
         for field, v in want.items():
@@ -4540,6 +4596,209 @@ def phase16_dist(dev, card: str, mem15: dict, grid: DryrunGrid) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the reference's drivers (examples_torch/*.py and
+# tools/analyze_torch.py, the counterparts of examples/*.py and
+# tools/analyze.py), each main() on the card.  Their rows are pinned from
+# the reference's examples by tests/test_torch_examples.py, which holds the
+# port's rows on the CPU to the same values.  cider_sim_figures adds no run
+# here: phase 13's pinned runs (its base_{mode}_{48,512} among them) go
+# through its sweep.  Their attention shapes (the smoke qwen3-0.6b's D 32)
+# are phase 1's SMOKE_PAGED, SMOKE_FLASH and BWD_CASES' "smoke_train".
+# ---------------------------------------------------------------------------
+# quickstart: workload -> (ops, modeled Mops/s of OSYNC, SPIN, MCS, CIDER)
+QUICKSTART_MOPS = {"A": (3072, (8.4825, 7.5758, 9.4989, 10.4312)),
+                   "B": (3072, (15.442, 14.6722, 14.8968, 15.4736)),
+                   "C": (3072, (16.0, 16.0, 16.0, 16.0)),
+                   "D": (3072, (15.6112, 15.6112, 15.6112, 15.6112)),
+                   "E": (3072, (1.2319, 0.9338, 0.9338, 1.8097)),
+                   "F": (3072, (10.5363, 9.2002, 10.8563, 12.0367))}
+# dynamic_contention, a window a row: updates, pessimistic updates, combined
+# updates, credit mass, p99 (us, to the printed 0.1)
+DYNAMIC_ROWS = ((261, 0, 17, 0, 189.4), (262, 0, 16, 432, 175.1),
+                (244, 153, 142, 339, 57.2), (262, 167, 156, 275, 57.5),
+                (258, 174, 160, 266, 57.3), (266, 182, 166, 207, 57.4),
+                (269, 188, 171, 206, 57.3), (240, 173, 156, 169, 55.5),
+                (261, 61, 60, 140, 145.0), (245, 49, 52, 422, 136.6),
+                (258, 159, 143, 307, 56.3), (245, 180, 164, 177, 55.4),
+                (264, 176, 157, 103, 57.4), (251, 167, 151, 130, 55.3),
+                (275, 188, 171, 101, 57.7), (273, 187, 169, 132, 57.5))
+# crash_recovery: mode -> a window a row (repair CAS, p99 us to the printed
+# 1); mode -> (repair CAS, windows to repair, post-crash p99); the failover
+CRASH_WINDOWS = {
+    "SPIN": ((0, 445), (0, 444), (0, 440), (0, 443), (0, 437), (0, 441),
+             (0, 443), (0, 443), (900, 873), (6, 338), (24, 391), (0, 331),
+             (12, 347), (0, 331), (0, 330), (0, 333)),
+    "MCS": ((0, 531), (0, 532), (0, 529), (0, 531), (0, 528), (0, 530),
+            (0, 530), (0, 530), (62, 8655), (1, 407), (5, 451), (0, 398),
+            (2, 416), (0, 399), (0, 399), (0, 399)),
+    "CIDER": ((0, 432), (0, 426), (0, 59), (0, 60), (0, 58), (0, 59),
+              (0, 60), (0, 59), (15, 566), (0, 49), (0, 49), (0, 49),
+              (0, 49), (0, 49), (0, 49), (0, 49))}
+CRASH_SUMMARY = {"SPIN": (942, 8, 689), "MCS": (70, 8, 8413),
+                 "CIDER": (15, 1, 561)}
+CRASH_FAILOVER = {"dead_shards": [1], "reown_reads": 1024}
+# serve_kv_cache: the reference example's scheduler stats
+SERVE_KV_STATS = {"prefix_hits": 11, "prefix_misses": 13, "admitted": 12,
+                  "completed": 12}
+TRAIN_LM_CPU_STEPS = 3     # train_lm's first steps replayed on the CPU
+
+
+def load_driver(rel: str):
+    """A driver file of the checkout (``examples_torch/<name>.py``,
+    ``tools/analyze_torch.py``) as a module."""
+    import importlib.util
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(
+        "driver_" + path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quiet_main(mod, argv: list):
+    """``mod.main(argv)`` with its table kept for the log's tail."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    return out, buf.getvalue()
+
+
+def drive_quickstart(dev, card: str) -> None:
+    rows, text = quiet_main(load_driver("examples_torch/quickstart.py"),
+                            ["--device", str(dev)])
+    got = {r["workload"]: (r["n_ops"], tuple(r["mops"])) for r in rows}
+    check(got == QUICKSTART_MOPS, f"quickstart {got} != {QUICKSTART_MOPS}")
+    say("  quickstart: modeled Mops/s == QUICKSTART_MOPS (A-F x OSYNC, SPIN, "
+        "MCS, CIDER):\n    " + "\n    ".join(text.strip().splitlines()[:7]))
+
+
+def drive_dynamic(dev, card: str) -> None:
+    rows, _ = quiet_main(load_driver("examples_torch/dynamic_contention.py"),
+                         ["--device", str(dev)])
+    check(len(rows) == len(DYNAMIC_ROWS), f"dynamic rows {len(rows)}")
+    for r, pin in zip(rows, DYNAMIC_ROWS):
+        got = (r["updates"], r["pess"], r["wc"], r["credits"])
+        check(got == pin[:4] and f"{r['p99_us']:.1f}" == f"{pin[4]:.1f}",
+              f"dynamic window {r['window']}: {got}, p99 {r['p99_us']:.1f}; "
+              f"pinned {pin}")
+    say(f"  dynamic_contention: 16 windows (pess, wc, credit mass, p99) == "
+        f"DYNAMIC_ROWS; pess% {[round(100 * r['pess'] / r['updates'], 1) for r in rows]}")
+
+
+def drive_crash(dev, card: str) -> None:
+    out, _ = quiet_main(load_driver("examples_torch/crash_recovery.py"),
+                        ["--device", str(dev)])
+    for mode, pins in CRASH_WINDOWS.items():
+        for w, ((rep, p99), cells) in enumerate(zip(pins, out["windows"])):
+            got = cells[mode]
+            check(got[0] == rep and f"{got[1]:.0f}" == f"{p99:.0f}",
+                  f"crash_recovery {mode} window {w}: {got}, pinned "
+                  f"{(rep, p99)}")
+        s = out["summary"][mode]
+        pin = CRASH_SUMMARY[mode]
+        check((s["repair_cas"], s["windows_to_repair"]) == pin[:2]
+              and f"{s['p99_us']:.0f}" == f"{pin[2]:.0f}",
+              f"crash_recovery {mode} summary {s}, pinned {pin}")
+    check(out["failover"] == CRASH_FAILOVER,
+          f"crash_recovery failover {out['failover']}")
+    say(f"  crash_recovery: repair CAS and p99 a window == CRASH_WINDOWS, "
+        f"summaries == CRASH_SUMMARY {CRASH_SUMMARY}; 2-shard failover "
+        f"{out['failover']}, its bill bit-equal to the single-device run")
+
+
+def drive_serve(dev, card: str) -> None:
+    stats, _ = quiet_main(load_driver("examples_torch/serve_kv_cache.py"),
+                          ["--device", str(dev)])
+    check(stats == SERVE_KV_STATS, f"serve_kv_cache {stats}")
+    say(f"  serve_kv_cache: stats {stats} == SERVE_KV_STATS")
+
+
+def drive_train(dev, card: str) -> None:
+    """The example's 200 steps into a fresh checkpoint directory (losses
+    finite, falling by the example's own assert), then its first
+    ``TRAIN_LM_CPU_STEPS`` steps on the CPU from the card's initial weights
+    and batches, losses within ``TRAIN_TOL``'s rtol."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import adamw_init, tree_map
+    ex = load_driver("examples_torch/train_lm.py")
+    ckpt = ROOT / "build" / "phase17_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        losses, _ = quiet_main(ex, ["--device", str(dev), "--ckpt",
+                                    str(ckpt)])
+        saved = train.latest_step(str(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(len(losses) == 200 and all(map(math.isfinite, losses)),
+          f"train_lm losses {losses[:3]}...")
+    check(saved == 200, f"train_lm's last checkpoint is step {saved}")
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8),
+                    device=dev)
+    cpu = Model(cfg, device="cpu")
+    params = tree_map(lambda p: p.cpu(), params)
+    opt = adamw_init(params)
+    got = []
+    for step in range(TRAIN_LM_CPU_STEPS):
+        batch = {k: v.cpu() for k, v in pipe.batch_at(step).items()}
+        params, opt, loss, _, _ = train.train_step(cpu, params, opt, batch,
+                                                   (), 3e-4, False)
+        got.append(float(loss))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, got)]
+    check(max(rel) <= TRAIN_TOL["loss_rtol"],
+          f"train_lm card {losses[:TRAIN_LM_CPU_STEPS]} vs CPU {got}")
+    say(f"  train_lm: 200 steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"checkpoints at 100 and 200; first {TRAIN_LM_CPU_STEPS} losses "
+        f"within {max(rel):.2g} of the CPU's from the card's weights and "
+        f"batches (rtol {TRAIN_TOL['loss_rtol']})")
+
+
+def drive_analyze(dev, card: str) -> None:
+    tool = load_driver("tools/analyze_torch.py")
+    report = ROOT / "build" / tool.DEFAULT_REPORT
+    report.parent.mkdir(parents=True, exist_ok=True)
+    rc, text = quiet_main(tool, ["--device", str(dev), "--report",
+                                 str(report)])
+    rep = json.loads(report.read_text())
+    check(rc == 0 and rep["ok"] and list(rep["passes"]) == [
+        "device_check", "bill_lint", "race_check"],
+        f"analyze_torch exited {rc}:\n{text}")
+    say("  analyze_torch: " + "; ".join(
+        f"{n} clean ({p['seconds']} s)" for n, p in rep["passes"].items())
+        + " on " + str(dev) + "\n    " + "\n    ".join(
+            ln for ln in text.splitlines() if "note:" in ln))
+
+
+DRIVERS = (("quickstart", drive_quickstart),
+           ("dynamic_contention", drive_dynamic),
+           ("crash_recovery", drive_crash),
+           ("serve_kv_cache", drive_serve), ("train_lm", drive_train),
+           ("analyze_torch", drive_analyze))
+
+
+def phase17_drivers(dev, card: str) -> dict:
+    """Each driver's ``main`` on the card, its rows against the pins;
+    returns the seconds each took."""
+    import torch
+    out = {}
+    for name, fn in DRIVERS:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn(dev, card)
+        torch.cuda.synchronize(dev)
+        out[name] = time.perf_counter() - t0
+        say(f"  phase 17 {name}: {out[name]:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4635,7 +4894,9 @@ def main() -> int:
         (16, "the distribution and dry-run layer: split-sequence decode, "
              "the combined embedding gradient, the dry-run grid, memory "
              "accounting", lambda: phase16_dist(dev, card, results[15],
-                                                grid)))
+                                                grid)),
+        (17, "the reference's drivers: examples_torch/*.py and "
+             "tools/analyze_torch.py", lambda: phase17_drivers(dev, card)))
     grid = None
     results = {}
     # a graph's kernels are counted once, at capture: phase 13 returns its
@@ -4665,7 +4926,7 @@ def main() -> int:
                 by_size[n_lanes] = by_size.get(n_lanes, 0) + k
             say(f"  phase 13 launches beyond the captures: {result}")
         mark(n)
-    launches = dict(per_phase[16])
+    launches = dict(per_phase[17])
     say(f"  seconds by phase: {({n: round(t, 1) for n, t in phase_s.items()})}")
     say(f"  main-path launches: {launches}; cumulative after each phase: "
         f"{per_phase}")
@@ -4695,7 +4956,8 @@ def main() -> int:
                            (14, ("wc_combine", "paged_attention",
                                  "flash_attention")),
                            (15, ("flash_attention", "flash_attention_bwd")),
-                           (16, ("wc_combine", "paged_attention"))):
+                           (16, ("wc_combine", "paged_attention")),
+                           (17, tuple(counters))):
         for name in names:
             check(per_phase[phase_n][name] > per_phase[phase_n - 1][name],
                   f"{name} was not launched in phase {phase_n}")

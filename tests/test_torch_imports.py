@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing ``repro_torch`` (every module)
+or one of its drivers (``examples_torch/*.py``, ``tools/analyze_torch.py``)
 loads neither ``jax`` nor the JAX package ``repro``, and no source of the
-port or ``chip_smoke.py`` imports them."""
+port, its drivers or ``chip_smoke.py`` imports them."""
 from __future__ import annotations
 
 import ast
@@ -15,10 +16,22 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+DRIVERS = ("examples_torch/quickstart.py",
+           "examples_torch/dynamic_contention.py",
+           "examples_torch/crash_recovery.py",
+           "examples_torch/cider_sim_figures.py",
+           "examples_torch/serve_kv_cache.py", "examples_torch/train_lm.py",
+           "tools/analyze_torch.py")
+
+
+def _driver_sources() -> list[Path]:
+    return sorted((ROOT / "examples_torch").glob("*.py")) + [
+        ROOT / "tools" / "analyze_torch.py"]
 
 
 def _port_sources() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + _driver_sources())
 
 
 def _forbidden(name: str) -> bool:
@@ -65,6 +78,8 @@ def test_port_sources_exist():
     for cu in ("wc_combine.cu", "scan_probe.cu", "paged_attention.cu",
                "flash_attention.cu", "flash_attention_bwd.cu"):
         assert (PORT / "kernels" / "csrc" / cu).is_file(), cu
+    assert sorted(p.relative_to(ROOT).as_posix()
+                  for p in _driver_sources()) == sorted(DRIVERS)
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -115,4 +130,22 @@ def test_importing_serving_subpackages_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_importing_the_drivers_loads_no_jax():
+    """Each driver, imported from its file, loads neither ``jax`` nor the
+    reference package."""
+    code = (
+        "import importlib.util, sys\n"
+        "for rel in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('d', rel)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, *DRIVERS], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
