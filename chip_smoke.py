@@ -29,9 +29,12 @@ Phases (any mismatch raises, and the script exits non-zero):
    a ragged S, no mask and a 1024-token window, each in bf16 and f32 within
    the tolerances of ``tests/test_kernels.py`` (bf16 also within two ulps);
    then the other families' shapes (``FLASH_NEW``, ``PAGED_NEW``: flash
-   D 80, 96, 256 and deepseek-moe's ungrouped D 128; paged D 96, 256 and
-   the ungrouped D 128, at every length 1-40, and D 256 also over
-   recurrentgemma's 2,048-row ring); kernel, plain, library and bound
+   D 80, 96, 112 (kimi-k2-1t-a32b's prefill, B 1 x S 2048, H 64, KH 8),
+   256 and deepseek-moe's ungrouped D 128; paged D 96, 112, 256 and the
+   ungrouped D 128, at every length 1-40, and D 256 also over
+   recurrentgemma's 2,048-row ring; and at D 128 the group sizes 5, 4
+   and 12 of qwen2.5-32b, minitron-8b and mistral-large-123b, which no
+   later phase runs); kernel, plain, library and bound
    times (a windowed row's library time is SDPA with the mask as a
    boolean ``attn_mask``); the grid each checked paged launch ran, by the
    launcher's report (``counter_plan``), against the host's plan; and the
@@ -45,7 +48,8 @@ Phases (any mismatch raises, and the script exits non-zero):
    f32, no mask, a 1024-token window and a ragged S, a small shape at
    each other head dim, and the other families' training shapes
    (``BWD_NEW``: hubert-xlarge's D 80, phi-3-vision's D 96,
-   recurrentgemma's windowed D 256); kernel, plain, SDPA backward (a
+   recurrentgemma's windowed D 256, kimi-k2-1t-a32b's D 112 at B 1 x S
+   4096, H 64, KH 8); kernel, plain, SDPA backward (a
    window as a boolean ``attn_mask``) and bound times, and the design each
    case ran, checked from the profiler's kernel names (``BWD_ENTRIES``:
    the tensor-core entries in bf16 at every D, with the reduce launch
@@ -100,14 +104,16 @@ Phases (any mismatch raises, and the script exits non-zero):
     MCS, against the single-device run and the oracle.
 
 13. the protocol simulator (``core.sim``, ticks replayed from CUDA graphs):
-    ``run_sim`` at the default ``SimParams`` (1,024 lanes, 32,768 ticks),
+    ``run_sim`` at the default ``SimParams``' width (1,024 lanes) for
+    8,192 of its 32,768 ticks (``SIM_DEFAULT_TICKS``),
     at ``benchmarks/run.py``'s BASE in 4 modes x {48, 512} clients and
     CIDER with ``wc_off``, ``cas_off`` and 3 MN replicas, and the two crash
     configurations of ``tests/test_substrates.py``: every ``SimResult``
     field equal to ``SIM_PINS`` (pinned from the JAX reference by
     ``tests/test_torch_sim_pins.py``; every run through
     ``examples_torch/cider_sim_figures.py``'s ``sweep``), wall time and ms
-    a tick each; 256 ticks eagerly and through the graphs from one full-width state in
+    a tick each; 128 ticks eagerly and through the graphs from one
+    full-width state in
     all 4 modes, every ``SimState`` field equal; ms a tick by replay and
     eagerly, kernels a tick and the idle share of one profiled replay;
     replays and an engine window loop under
@@ -118,18 +124,24 @@ Phases (any mismatch raises, and the script exits non-zero):
     one model at a time (``PHASE14``): ``deepseek-moe-16b`` (prefill B 1 x
     2048), ``mamba2-1.3b`` (B 2 x 4096), ``recurrentgemma-9b`` (B 1 x
     4096), ``hubert-xlarge`` (B 2 x 1024 frames of stub features) and
-    ``phi-3-vision-4.2b`` (576 stub patches + 64 tokens), each prefill's
+    ``phi-3-vision-4.2b`` (576 stub patches + 64 tokens), and
+    ``kimi-k2-1t-a32b`` (D 112, 384 experts; prefill B 1 x 2048) at 1 of
+    its 61 layers (``PHASE14``'s ``n_layers``: one layer's 19.4 B
+    parameters are 36.2 GiB), each prefill's
     flash launches on the design phase 1 holds for its head dim (the
     launcher's report); decode against
     prefill (``DECODE_HELD_AT_DEPTH``: held to the tolerance at full depth
     for moe and vlm, printed for ssm and hybrid, and held for every family
     at 2 layers, the hybrid 6); the decode step's time and idle share;
     ``serve.main`` of every decoder over the default 16 requests at 2
-    layers of full width (the hybrid 6: the stats depend on the request
-    stream alone), its stats equal to ``SERVE_STATS_14``; the card against
-    the CPU at 2
+    layers of full width (the hybrid 6, kimi 1: the stats depend on the
+    request stream alone), its stats equal to ``SERVE_STATS_14``; the card
+    against the CPU at 2
     layers (the hybrid two triples, 6; a forward of 4 x 32 positions and 4
-    decode steps of 64 sequences); the hybrid's ring cache past a 32-token
+    decode steps of 64 sequences; kimi at 1 layer of its attention and
+    expert widths with 16 experts and a 4,096-token vocabulary,
+    ``CPU_CUT``, a forward of 1 x 256); the hybrid's ring cache past a
+    32-token
     window (80 decode steps at 3 layers against its forward).
     MoE comparisons replay one side's expert choices on the other, and
     the choices the other side would have made must agree but for at most
@@ -165,7 +177,10 @@ Phases (any mismatch raises, and the script exits non-zero):
     launches a step and the backwards on the tensor cores (every one, at
     D 80, 96, 128 and 256), the backward's share of the busy time;
     then ``train_vs_cpu`` at 2 layers (the hybrid 6), B 1 x S 256, the MoE
-    replaying the CPU's expert choices.
+    replaying the CPU's expert choices.  No step trains kimi-k2-1t-a32b at
+    width (one layer with AdamW is about 410 GB); its head dim 112 trains
+    through ``train_vs_cpu`` at its smoke config with ``head_dim`` 112
+    (``TRAIN_D112``), the backward's D-112 instance on the card.
 
 16. the distribution and dry-run layer: (a) ``decode_attention_spmd`` at
     decode_32k (B 8, qwen3's H 16, KH 8, D 128, Smax 32,768, bf16,
@@ -226,6 +241,7 @@ import atexit
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -264,11 +280,13 @@ SERVE_STATS = {"prefix_hits": 15, "prefix_misses": 17, "admitted": 16,
 # MoE dispatch's T * k with deepseek-moe-16b's k = 6: 6 a one-token decode
 # step, 48 a decode step of 8 sequences, 288 and 384 one sequence's
 # 48-token prefill and 64-token forward, 384 also a decode step of 64
-# sequences, 768 a forward of 128 tokens, 12,288 a 2,048-token prefill)
-# and 2^20
-SWEEP_SIZES = (1, 2, 3, 6, 48, 64, 256, 288, 384, 511, 512, 513, 514, 768,
-               1000, 1023, 1024, 1025, 2047, 2048, 2049, 4095, 4096, 4097,
-               4098, 4352, 8192, 9692, 12288, 34816, 69632, 1 << 20)
+# sequences, 768 a forward of 128 tokens, 12,288 a 2,048-token prefill;
+# kimi-k2-1t-a32b's k = 8: 8 a serve's decode step, 16,384 a 2,048-token
+# prefill) and 2^20
+SWEEP_SIZES = (1, 2, 3, 6, 8, 48, 64, 256, 288, 384, 511, 512, 513, 514,
+               768, 1000, 1023, 1024, 1025, 2047, 2048, 2049, 4095, 4096,
+               4097, 4098, 4352, 8192, 9692, 12288, 16384, 34816, 69632,
+               1 << 20)
 SWEEP_TIMED = (1, 6, 1024, 4096, 12288, 34816, 69632, 1 << 20)
 KERNEL_META = {
     "wc_combine": dict(source="src/repro_torch/kernels/csrc/wc_combine.cu",
@@ -298,7 +316,11 @@ ATTN_META = {
 # phase 14's models' attention shapes, each a row of the kernel table:
 # flash (row, model, D, B, S, H, KH, causal, window) and paged (row, model,
 # D, H, KH; B 1, one 40-row page, every length 1-40).  deepseek-moe-16b
-# runs D 128 without grouping (KH = H), beside qwen3-0.6b's grouped rows.
+# runs D 128 without grouping (KH = H), beside qwen3-0.6b's grouped rows;
+# kimi-k2-1t-a32b D 112 with 8 query heads a kv head.  The "_g" rows hold
+# the group sizes of the registered configs no phase serves (qwen2.5-32b
+# 5, minitron-8b 4, mistral-large-123b 12) at D 128, kernel level only:
+# their launches are the D-128 instance's.
 FLASH_NEW = (("flash_attention_d80", "hubert-xlarge", 80, 2, 1024, 16, 16,
               False, 0),
              ("flash_attention_d96", "phi-3-vision-4.2b", 96, 1, 640, 32, 32,
@@ -306,18 +328,34 @@ FLASH_NEW = (("flash_attention_d80", "hubert-xlarge", 80, 2, 1024, 16, 16,
              ("flash_attention_d256", "recurrentgemma-9b", 256, 1, 4096, 16,
               1, True, 2048),
              ("flash_attention_d128_mha", "deepseek-moe-16b", 128, 1, 2048,
-              16, 16, True, 0))
+              16, 16, True, 0),
+             ("flash_attention_d112", "kimi-k2-1t-a32b", 112, 1, 2048, 64, 8,
+              True, 0),
+             ("flash_attention_d128_g5", "qwen2.5-32b", 128, 1, 1024, 40, 8,
+              True, 0),
+             ("flash_attention_d128_g4", "minitron-8b", 128, 1, 1024, 32, 8,
+              True, 0),
+             ("flash_attention_d128_g12", "mistral-large-123b", 128, 1, 1024,
+              96, 8, True, 0))
 PAGED_NEW = (("paged_attention_d96", "phi-3-vision-4.2b", 96, 32, 32),
              ("paged_attention_d256", "recurrentgemma-9b", 256, 16, 1),
-             ("paged_attention_d128_mha", "deepseek-moe-16b", 128, 16, 16))
+             ("paged_attention_d128_mha", "deepseek-moe-16b", 128, 16, 16),
+             ("paged_attention_d112", "kimi-k2-1t-a32b", 112, 64, 8),
+             ("paged_attention_d128_g5", "qwen2.5-32b", 128, 40, 8),
+             ("paged_attention_d128_g4", "minitron-8b", 128, 32, 8),
+             ("paged_attention_d128_g12", "mistral-large-123b", 128, 96, 8))
 # phase 15's families' attention backwards, at each model's training shape
-# (the rows of FLASH_NEW: row, model, D, B, S, H, KH, causal, window)
+# (the rows of FLASH_NEW: row, model, D, B, S, H, KH, causal, window), and
+# kimi-k2-1t-a32b's D 112 at B 1 x S 4096, which phase 15 trains only at
+# the smoke config's widths (TRAIN_D112)
 BWD_NEW = (("flash_attention_bwd_d80", "hubert-xlarge", 80, 2, 1024, 16, 16,
             False, 0),
            ("flash_attention_bwd_d96", "phi-3-vision-4.2b", 96, 1, 640, 32,
             32, True, 0),
            ("flash_attention_bwd_d256", "recurrentgemma-9b", 256, 1, 4096,
-            16, 1, True, 2048))
+            16, 1, True, 2048),
+           ("flash_attention_bwd_d112", "kimi-k2-1t-a32b", 112, 1, 4096, 64,
+            8, True, 0))
 # phase 17's attention shapes (the smoke qwen3-0.6b: H 4, KH 2, D 32):
 # serve_kv_cache's decode, (label, H, KH, D, page rows = prompt 32 + 6 new
 # tokens), and train_lm's causal training attention, (label, B, S, H, KH, D,
@@ -1001,12 +1039,13 @@ def phase1_attention(dev, card: str) -> dict:
                          flops, dtype)
             row.update(design=design, ms_by_entry=entries,
                        library_kernel=lib_kernel)
-            if design == "tensor cores" and d == 256:
-                # the two-stage geometry: its registers (ptxas -v, when
-                # this run built the library) and shared memory
-                row.update(ptxas=PTXAS.get("flash_fwd_bf16<D=256>"),
+            if design == "tensor cores" and d in (112, 256):
+                # D 256's two-stage geometry and D 112's zero-padded
+                # boxes: registers (ptxas -v, when this run built the
+                # library) and shared memory
+                row.update(ptxas=PTXAS.get(f"flash_fwd_bf16<D={d}>"),
                            smem_bytes=FLASH_SMEM_BF16[d])
-                say(f"  {name}: flash_fwd_bf16<D=256> ptxas {row['ptxas']}, "
+                say(f"  {name}: flash_fwd_bf16<D={d}> ptxas {row['ptxas']}, "
                     f"{row['smem_bytes']} B of dynamic shared memory")
             if dtype == torch.bfloat16:
                 out[name].update(row)
@@ -1238,7 +1277,13 @@ def phase1_backward(dev, card: str, out: dict) -> None:
                   f"{lse_err}")
             del lse_ref, o16
             plans0 = dict(fa.counter_bwd_plan.by_size)
+            tc0 = fa.counter_bwd_tc.count
             got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            ran = ("tensor cores" if fa.counter_bwd_tc.count > tc0
+                   else "CUDA cores")
+            check(ran == bwd_design(dname, d),
+                  f"flash_attention_bwd {label} {dname}: the launcher ran "
+                  f"the {ran}, expected the {bwd_design(dname, d)}")
             plans = new_plans(fa, plans0)
             check(len(plans) == 1, f"flash_attention_bwd {label} {dname}: "
                                    f"plans {plans}")
@@ -3089,19 +3134,24 @@ def phase12_sharded(dev, card: str, n_keys: int, windows: int, batch: int,
 # ---------------------------------------------------------------------------
 # The pinned runs of the port's run_sim (1,000,000 keys, seed 0, write-
 # intensive unless said): the default SimParams (full width: 1,024 lanes,
-# 2^14 key slots, 32,768 ticks); benchmarks/run.py's BASE (Figs 11-12) in
+# 2^14 key slots) for 8,192 ticks; benchmarks/run.py's BASE (Figs 11-12) in
 # all four modes at 48 and 512 clients; BASE CIDER at 512 clients with
 # wc_off, with cas_off (Fig 20) and with 3 MN replicas; and the two crash
 # configurations of tests/test_substrates.py (MCS, one key, 16 clients).
 # tests/test_torch_sim_pins.py proves that the JAX reference gives SIM_PINS.
 
 SIM_BASE = dict(n_lanes=512, ticks=8192, max_ops=1024)
+# the default SimParams' run cut to 8,192 of its 32,768 ticks (its 1,024
+# lanes and 2^14 key slots kept): the whole script took 1,037.9 s with the
+# 32,768 (run 28d, H100 80GB HBM3 at 700 W), past its 1,000 s target
+SIM_DEFAULT_TICKS = 8192
 SIM_CRASH = dict(n_lanes=64, ticks=6144, max_ops=512, fail_tick=600,
                  max_wait=512, lanes_per_cn=1, local_wc=False)
 SIM_WI = ("write-intensive", 1_000_000)
 # name -> (SimParams overrides, mode, (workload, keys), clients)
 SIM_RUNS = {
-    "default_CIDER_512": ({}, "CIDER", SIM_WI, 512),
+    "default_CIDER_512": (dict(ticks=SIM_DEFAULT_TICKS), "CIDER", SIM_WI,
+                          512),
     **{f"base_{m}_{nc}": (SIM_BASE, m, SIM_WI, nc)
        for m in MODES for nc in (48, 512)},
     "base_CIDER_512_wc_off": (dict(SIM_BASE, wc_off=True), "CIDER", SIM_WI,
@@ -3117,12 +3167,12 @@ SIM_RUNS = {
 }
 SIM_PINS = {
     'default_CIDER_512': dict(
-        mode='CIDER', n_clients=512, ticks=32768, ops_done=402530,
-        throughput_mops=12.28424072265625, p50_us=36.0, p99_us=148.0,
-        retries=24839, mn_iops_used=1048954, cn_msgs=33659,
-        wc_rate=0.12364560884289559, wc_rate_local=0.0,
-        wc_rate_global=0.12364560884289559, avg_batch=8.305865102639297,
-        pess_ratio=0.15546573179330825, ideal_pess_ratio=0.02432690111330705,
+        mode='CIDER', n_clients=512, ticks=8192, ops_done=98722,
+        throughput_mops=12.051025390625, p50_us=32.0, p99_us=152.0,
+        retries=11387, mn_iops_used=262505, cn_msgs=6966,
+        wc_rate=0.10597490014800397, wc_rate_local=0.0,
+        wc_rate_global=0.10597490014800397, avg_batch=8.93202416918429,
+        pess_ratio=0.1294527907872595, ideal_pess_ratio=0.0451716237860633,
         deadlocks=0),
     'base_OSYNC_48': dict(
         mode='OSYNC', n_clients=48, ticks=8192, ops_done=64573,
@@ -3212,7 +3262,7 @@ SIM_PINS = {
         wc_rate_local=0.0, wc_rate_global=0.0, avg_batch=0.0, pess_ratio=1.0,
         ideal_pess_ratio=0.0, deadlocks=13),
 }
-SIM_EAGER_TICKS = 256      # ticks run eagerly and graphed from one state
+SIM_EAGER_TICKS = 128      # ticks run eagerly and graphed from one state
 
 
 def sim_streams(dev, over: dict, workload: tuple, cache: dict):
@@ -3411,15 +3461,20 @@ def phase13_sim(dev, card: str) -> dict:
 # phase 14: the other model families at full width
 # ---------------------------------------------------------------------------
 # One registered model of each family beside dense, at its published width
-# and depth (random weights from a seeded generator on the card), loaded one
-# at a time and freed before the next: arch -> the prefill's batch and
-# length (text tokens; hubert's are frames, phi-3-vision's follow its 576
-# patches).
-PHASE14 = {"deepseek-moe-16b": dict(batch=1, seq=2048),
-           "mamba2-1.3b": dict(batch=2, seq=4096),
-           "recurrentgemma-9b": dict(batch=1, seq=4096),
-           "hubert-xlarge": dict(batch=2, seq=1024),
-           "phi-3-vision-4.2b": dict(batch=1, seq=64)}
+# and depth (random weights from a seeded generator on the card), and
+# kimi-k2-1t-a32b, the registry's one head dim 112, loaded one at a time
+# and freed before the next: arch -> the prefill's batch and length (text
+# tokens; hubert's are frames, phi-3-vision's follow its 576 patches) and
+# the depth run: None for the published one, else the deepest whose
+# weights and prefill peak under TRAIN_PEAK_GIB (kimi: one layer's 19.4 B
+# parameters are 36.2 GiB in bf16, two 68.0 GiB before activations;
+# PERF.md's cut list).
+PHASE14 = {"deepseek-moe-16b": dict(batch=1, seq=2048, n_layers=None),
+           "kimi-k2-1t-a32b": dict(batch=1, seq=2048, n_layers=1),
+           "mamba2-1.3b": dict(batch=2, seq=4096, n_layers=None),
+           "recurrentgemma-9b": dict(batch=1, seq=4096, n_layers=None),
+           "hubert-xlarge": dict(batch=2, seq=1024, n_layers=None),
+           "phi-3-vision-4.2b": dict(batch=1, seq=64, n_layers=None)}
 # the reference serve's stats for each decoder's default stream (16
 # requests over that model's vocabulary), pinned by
 # tests/test_torch_serving.py from the JAX scheduler
@@ -3432,6 +3487,12 @@ SERVE_STATS_14 = {arch: dict(SERVE_STATS) for arch in PHASE14
 DECODE_HELD_AT_DEPTH = ("moe", "vlm")
 # card vs CPU depth: 2 layers, the hybrid two (rec, rec, attn) triples
 CPU_LAYERS = {"hybrid": 6}
+# card vs CPU where the host cannot run a layer at full width: the config's
+# fields replaced (kimi keeps its attention and expert widths, d 7,168, 64
+# x 112 heads, KH 8, d_ff 2,048, top-8 + 1 shared, over 16 experts and a
+# 4,096-token vocabulary, 1 layer) and the forward's batch and length
+CPU_CUT = {"kimi-k2-1t-a32b": dict(
+    cfg=dict(n_layers=1, n_experts=16, vocab=4096), batch=1, seq=256)}
 # a replayed MoE routing: the share of token-layer expert choices the run
 # would have made otherwise may not pass this (1.2-4 % measured on the
 # card at full width)
@@ -3569,24 +3630,28 @@ def decode_vs_prefill(cfg, model, params, dev, card: str,
 
 def card_vs_cpu(cfg, dev, card: str) -> None:
     """At full width, depth cut to 2 layers (the hybrid to two triples,
-    6): decode against prefill on the card, held to the tolerance; then
-    the same weights on the card and on the CPU: a forward of 32 positions
-    of 4 sequences (hubert: frames; phi-3-vision: one sequence of its 576
-    patches + 32 tokens) and 4 decode steps of 64 sequences from a zero
-    state, the CPU run's MoE routing replayed on the card and the card's
-    own choices held to ``check_flips``.  At least 128 positions each (see
+    6), or as ``CPU_CUT`` says: decode against prefill on the card, held
+    to the tolerance; then the same weights on the card and on the CPU: a
+    forward of 32 positions of 4 sequences (hubert: frames; phi-3-vision:
+    one sequence of its 576 patches + 32 tokens; ``CPU_CUT``'s batch and
+    length) and 4 decode steps of 64 sequences from a zero state, the CPU
+    run's MoE routing replayed on the card and the card's own choices held
+    to ``check_flips``.  At least 128 positions each (see
     ``decode_vs_prefill``): on the CPU an MoE layer costs its experts' full
     capacity of 128 rows whatever the batch."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.models.model import Model
     from repro_torch.models.moe import pinned_routing
-    cut = dataclasses.replace(cfg, n_layers=CPU_LAYERS.get(cfg.family, 2))
+    over = CPU_CUT.get(cfg.name, {})
+    cut = dataclasses.replace(cfg, **{
+        "n_layers": CPU_LAYERS.get(cfg.family, 2), **over.get("cfg", {})})
     mg = Model(cut, device=dev)
     pg = mg.init(torch.Generator(device=dev).manual_seed(5))
     mc, pc = Model(cut, device="cpu"), _tree_to(pg, "cpu")
-    toks, feats = _family_inputs(cut, 1 if cut.frontend == "vision" else 4,
-                                 32, torch.Generator(device=dev).manual_seed(6))
+    toks, feats = _family_inputs(
+        cut, over.get("batch", 1 if cut.frontend == "vision" else 4),
+        over.get("seq", 32), torch.Generator(device=dev).manual_seed(6))
     moe = cfg.family == "moe"
     t0 = time.perf_counter()
     rec = []
@@ -3599,8 +3664,11 @@ def card_vs_cpu(cfg, dev, card: str) -> None:
     if cut.has_decode:
         decode_vs_prefill(cut, mg, pg, dev, card)
     err, agree = _logits_close(lg, lc, f"{cfg.name} forward card vs CPU")
+    cuts = {k: (getattr(cfg, k), v) for k, v in over.get("cfg", {}).items()
+            if k != "n_layers"}
     msg = (f"  card vs CPU (n_layers cut {cfg.n_layers} -> {cut.n_layers}, "
-           f"full width; forward of {lg.shape[0]} x {lg.shape[1]} positions)"
+           f"full width{f' but {cuts}' if cuts else ''}; forward of "
+           f"{lg.shape[0]} x {lg.shape[1]} positions)"
            f": max |diff| "
            f"{err:.4f}, argmax agreement {agree:.3f}")
     if cut.has_decode:
@@ -3666,9 +3734,10 @@ def ring_wrap(cfg, dev, card: str) -> None:
 
 
 def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
-    """One model of ``PHASE14`` at full width: prefill, decode against
-    prefill, decode step time and idle share, serve, card against CPU
-    (and the hybrid's ring wrap); returns its numbers."""
+    """One model of ``PHASE14`` at full width and the depth ``spec`` names:
+    prefill, decode against prefill, decode step time and idle share,
+    serve, card against CPU (and the hybrid's ring wrap); returns its
+    numbers."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
@@ -3677,21 +3746,35 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
-    cfg = get_config(arch)
+    published = get_config(arch)
+    cfg = (dataclasses.replace(published, n_layers=spec["n_layers"])
+           if spec["n_layers"] else published)
     model = Model(cfg, device=dev)
+    gc.collect()
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     t_model = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(t.numel() for t in _leaves(params))
-    say(f"  {arch} ({cfg.family}; L {cfg.n_layers}, d {cfg.d_model}, H "
-        f"{cfg.n_heads}, KH {cfg.n_kv}, hd {cfg.hd}, vocab {cfg.vocab}): "
-        f"{n_params / 1e9:.3f} B parameters, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, random init on "
+    say(f"  {arch} ({cfg.family}; L {cfg.n_layers}"
+        + (f" of {published.n_layers}" if spec["n_layers"] else "")
+        + f", d {cfg.d_model}, H {cfg.n_heads}, KH {cfg.n_kv}, hd "
+        f"{cfg.hd}, vocab {cfg.vocab}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared} "
+           f"shared" if cfg.family == "moe" else "")
+        + f"): {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({before:.2f} "
+        f"GiB allocated before), random init on "
         f"the card in {time.perf_counter() - t_model:.2f} s, peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    out = {"params_b": n_params / 1e9}
+        f"{init_peak:.2f} GiB (an f32 slab of the largest leaf beside the "
+        f"weights) [{card}]")
+    out = {"params_b": n_params / 1e9, "n_layers": cfg.n_layers,
+           "init_peak_gib": init_peak}
+    check(init_peak <= TRAIN_PEAK_GIB,
+          f"{arch}: the random init peaked at {init_peak:.2f} GiB")
 
     # prefill at the full shape
     b, n = spec["batch"], spec["seq"]
@@ -3699,6 +3782,7 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
                                  torch.Generator(device=dev).manual_seed(1))
     f0, tc0 = dict(fa.counter.by_size), dict(fa.counter_tc.by_size)
     m0 = wcc.counter.by_tag.get("moe_dispatch", 0)
+    torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -3731,6 +3815,9 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
     busy, pwall, top = profile_device(
         lambda: model.prefill(params, toks, feats), iters=1)
     out["prefill_ms"] = walls[-1] * 1e3
+    out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check(out["prefill_peak_gib"] <= TRAIN_PEAK_GIB,
+          f"{arch}: the prefill peaked at {out['prefill_peak_gib']:.2f} GiB")
     say(f"  prefill B {b} x {positions} positions: {walls[-1] * 1e3:.1f} ms "
         f"(first call {walls[0] * 1e3:.1f} ms), "
         f"{b * positions / walls[-1]:.0f} tokens/s, flash_attention D "
@@ -3779,9 +3866,10 @@ def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
     torch.cuda.empty_cache()
 
     if cfg.has_decode:      # serve.main draws its own weights (seed 0)
-        # at the card-vs-CPU depth: the stats depend on the request stream
-        # alone, and the full depth's decode step is timed above
-        depth = CPU_LAYERS.get(cfg.family, 2)
+        # at the card-vs-CPU depth, or the phase's where that is
+        # shallower: the stats depend on the request stream alone, and
+        # the phase's depth's decode step is timed above
+        depth = min(CPU_LAYERS.get(cfg.family, 2), cfg.n_layers)
         n_attn = _n_attn(dataclasses.replace(cfg, n_layers=depth))
         p0 = dict(pa.counter.by_size)
         m0 = wcc.counter.by_tag.get("moe_dispatch", 0)
@@ -3881,6 +3969,11 @@ TRAIN_FAMILY_LR = 3e-5
 # hybrid's bf16 forward differs by more across frameworks, and every leaf
 # of its gradient carries that)
 TRAIN_GRAD_REL = {"hybrid": 6e-2}
+# kimi-k2-1t-a32b's head dim 112 in training: its smoke config (2 layers,
+# d 128, 4 x 2 heads, 8 experts) with head_dim 112, card against CPU
+# (``train_vs_cpu``): the attention backward's D-112 instance on the main
+# path, since no step trains kimi at width on one card
+TRAIN_D112 = dict(arch="kimi-k2-1t-a32b", head_dim=112)
 # leaves a family's loss does not read: the encoder takes frames, not
 # tokens, so its token embedding has no gradient, on the CPU either
 UNUSED_LEAVES = {"encoder": ("embed",)}
@@ -3916,9 +4009,11 @@ def family_batch(cfg, tokens, targets, gen) -> dict:
     return batch
 
 
-def train_vs_cpu(dev, card: str, arch: str = TRAIN["arch"]) -> None:
+def train_vs_cpu(dev, card: str, arch: str = TRAIN["arch"],
+                 cfg=None) -> None:
     """The loss and every gradient leaf of ``arch`` at 2 layers of full
-    width (the hybrid two triples, 6), B 1 x S 256 (``TRAIN_CPU``), on the
+    width (the hybrid two triples, 6), or of the config ``cfg`` at its own
+    depth, B 1 x S 256 (``TRAIN_CPU``), on the
     card against the CPU, on the same weights and batch (within
     ``TRAIN_TOL``; a family's leaves within ``TRAIN_GRAD_REL``); every
     leaf's gradient present and nonzero on the card.  The MoE runs with
@@ -3932,11 +4027,12 @@ def train_vs_cpu(dev, card: str, arch: str = TRAIN["arch"]) -> None:
     from repro_torch.models.moe import pinned_routing
     from repro_torch.train.optimizer import tree_leaves, tree_map
 
-    cfg = get_config(arch)
+    if cfg is None:
+        cfg = get_config(arch)
+        cfg = dc.replace(cfg, n_layers=CPU_LAYERS.get(cfg.family,
+                                                      TRAIN_CPU["n_layers"]))
     moe = cfg.family == "moe"
-    cfg = dc.replace(cfg, n_layers=CPU_LAYERS.get(cfg.family,
-                                                  TRAIN_CPU["n_layers"]),
-                     remat="none" if moe else cfg.remat)
+    cfg = dc.replace(cfg, remat="none" if moe else cfg.remat)
     params = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(3))
     g = torch.Generator(device=dev).manual_seed(4)
@@ -3984,8 +4080,10 @@ def train_vs_cpu(dev, card: str, arch: str = TRAIN["arch"]) -> None:
         rel = float((a.float() - c.float()).norm() / c.float().norm())
         check(rel <= bound, f"{what}: {name} off by {rel:.3g}")
         worst = max(worst, rel)
-    say(f"  {arch} card vs CPU at {cfg.n_layers} layers of full width, B "
-        f"{b} x S {n}: loss {lg:.6f} / {lc:.6f}, {len(gg) - len(unused)} "
+    say(f"  {arch} card vs CPU at {cfg.n_layers} layers of "
+        f"{'the smoke config' if cfg.smoke else 'full width'} (hd "
+        f"{cfg.hd}), B {b} x S {n}: loss {lg:.6f} / {lc:.6f}, "
+        f"{len(gg) - len(unused)} "
         f"gradient leaves all present and nonzero on the card"
         + (f" (and {', '.join(unused)} unread, none on either side)"
            if unused else "")
@@ -4281,6 +4379,20 @@ def phase15_train(dev, card: str) -> dict:
     for arch, spec in TRAIN_FAMILIES.items():
         out["families"][arch] = train_family(dev, card, arch, spec)
         train_vs_cpu(dev, card, arch)
+
+    # head dim 112 (kimi-k2-1t-a32b's) in training, at its smoke config
+    b112, t112 = (fa.counter_bwd.by_size.get(112, 0),
+                  fa.counter_bwd_tc.by_size.get(112, 0))
+    arch = TRAIN_D112["arch"]
+    train_vs_cpu(dev, card, arch, dataclasses.replace(
+        get_config(arch, smoke=True), head_dim=TRAIN_D112["head_dim"]))
+    ran = fa.counter_bwd.by_size.get(112, 0) - b112
+    ran_tc = fa.counter_bwd_tc.by_size.get(112, 0) - t112
+    check(ran > 0 and ran_tc == ran,
+          f"{arch} D 112 training: {ran} flash_attention_bwd D 112 "
+          f"launches on the card, {ran_tc} on the tensor cores")
+    say(f"  {arch} D 112 training on the card: {ran} flash_attention_bwd "
+        f"D 112 launches, all on the tensor cores [{card}]")
     return out
 
 

@@ -8,8 +8,10 @@
 // (and the 32- or 16-column tail boxes at D 96 and 80), the
 // m64nNk16 bf16 products (N up to 256), and register shares by
 // setmaxnreg.  At D 80 and 96 a row is a 64-column box and a tail box of
-// its last 16 or 32 columns (Cols<D>): both flash kernels, forward and
-// backward, load and read their tiles through the same helpers.
+// its last 16 or 32 columns; at D 112 two 64-column boxes, the second
+// reaching 16 columns past the row, which TMA fills with zeros (Cols<D>):
+// both flash kernels, forward and backward, load and read their tiles
+// through the same helpers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
@@ -55,18 +57,19 @@ constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 
 // the head dims at which bf16 runs the tensor-core kernels (every one; f32
 // runs the CUDA cores): both directions load a row of D 80 or 96 as a
-// whole box and a narrower tail box (Cols<D>); at D 256 each direction
+// whole box and a narrower tail box, and one of D 112 as two whole boxes
+// (Cols<D>); at D 256 each direction
 // runs a geometry of its own (Geom<D> of each source): the forward two K/V
 // stages and a producer warpgroup that hands its registers to the
 // consumers, the backward 64-row blocks whose two consumer warpgroups
 // split each tile pair's products between them, since one warpgroup's f32
 // dK and dV of 64 keys x 256 columns would not fit its 240 registers
 template <int D>
-constexpr bool kTensorCoresFwd =
-    D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256;
+constexpr bool kTensorCoresFwd = D == 32 || D == 64 || D == 80 || D == 96 ||
+                                 D == 112 || D == 128 || D == 256;
 template <int D>
-constexpr bool kTensorCoresBwd =
-    D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256;
+constexpr bool kTensorCoresBwd = D == 32 || D == 64 || D == 80 || D == 96 ||
+                                 D == 112 || D == 128 || D == 256;
 
 // the key tiles [lo, hi) of `tile` keys that hold an unmasked key for some
 // query row of [r_lo, r_hi) (r_lo < r_hi <= S)
@@ -84,16 +87,17 @@ constexpr int swizzle_layout(int sw) {
   return sw == 128 ? 1 : sw == 64 ? 2 : 3;
 }
 
-// The box geometry of a bf16 tile with D columns (D 32, 64, 128 or 256):
-// boxes of AC columns (SW bytes a row, swizzled by SW), NB boxes a row;
-// LAYOUT is the wgmma descriptor's code for that swizzle.  A tile of R rows
-// holds its boxes one after another, R * SW bytes each, and starts on a
-// 1024-byte boundary.
+// The box geometry of a bf16 tile with D columns (D 32, 64, 112, 128 or
+// 256): boxes of AC columns (SW bytes a row, swizzled by SW), NB boxes a
+// row (at D 112 the second box's last 16 columns lie past the row: TMA
+// fills them with zeros); LAYOUT is the wgmma descriptor's code for that
+// swizzle.  A tile of R rows holds its boxes one after another, R * SW
+// bytes each, and starts on a 1024-byte boundary.
 template <int D>
 struct Swz {
   static constexpr int SW = D == 32 ? 64 : 128;
   static constexpr int AC = SW / 2;
-  static constexpr int NB = D / AC;
+  static constexpr int NB = (D + AC - 1) / AC;
   static constexpr int LAYOUT = swizzle_layout(SW);
 };
 
@@ -195,18 +199,25 @@ __device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int rows,
 // reads them: a main part of MAIN columns in whole boxes (Swz<MAIN>: 64
 // columns and the 128-byte swizzle, or one 32-column box and the 64-byte
 // swizzle at D 32) and, at D 80 and 96, a tail box of the last TAIL = 16
-// or 32 columns, whose row of TSW = 32 or 64 bytes is its own swizzle.  A
-// tile of R rows holds the main part (R * MAIN * 2 bytes), then the tail
-// box (R * TSW bytes).  Every product runs at the true width: a reduction
-// over D takes MAIN / 16 k-steps through the main part and TAIL / 16
-// through the tail box; a product with N = D is an n-MAIN product and an
-// n-TAIL one into an accumulator of its own.
+// or 32 columns, whose row of TSW = 32 or 64 bytes is its own swizzle.  At
+// D 112 the last 48 columns (96 bytes) have no swizzle of their width, so
+// the main part is all 112 in two 64-column boxes, the second of which TMA
+// fills past column 111 with zeros.  A tile of R rows holds the main part
+// (R * MAIN_BYTES bytes), then the tail box (R * TSW bytes).  Every
+// product runs at the true width: a reduction over D takes MAIN / 16
+// k-steps through the main part and TAIL / 16 through the tail box (the
+// zero columns are never read); a product with N = D is an n-MAIN product
+// (n112 reads the second box's first 48 columns) and an n-TAIL one into
+// an accumulator of its own.
 template <int D>
 struct Cols {
-  static constexpr int MAIN = D == 32 ? 32 : D / 64 * 64;
+  static constexpr int MAIN = D == 32 || D % 64 == 48 ? D : D / 64 * 64;
   static constexpr int TAIL = D - MAIN;
   static constexpr int TSW = 2 * TAIL;
   static constexpr int TLAYOUT = swizzle_layout(TSW);
+  // a row of the main part, and of the whole tile, in shared memory
+  static constexpr int MAIN_BYTES = Swz<MAIN>::NB * Swz<MAIN>::SW;
+  static constexpr int ROW_BYTES = MAIN_BYTES + TSW;
   static_assert(TAIL == 0 || TAIL == 16 || TAIL == 32,
                 "a tail box of 16 or 32 columns");
 };
@@ -222,7 +233,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
   using C = Cols<D>;
   tma_tile<C::MAIN>(dst, map, bar, rows, row, head, batch);
   if constexpr (C::TAIL > 0)
-    tma_load(dst + rows * C::MAIN * 2, tail, bar, 0, row, head, batch);
+    tma_load(dst + rows * C::MAIN_BYTES, tail, bar, 0, row, head, batch);
 }
 
 // Columns 16 kk .. 16 kk + 15 of the 64 rows at `rows0` of a tail box, as
@@ -338,6 +349,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[0..56) += A (64 x 16, registers) * B (16 x 112, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[0..64) += A (64 x 16, registers) * B (16 x 128, shared, N-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
                                              uint64_t db) {
@@ -412,6 +448,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t* a,
   if constexpr (D == 16) wgmma_rs_n16(d, a, db);
   if constexpr (D == 32) wgmma_rs_n32(d, a, db);
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (D == 112) wgmma_rs_n112(d, a, db);
   if constexpr (D == 128) wgmma_rs_n128(d, a, db);
   if constexpr (D == 256) wgmma_rs_n256(d, a, db);
 }
@@ -424,7 +461,7 @@ struct Rows64 {
   __device__ __forceinline__ Rows64(uint32_t tile, int rows, int row) {
     using C = Cols<D>;
     main = tile + row * Swz<C::MAIN>::SW;
-    tail = tile + rows * C::MAIN * 2 + row * C::TSW;
+    tail = tile + rows * C::MAIN_BYTES + row * C::TSW;
   }
 };
 
@@ -463,7 +500,7 @@ __device__ __forceinline__ void wgmma_rs_d(
   wgmma_rs<C::MAIN>(acc, lo, b);
   if constexpr (C::TAIL > 0) {
     const uint64_t bt =
-        desc_tail_nmajor<D>(tile + rows * C::MAIN * 2, rows, kk);
+        desc_tail_nmajor<D>(tile + rows * C::MAIN_BYTES, rows, kk);
     wgmma_rs<C::TAIL>(acc_t, hi, bt);
     wgmma_rs<C::TAIL>(acc_t, lo, bt);
   }
@@ -513,7 +550,8 @@ inline EncodeTiled encoder() {
 
 // a 4-D map over the bf16 (cols, S, heads, B) view at `ptr`, read in boxes
 // of (`box_cols` columns, `rows` rows) swizzled by `sw` bytes (128, 64 or
-// 32; box_cols * 2 <= sw); rows past S read as zeros
+// 32; box_cols * 2 <= sw); rows past S and columns past `cols` read as
+// zeros
 inline bool encode_box(CUtensorMap* map, const void* ptr, int cols, int S,
                        int heads, int B, Strides st, int rows, int box_cols,
                        int sw) {
@@ -543,7 +581,8 @@ inline bool encode_box(CUtensorMap* map, const void* ptr, int cols, int S,
 }
 
 // a map over the bf16 (D, S, heads, B) view at `ptr` in the boxes of a
-// tile with D columns (Swz<D>)
+// tile with D columns (Swz<D>; at D 112 the second box reads 16 zero
+// columns past the row)
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
             Strides st, int rows) {

@@ -19,7 +19,8 @@
 // (B 2, S 4096, H 16, KH 8, D 128, causal) that is about 137 GFLOP,
 // 0.14 ms in bf16: operations bound.
 //
-// bf16 design (tensor cores), at D 32, 64, 80, 96, 128 and 256.  One block
+// bf16 design (tensor cores), at D 32, 64, 80, 96, 112, 128 and 256.  One
+// block
 // per (128-query tile, head, batch): two consumer warpgroups of 64 query
 // rows each and a producer.  Blocks are numbered so that the q tiles with
 // the most keys (the last ones under the causal mask) start first.
@@ -47,6 +48,12 @@
 //    product then runs at the true width: S = Q K^T in D / 16 k-steps, O +=
 //    P V as an n64 product and an n16 or n32 one (tiles padded to 128
 //    columns would spend 1.6x and 1.33x the useful O += P V work).
+//  * D 112's last 48 columns (96 bytes) have no swizzle of their width: a
+//    row is two 64-column boxes (128-byte swizzle), the second reaching 16
+//    columns past the row, which TMA fills with zeros, so a tile takes
+//    D 128's shared memory.  The products still run at the true width: S =
+//    Q K^T in 7 k-steps (the zero columns are never read), O += P V as one
+//    m64n112k16 across both boxes, and nothing past column 111 is stored.
 //  * S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory,
 //    f32 accumulators in registers; the scale (times log2 e) is applied to
 //    the f32 scores.
@@ -58,7 +65,8 @@
 //    -INFINITY and never count.
 //  * Online softmax in registers; a row's 4 threads reduce by shuffles.
 //  * O += P V: wgmma m64nDk16 (at D 80 and 96 the main part's and the
-//    tail's products; at D 256 the widest, m64n256k16) with P from
+//    tail's products; at D 112 m64n112k16; at D 256 the widest,
+//    m64n256k16) with P from
 //    registers (the accumulator layout of S is the A-fragment layout) and
 //    V (N-major) from shared memory.  P is split
 //    into bf16 hi = bf16(p) and lo = bf16(p - hi) and both are multiplied
@@ -298,8 +306,8 @@ struct Geom {
   static constexpr int STAGES = D > 128 ? 2 : 3;  // K/V ring
   static constexpr bool PRODUCER_WG = D > 128;
   static constexpr int THREADS = kConsumers + (PRODUCER_WG ? 128 : 32);
-  static constexpr int Q_BYTES = kBQ * D * 2;
-  static constexpr int KV_BYTES = kBK * D * 2;    // one of K, V
+  static constexpr int Q_BYTES = kBQ * Cols<D>::ROW_BYTES;
+  static constexpr int KV_BYTES = kBK * Cols<D>::ROW_BYTES;  // one of K, V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
   // the tiles start on a 1024-byte boundary (the swizzle pattern's period;
@@ -532,6 +540,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 Strides ks, Strides vs, Strides os, int causal, int window,
                 float scale, cudaStream_t stream) {
   // at D 80 and 96 each map has a tail map over its view from column 64 on
+  // (at D 112 none: the main map's second box reads past the row as zeros)
   CUtensorMap tq, tk, tv, tq_tail{}, tk_tail{}, tv_tail{};
   using G = tc::Geom<D>;
   if (!attn::encode_cols<D>(&tq, &tq_tail, q, S, H, B, qs, tc::kBQ) ||
@@ -601,6 +610,7 @@ extern "C" int flash_attention_launch(
     FLASH_CASE(64)
     FLASH_CASE(80)
     FLASH_CASE(96)
+    FLASH_CASE(112)
     FLASH_CASE(128)
     FLASH_CASE(256)
 #undef FLASH_CASE
@@ -620,6 +630,7 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
     FLASH_SMEM(64)
     FLASH_SMEM(80)
     FLASH_SMEM(96)
+    FLASH_SMEM(112)
     FLASH_SMEM(128)
     FLASH_SMEM(256)
 #undef FLASH_SMEM

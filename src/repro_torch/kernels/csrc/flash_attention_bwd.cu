@@ -39,7 +39,7 @@
 // are recomputed in both passes: 7 products where an atomic dQ would take
 // 5, which keeps every output owned by one block.
 //
-// bf16 at every D (32, 64, 80, 96, 128 and 256): tensor cores.  Both
+// bf16 at every D (32, 64, 80, 96, 112, 128 and 256): tensor cores.  Both
 // passes have the forward's shape: blocks of 384 threads, two consumer
 // warpgroups and a producer warpgroup, one warp of which issues the TMA
 // loads (setmaxnreg: 240 registers a consumer thread, 24 a producer
@@ -50,15 +50,17 @@
 // released by an "empty" one every consumer thread arrives on.  Tiles use
 // the forward's swizzled boxes (128-byte, 64-byte at D 32; at D 80 and 96
 // a row is one 64-column box and a tail box of its last 16 or 32 columns
-// with its own tensor map and 32- or 64-byte swizzle, Cols<D> of
-// attention_common.cuh), rows past S come in as zeros (TMA's
+// with its own tensor map and 32- or 64-byte swizzle; at D 112 two
+// 64-column boxes, the second's last 16 columns TMA's zeros past the row,
+// Cols<D> of attention_common.cuh), rows past S come in as zeros (TMA's
 // out-of-bounds fill), blocks with the most work start first, and tiles
 // wholly outside the masks are skipped; only those that cross the
 // diagonal, the window's edge or S are masked element by element.  Every
 // product is a wgmma in one of the forward's two forms, at the true width
 // (a reduction over D in MAIN / 16 k-steps through the main boxes and
 // TAIL / 16 through the tail boxes; a product with N = D as an n64 product
-// and an n16 or n32 one into a tail accumulator of its own):
+// and an n16 or n32 one into a tail accumulator of its own, at D 112 as
+// one n112 product):
 //   (b) S^T = K Q^T and dP^T = V dO^T, both operands K-major in shared
 //       memory (the forward's S = Q K^T); P^T = exp2(scale log2e S^T -
 //       log2e lse) and dS^T = P^T (dP^T - delta) in registers, where the
@@ -82,7 +84,7 @@
 //    every product of its rows; the two shared-memory products of an
 //    iteration are two wgmma groups, P (P^T) computed while dP (dP^T) is
 //    still on the tensor cores.  At D 96 dK and dV take 2 x 48 f32
-//    registers a consumer thread, at D 128 2 x 64.
+//    registers a consumer thread, at D 112 2 x 56, at D 128 2 x 64.
 //  * D 256: a warpgroup's f32 dK and dV of 64 keys would take 256
 //    registers a thread, past setmaxnreg's 240, and two 128-row own tiles
 //    with three 64-row stages about 321 KB of shared memory.  So a block
@@ -540,14 +542,15 @@ constexpr int kBarP = 1, kBarRead = 3, kBarDs = 5;
 // consumer thread ([register][thread]).  Shared memory: the two own
 // tiles, the stages and their (lse, delta) rows (read in the dK/dV pass),
 // the exchange buffers, the mbarriers.  A tile holds its main part's
-// boxes, then at D 80 and 96 its tail box (Cols<D>).
+// boxes, then at D 80 and 96 its tail box (Cols<D>; at D 112 its two
+// boxes take D 128's bytes).
 template <int D>
 struct Geom {
   static constexpr bool SPLIT = D > 128;
   static constexpr int OWN_ROWS = SPLIT ? kRows : 2 * kRows;
   static constexpr int STAGES = SPLIT ? 2 : 3;
-  static constexpr int OWN_BYTES = OWN_ROWS * D * 2;
-  static constexpr int TILE_BYTES = kRows * D * 2;
+  static constexpr int OWN_BYTES = OWN_ROWS * Cols<D>::ROW_BYTES;
+  static constexpr int TILE_BYTES = kRows * Cols<D>::ROW_BYTES;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr int ROWS_BYTES = 2 * kRows * 4;
   static constexpr int XCHG_WORDS = 32 * 128;  // one buffer
@@ -1433,6 +1436,7 @@ extern "C" int flash_attention_bwd_launch(
     BWD_CASE(64)
     BWD_CASE(80)
     BWD_CASE(96)
+    BWD_CASE(112)
     BWD_CASE(128)
     BWD_CASE(256)
 #undef BWD_CASE
@@ -1453,6 +1457,7 @@ extern "C" int flash_attention_bwd_smem_bytes(int dtype, int D, int which) {
     BWD_SMEM(64)
     BWD_SMEM(80)
     BWD_SMEM(96)
+    BWD_SMEM(112)
     BWD_SMEM(128)
     BWD_SMEM(256)
 #undef BWD_SMEM

@@ -42,8 +42,10 @@
 //  * Scores: the g dot products of a position split D over 4 lanes of a
 //    warp (16-byte reads of every 4th chunk; K rows padded so that the reads
 //    fall in distinct banks), finished by two shuffles; 8 positions a warp.
-//    So D is one of 32, 64, 96, 128 and 256, whose rows split into a
-//    multiple of 4 chunks in either type.
+//    D is one of 32, 64, 96, 112, 128 and 256.  A row of D 112 in bf16 is
+//    14 chunks, not a multiple of 4: lanes 0 and 1 take 4 chunks, lanes 2
+//    and 3 take 3, and a lane's last round is skipped where its chunk lies
+//    past the row.
 //  * Softmax: a warp per query head, a lane per position; P.V by threads
 //    that own (head, column pair).
 // With one split the block writes the output; with more, each writes its
@@ -108,7 +110,9 @@ __device__ __forceinline__ void store_out(void* o, bool f32, long long i,
 
 // a K tile row is padded to 64 bytes past a multiple of 128, so that the
 // 16-byte reads of the 8 lanes of a quarter-warp (2 rows x 4 chunks 16
-// bytes apart) fall in distinct banks
+// bytes apart) fall in distinct banks; in a round that a row's last chunks
+// end (D 112 in bf16: 14 chunks, the fourth round 2 of them) fewer lanes
+// read, in the same banks
 template <typename T, int D>
 __host__ __device__ constexpr int k_stride() {
   return D + ((64 - int(D * sizeof(T)) % 128 + 128) % 128) / int(sizeof(T));
@@ -168,7 +172,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int RC = D / CH;          // chunks per row
   constexpr int LK = k_stride<T, D>();
-  static_assert(RC % 4 == 0, "a row's chunks must split over 4 lanes");
+  constexpr int RJ = (RC + 3) / 4;    // rounds of 4 chunks a row
   // this block's kv head hk and its query heads h0 .. h0 + g - 1 (g of the
   // kv head's H / KH)
   const int g = H / KH / n_hgroups;
@@ -251,21 +255,24 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     {
       const int r = warp * (kTP / kWarps) + lane / 4, qd = lane % 4;
       const T* krow = Kt + (buf * kTP + r) * LK;
-      float kf[RC / 4][CH];
+      float kf[RJ][CH];
 #pragma unroll
-      for (int j = 0; j < RC / 4; ++j)
-        chunk_f32(krow + (4 * j + qd) * CH, kf[j]);
+      for (int j = 0; j < RJ; ++j)
+        if (RC % 4 == 0 || 4 * j + qd < RC)
+          chunk_f32(krow + (4 * j + qd) * CH, kf[j]);
       const int t = t0 + r;
       for (int gi = 0; gi < g; ++gi) {
         const float* qrow = Qs + gi * D;
         float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-        for (int j = 0; j < RC / 4; ++j)
+        for (int j = 0; j < RJ; ++j) {
+          if (RC % 4 != 0 && 4 * j + qd >= RC) continue;
 #pragma unroll
           for (int e = 0; e < CH; e += 2) {
             s0 = fmaf(qrow[(4 * j + qd) * CH + e], kf[j][e], s0);
             s1 = fmaf(qrow[(4 * j + qd) * CH + e + 1], kf[j][e + 1], s1);
           }
+        }
         float s = s0 + s1;
         s += __shfl_xor_sync(0xffffffffu, s, 1);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
@@ -423,6 +430,7 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
     PAGED_CASE(32)
     PAGED_CASE(64)
     PAGED_CASE(96)
+    PAGED_CASE(112)
     PAGED_CASE(128)
     PAGED_CASE(256)
 #undef PAGED_CASE
@@ -481,6 +489,7 @@ extern "C" int paged_attention_smem_bytes(int dtype, int D, int g) {
     PAGED_SMEM(32)
     PAGED_SMEM(64)
     PAGED_SMEM(96)
+    PAGED_SMEM(112)
     PAGED_SMEM(128)
     PAGED_SMEM(256)
 #undef PAGED_SMEM

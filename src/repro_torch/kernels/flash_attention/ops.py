@@ -13,7 +13,8 @@ D (``FWD_TENSOR_CORE_DIMS``): one block per (128-query tile, head, batch),
 longest tiles first; a producer streams the Q tile and a ring of 64-key
 K/V tiles into shared memory with TMA (tensor maps encoded in the C
 launcher, 128-byte swizzle; at D 80 and 96 a row is a 64-column box and a
-tail box of 16 or 32 columns with its own map and swizzle, so every
+tail box of 16 or 32 columns with its own map and swizzle, at D 112 two
+64-column boxes whose last 16 columns TMA fills with zeros, and every
 product runs at the true width); two consumer warpgroups run S = Q K^T
 and O += P V as ``wgmma`` on the tensor cores, the online softmax in
 registers, with P split into bf16 hi + lo so that the output stays within
@@ -59,7 +60,7 @@ memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers
 split into bf16 hi + lo, as one bf16 P or dS misses the backward's
 tolerance.  Up to D 128 a block owns 128 rows, 64 a warpgroup (at D 80
 and 96 a row is the forward's 64-column box and 16- or 32-column tail
-box, every product at the true width).  At D 256 a block owns 64 rows and
+box, at D 112 its two boxes, every product at the true width).  At D 256 a block owns 64 rows and
 its two warpgroups split each tile pair's products (one makes P, the
 other dP and dS, handed over through shared memory; each accumulates dV
 or dK, or half of dQ's columns); where that dK/dV grid would leave SMs
@@ -98,12 +99,12 @@ counter_tc = build.LaunchCounter("flash_attention_tc")
 counter_bwd = build.LaunchCounter("flash_attention_bwd")
 counter_bwd_tc = build.LaunchCounter("flash_attention_bwd_tc")
 counter_bwd_plan = build.LaunchCounter("flash_attention_bwd_plan")
-HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+HEAD_DIMS = (32, 64, 80, 96, 112, 128, 256)
 # the head dims at which bf16 runs the tensor-core (wgmma) kernels, by
 # direction (``kTensorCoresFwd`` and ``kTensorCoresBwd`` of
 # csrc/attention_common.cuh): every one; f32 runs the CUDA-core kernels
-FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128, 256)
-BWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 128, 256)
+FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 112, 128, 256)
+BWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 112, 128, 256)
 # the head dims whose bf16 dK/dV pass (64-key blocks, ``Geom<D>::SPLIT``)
 # may split a kv head's query heads over groups; the others run one group
 BWD_GROUPED_DIMS = (256,)

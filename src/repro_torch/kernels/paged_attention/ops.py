@@ -59,7 +59,7 @@ __all__ = ["paged_attention_cuda", "paged_attention_ref", "counter",
 
 counter = build.LaunchCounter("paged_attention")
 counter_plan = build.LaunchCounter("paged_attention_plan")
-HEAD_DIMS = (32, 64, 96, 128, 256)
+HEAD_DIMS = (32, 64, 96, 112, 128, 256)
 TILE = 32           # positions per tile of the kernel
 SPLIT = 512         # positions per block, unless the span needs more
 _MAX_SPLITS = 65535  # the grid's z extent

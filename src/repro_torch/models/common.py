@@ -74,14 +74,15 @@ def trunc_normal(gen: torch.Generator, shape, scale: float,
                  dtype=torch.bfloat16) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times ``scale``, drawn in f32
     and cast to ``dtype`` (the reference's ``truncated_normal * scale``),
-    a slab at a time."""
+    a slab at a time, scaled in place (one f32 slab alive at a time: a
+    layer of kimi-k2-1t-a32b's experts is one 22.5 GB slab)."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
     if out.is_meta:
         return out
     for slab in _slabs(out):
         w = torch.empty(slab.shape, dtype=torch.float32, device=gen.device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        slab.copy_(w * scale)
+        slab.copy_(w.mul_(scale))
     return out
 
 
@@ -100,7 +101,7 @@ def init_embed(gen: torch.Generator, vocab: int, d: int,
     for slab in _slabs(out):
         w = torch.empty(slab.shape, dtype=torch.float32, device=gen.device)
         w.normal_(0.0, 1.0, generator=gen)
-        slab.copy_(w * 0.02)
+        slab.copy_(w.mul_(0.02))
     return out
 
 

@@ -297,13 +297,14 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, dt, b, h,
     _assert_close(got_t, want, tol)
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("s", [1, 63, 64, 127, 128, 129, 1000, 4096])
 def test_flash_attention_bf16_tensor_cores_sweep(cuda_device, s, d):
     """The bf16 (wgmma + TMA) path at every tile edge of S (64-key tiles,
     128-query tiles) and every swizzle (D 32: 64 bytes, D 64: one 128-byte
     box, D 128: two; D 80 and 96: one 128-byte box and a tail box of 32 or
-    64 bytes with its own swizzle), for g = 1, 2, 4 query heads per kv
+    64 bytes with its own swizzle; D 112: two 128-byte boxes, the second
+    zero-filled past the row), for g = 1, 2, 4 query heads per kv
     head, causal, non-causal and a causal 100-key window (which ends inside
     a tile), each also through (B, S, H, D) storage."""
     h = 4
@@ -562,16 +563,18 @@ def test_paged_attention_launches_per_split_plan(cuda_device):
     (1, 32, 32, 640, 96, True, 0),       # phi-3-vision: 576 patches + 64
     (1, 16, 1, 4096, 256, True, 2048),   # recurrentgemma-9b
     (1, 16, 16, 2048, 128, True, 0),     # deepseek-moe-16b: no grouping
+    (1, 64, 8, 2048, 112, True, 0),      # kimi-k2-1t-a32b
     (2, 4, 2, 129, 80, True, 0),         # ragged S at every new head dim
     (1, 4, 1, 300, 96, False, 100),
-    (1, 4, 4, 65, 256, True, 0)])
+    (1, 4, 4, 65, 256, True, 0),
+    (2, 8, 1, 129, 112, False, 0)])
 def test_flash_attention_new_head_dims_match_plain_on_card(cuda_device, dt, b,
                                                            h, kh, s, d,
                                                            causal, window):
-    """Head dims 80, 96 and 256 (in bf16 the tensor cores, at D 256 in
-    the two-stage geometry; f32 on the CUDA cores) at the shapes and masks
-    of the models that use them, and ragged; and deepseek-moe-16b's D 128
-    prefill, whose kv heads are its query heads."""
+    """Head dims 80, 96, 112 and 256 (in bf16 the tensor cores, at D 256
+    in the two-stage geometry; f32 on the CUDA cores) at the shapes and
+    masks of the models that use them, and ragged; and deepseek-moe-16b's
+    D 128 prefill, whose kv heads are its query heads."""
     dtype, tol = ATT_DTYPES[dt]
     q = _randn((b, h, s, d), dtype, cuda_device, d + 1)
     k = _randn((b, kh, s, d), dtype, cuda_device, d + 2)
@@ -590,12 +593,15 @@ def test_flash_attention_new_head_dims_match_plain_on_card(cuda_device, dt, b,
 
 @pytest.mark.parametrize("dt", list(ATT_DTYPES))
 @pytest.mark.parametrize("h,kh,d", [(32, 32, 96), (16, 1, 256),
-                                    (16, 16, 128)])
+                                    (16, 16, 128), (64, 8, 112),
+                                    (8, 1, 112)])
 def test_paged_attention_new_head_dims_match_plain_on_card(cuda_device, dt, h,
                                                            kh, d):
-    """Head dims 96 (phi-3-vision) and 256 (recurrentgemma-9b, 16 query
-    heads on one kv head), and deepseek-moe-16b's D 128 with one query
-    head a kv head, at the serve shape, every length 1-40, and over a
+    """Head dims 96 (phi-3-vision), 112 (kimi-k2-1t-a32b; a bf16 row of 14
+    chunks, which the 4 lanes of a position share 4, 4, 3 and 3) and 256
+    (recurrentgemma-9b, 16 query heads on one kv head), and
+    deepseek-moe-16b's D 128 with one query head a kv head, at the serve
+    shape, every length 1-40, and over a
     permuted table whose span takes three splits and the merge."""
     dtype, tol = ATT_DTYPES[dt]
     tol = 3e-2 if dt == "bf16" else tol
@@ -1146,6 +1152,7 @@ def assert_grads_close(got, want, dtype, what=""):
     (1, 4, 4, 200, 80, False, 0),        # hubert's head dim
     (1, 8, 8, 130, 96, True, 0),         # phi-3-vision's
     (1, 4, 1, 300, 256, True, 64),       # recurrentgemma's, windowed MQA
+    (1, 8, 1, 300, 112, True, 0),        # kimi-k2-1t-a32b's, g 8, ragged
     (1, 2, 2, 1, 32, True, 0)])          # one token
 def test_flash_attention_bwd_matches_plain_on_card(cuda_device, dt, b, h, kh,
                                                    s, d, causal, window):
@@ -1190,7 +1197,9 @@ def _check_bwd_on_card(cuda_device, dtype, b, h, kh, s, d, causal, window):
     (2, 8, 2, 190, 80, True, 48),        # D 80: of 62 rows, a window, GQA
     (1, 16, 1, 4096, 256, True, 2048),   # recurrentgemma-9b's, 4 groups
     (1, 4, 1, 130, 256, True, 64),       # D 256: a 64-row tile of 2 rows
-    (2, 8, 4, 1100, 256, True, 0)])      # D 256, GQA, 144 blocks: one group
+    (2, 8, 4, 1100, 256, True, 0),       # D 256, GQA, 144 blocks: one group
+    (1, 64, 8, 4096, 112, True, 0),      # kimi-k2-1t-a32b's (D 112)
+    (1, 8, 2, 190, 112, True, 48)])      # D 112: of 62 rows, a window
 def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
         cuda_device, b, h, kh, s, d, causal, window):
     """bf16 at the shapes the tensor-core design's tiles meet: the training
@@ -1213,12 +1222,12 @@ def test_flash_attention_bwd_tensor_cores_match_plain_on_card(
     assert plans == {fa.BwdPlan(groups, -(-s // own) * groups * kh * b)}
 
 
-@pytest.mark.parametrize("d", [128, 80, 96, 256])
+@pytest.mark.parametrize("d", [128, 80, 96, 112, 256])
 def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
     """With ``return_lse`` the forward also returns its f32 output, which
     rounds to its bf16 output bit for bit and stays within the plain f32
     output's rounding, in both geometries of the tensor-core design (D 80,
-    96 and 128; D 256); in f32 it is the output itself."""
+    96, 112 and 128; D 256); in f32 it is the output itself."""
     q = _randn((1, 4, 300, d), torch.bfloat16, cuda_device, 1)
     k, v = (_randn((1, 2, 300, d), torch.bfloat16, cuda_device, i)
             for i in (2, 3))
@@ -1256,7 +1265,7 @@ def _gpu_kernel_names(fn, launches: int = 1) -> list[str]:
     return names
 
 
-@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("d", [80, 96, 112])
 @pytest.mark.parametrize("b,h,kh,s,causal,window", [
     (1, 4, 4, 640, True, 0),        # causal (phi-3-vision's mask)
     (2, 4, 4, 512, False, 0),       # no mask (hubert-xlarge's)
@@ -1267,7 +1276,8 @@ def _gpu_kernel_names(fn, launches: int = 1) -> list[str]:
 def test_flash_attention_d80_d96_tensor_cores_match_plain_on_card(
         cuda_device, d, b, h, kh, s, causal, window):
     """bf16 at D 80 and 96 on the tensor cores (a 64-column box and a tail
-    box of 16 or 32 columns): the launcher reports the tensor-core kernel;
+    box of 16 or 32 columns), and at D 112 (two 64-column boxes, the
+    second zero-filled past the row): the launcher reports the tensor-core kernel;
     the output within two bf16 ulps of the plain version, also through (B,
     S, H, D) storage; with ``return_lse`` the same output, the f32 output
     rounding to it and within the plain f32 output's rounding, and lse
@@ -1293,10 +1303,11 @@ def test_flash_attention_d80_d96_tensor_cores_match_plain_on_card(
 
 @pytest.mark.parametrize("dt,d,design", [
     ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 80, "tc"),
-    ("bf16", 96, "tc"), ("bf16", 128, "tc"), ("bf16", 256, "tc"),
-    ("f32", 80, "cc"), ("f32", 96, "cc"), ("f32", 128, "cc")])
+    ("bf16", 96, "tc"), ("bf16", 112, "tc"), ("bf16", 128, "tc"),
+    ("bf16", 256, "tc"), ("f32", 80, "cc"), ("f32", 96, "cc"),
+    ("f32", 112, "cc"), ("f32", 128, "cc")])
 def test_flash_attention_fwd_design_on_card(cuda_device, dt, d, design):
-    """bf16 at every head dim (32/64/80/96/128/256) runs
+    """bf16 at every head dim (32/64/80/96/112/128/256) runs
     ``flash_fwd_bf16`` (the tensor cores); f32 ``flash_fwd_cc``: the design
     the launcher reports (``counter_tc``) and, where the profiler records
     the call, one kernel, the design's entry."""
@@ -1317,8 +1328,9 @@ def test_flash_attention_fwd_design_on_card(cuda_device, dt, d, design):
 
 @pytest.mark.parametrize("dt,d,design", [
     ("bf16", 32, "tc"), ("bf16", 64, "tc"), ("bf16", 128, "tc"),
-    ("bf16", 80, "tc"), ("bf16", 96, "tc"), ("bf16", 256, "tc"),
-    ("f32", 64, "cc"), ("f32", 80, "cc"), ("f32", 128, "cc")])
+    ("bf16", 80, "tc"), ("bf16", 96, "tc"), ("bf16", 112, "tc"),
+    ("bf16", 256, "tc"), ("f32", 64, "cc"), ("f32", 80, "cc"),
+    ("f32", 112, "cc"), ("f32", 128, "cc")])
 def test_flash_attention_bwd_design_on_card(cuda_device, dt, d, design):
     """bf16 at every D runs the tensor-core entries; f32 the CUDA-core
     ``flash_bwd_dkdv`` and ``flash_bwd_dq``: the design the launcher
@@ -1463,6 +1475,20 @@ def test_family_training_step_on_card_matches_cpu(cuda_device, arch):
     own held to ``FLIP_MAX``."""
     smoke = _chip_smoke()
     smoke.train_vs_cpu(cuda_device, torch.cuda.get_device_name(0), arch)
+
+
+def test_head_dim_112_training_step_on_card_matches_cpu(cuda_device):
+    """``chip_smoke.py`` phase 15's check of head dim 112 in training
+    (``TRAIN_D112``): kimi-k2-1t-a32b's smoke config with ``head_dim``
+    112, its loss and every gradient leaf on the card (the backward's
+    D-112 instance on the tensor cores) against the CPU."""
+    smoke = _chip_smoke()
+    arch = smoke.TRAIN_D112["arch"]
+    tc0 = fa.counter_bwd_tc.by_size.get(112, 0)
+    smoke.train_vs_cpu(cuda_device, torch.cuda.get_device_name(0), arch,
+                       dataclasses.replace(get_config(arch, smoke=True),
+                                           head_dim=112))
+    assert fa.counter_bwd_tc.by_size.get(112, 0) > tc0
 
 
 def test_flash_attention_bwd_wrapper_checks_inputs_on_card(cuda_device):

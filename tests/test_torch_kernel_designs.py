@@ -110,7 +110,8 @@ def _bf16(rng, shape):
 
 def padded_width(d: int) -> int:
     """D rounded up to whole boxes of 64 columns (32 at D 32): the tile
-    width of the padded design, 128 at D 80 and 96."""
+    width of the padded design, 128 at D 80, 96 and 112 (D 112's tiles
+    are that design's: zeros past column 111)."""
     box = 32 if d == 32 else 64
     return -(-d // box) * box
 
@@ -184,6 +185,8 @@ FLASH_CASES = [
     (1, 4, 2, 512, 80, True, 100),    # D 80 with GQA and a window
     (1, 4, 1, 320, 256, True, 64),    # recurrentgemma's: D 256, windowed MQA
     (1, 2, 1, 200, 256, False, 0),    # D 256, no mask, ragged
+    (1, 8, 1, 512, 112, True, 0),     # kimi-k2-1t-a32b's: D 112, g 8
+    (2, 4, 2, 300, 112, False, 100),  # D 112, ragged, a window
 ]
 
 
@@ -314,6 +317,7 @@ BWD_EMU_CASES = [
     (1, 4, 4, 256, 80, False, 0),    # hubert-xlarge's: D 80, no mask
     (1, 4, 4, 256, 96, True, 0),     # phi-3-vision's: D 96, causal
     (1, 4, 1, 320, 256, True, 64),   # recurrentgemma's: D 256, windowed MQA
+    (1, 8, 1, 256, 112, True, 0),    # kimi-k2-1t-a32b's: D 112, g 8
 ]
 
 
@@ -357,7 +361,8 @@ def test_flash_bwd_split_p_and_ds_within_tolerance_single_not(
     split = emulate(True, True)
     assert beyond(split) == [(0, 0)] * 3
     if padded_width(d) != d:
-        # a row read as a 64-column box and a tail box gives the bits of
+        # a row read as a 64-column box and a tail box (D 112: as whole
+        # boxes whose products stop at the true width) gives the bits of
         # tiles padded with zero columns to whole boxes (128)
         padded = emulate(True, True, width=padded_width(d))
         assert all(torch.equal(x, y) for x, y in zip(split, padded))
@@ -1099,8 +1104,9 @@ def test_scratch_is_cached_and_grows_zeroed():
 def test_tensor_core_head_dims_match_the_sources():
     """The head dims at which bf16 runs the tensor-core kernels, forward
     and backward, are ``ops.py``'s two sets; each source dispatches on its
-    own; only D 80 and 96 are not whole boxes (both directions read their
-    tail box), and both directions run every D on the tensor cores."""
+    own; only D 80, 96 and 112 are not whole boxes (both directions read
+    D 80's and 96's tail box, and D 112's second box past the row as
+    zeros), and both directions run every D on the tensor cores."""
     src = (build.CSRC / "attention_common.cuh").read_text()
 
     def dims(name):
@@ -1116,9 +1122,9 @@ def test_tensor_core_head_dims_match_the_sources():
     assert "kTensorCoresFwd<" in fwd and "kTensorCoresBwd" not in fwd
     assert "kTensorCoresBwd<" in bwd and "kTensorCoresFwd" not in bwd
     assert [d for d in fa.FWD_TENSOR_CORE_DIMS if padded_width(d) != d] == \
-        [80, 96]
+        [80, 96, 112]
     assert [d for d in fa.BWD_TENSOR_CORE_DIMS if padded_width(d) != d] == \
-        [80, 96]
+        [80, 96, 112]
     assert set(fa.FWD_TENSOR_CORE_DIMS) == set(fa.BWD_TENSOR_CORE_DIMS)
     for text in (fwd, bwd):     # one copy of the tail-box machinery
         assert "struct Cols" not in text and "Cols<D>" in text

@@ -196,7 +196,8 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b",
-                                  "recurrentgemma-9b", "phi-3-vision-4.2b"])
+                                  "recurrentgemma-9b", "phi-3-vision-4.2b",
+                                  "kimi-k2-1t-a32b"])
 def test_other_family_serve_stats_are_pinned(arch):
     """Each decoder family that ``chip_smoke.py`` phase 14 serves at full
     width: the reference's scheduler over that vocabulary's default
@@ -228,11 +229,12 @@ def test_serve_main_other_families_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch,layers", [("qwen3-0.6b", 1),
-                                         ("recurrentgemma-9b", 3)])
+                                         ("recurrentgemma-9b", 3),
+                                         ("kimi-k2-1t-a32b", 1)])
 def test_serve_main_layers_keep_the_stats(arch, layers, capsys):
     """``--layers`` cuts the depth (as ``chip_smoke.py`` phase 14 serves
-    at 2 layers, the hybrid 6): the stats depend on the request stream
-    alone, so they stay the reference scheduler's."""
+    at 2 layers, the hybrid 6, kimi-k2-1t-a32b 1): the stats depend on the
+    request stream alone, so they stay the reference scheduler's."""
     cfg = get_config(arch, smoke=True)
     js = JScheduler(n_slots=4, n_pages=1024, page_size=16)
     _drive(js, _j_requests(tserve.make_requests(cfg.vocab, 4, 32, 16, 4)))

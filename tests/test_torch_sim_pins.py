@@ -49,7 +49,9 @@ def test_reference_reproduces_sim_pins():
 def test_sim_runs_cover_the_issue_list():
     smoke = _smoke()
     runs = smoke.SIM_RUNS
-    assert runs["default_CIDER_512"][0] == {}     # the default SimParams
+    # the default SimParams' width, cut to SIM_DEFAULT_TICKS ticks
+    assert runs["default_CIDER_512"][0] == {"ticks": smoke.SIM_DEFAULT_TICKS}
+    assert smoke.SIM_DEFAULT_TICKS == 8192
     assert tnet.SimParams().n_lanes == 1024 and tnet.SimParams().ticks == 32768
     for mode in smoke.MODES:
         for nc in (48, 512):

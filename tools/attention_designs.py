@@ -13,16 +13,23 @@ call's output is held to the plain version within two bf16 ulps
 (decode_32k within ``chip_smoke.ATT_TOL``'s 2e-2).  Rows:
 ``flash_attention`` at recurrentgemma-9b's prefill (B 1, S 4096, H 16, KH
 1, D 256, causal, window 2048) and at the D 80/96/128 rows of the kernel
-table; ``paged_attention`` at the 40-row serve slots (length 40) of
+table, and at kimi-k2-1t-a32b's prefill (B 1, S 2048, H 64, KH 8, D
+112, causal) beside the same shape at D 128 (what D 112's tiles, two
+whole boxes with 16 zero columns, are weighed against);
+``paged_attention`` at the 40-row serve slots (length 40) of
 qwen3-0.6b (H 16, KH 8, D 128), deepseek-moe-16b (16, 16, 128),
-phi-3-vision-4.2b (32, 32, 96) and recurrentgemma-9b (16, 1, 256), at
+phi-3-vision-4.2b (32, 32, 96), recurrentgemma-9b (16, 1, 256) and
+kimi-k2-1t-a32b (64, 8, 112; and the same heads at D 128), at
 recurrentgemma-9b's 2,048-row ring (length 2,048) and at decode_32k (B 8,
 16-row pages, lengths up to 32,768); ``flash_attention_bwd`` at the
 training shapes of qwen3-0.6b (D 128), hubert-xlarge (D 80),
-phi-3-vision-4.2b (D 96) and recurrentgemma-9b (D 256), each held to the
+phi-3-vision-4.2b (D 96), recurrentgemma-9b (D 256) and kimi-k2-1t-a32b
+(B 1, S 4096, H 64, KH 8, D 112; and at D 128), each held to the
 plain backward within ``chip_smoke.BWD_TOL``, with a row for each of its
 launches (``<row>.delta``, ``.dkdv``, ``.reduce`` where the dK/dV pass
-is split over head groups, ``.dq``) where the profiler recorded them.  Every call goes through
+is split over head groups, ``.dq``) where the profiler recorded them.  A
+row whose head dim a tree's kernels do not take (D 112 before it was
+added) is left out of that tree's line.  Every call goes through
 the public wrappers (``flash_attention_cuda``, ``paged_attention_cuda``,
 ``flash_attention_bwd_cuda``), so that a parent tree runs its own design.
 Prints one JSON line a tree, then a table.
@@ -44,19 +51,25 @@ FLASH_ROWS = (("flash_d256", 1, 4096, 16, 1, 256, True, 2048),
               ("flash_d128", 2, 4096, 16, 8, 128, True, 0),
               ("flash_d128_mha", 1, 2048, 16, 16, 128, True, 0),
               ("flash_d80", 2, 1024, 16, 16, 80, False, 0),
-              ("flash_d96", 1, 640, 32, 32, 96, True, 0))
+              ("flash_d96", 1, 640, 32, 32, 96, True, 0),
+              ("flash_d112", 1, 2048, 64, 8, 112, True, 0),
+              ("flash_d128_kimi", 1, 2048, 64, 8, 128, True, 0))
 # the backward at each family's training shape (row, B, S, H, KH, D,
 # causal, window)
 BWD_ROWS = (("bwd_d128", 2, 4096, 16, 8, 128, True, 0),
             ("bwd_d80", 2, 1024, 16, 16, 80, False, 0),
             ("bwd_d96", 1, 640, 32, 32, 96, True, 0),
-            ("bwd_d256", 1, 4096, 16, 1, 256, True, 2048))
+            ("bwd_d256", 1, 4096, 16, 1, 256, True, 2048),
+            ("bwd_d112", 1, 4096, 64, 8, 112, True, 0),
+            ("bwd_d128_kimi", 1, 4096, 64, 8, 128, True, 0))
 # (row, H, KH, D, span): one page of `span` rows, B 1, length span
 PAGED_ROWS = (("paged_d128", 16, 8, 128, 40),
               ("paged_d128_mha", 16, 16, 128, 40),
               ("paged_d96", 32, 32, 96, 40),
               ("paged_d256", 16, 1, 256, 40),
-              ("paged_d256_ring", 16, 1, 256, 2048))
+              ("paged_d256_ring", 16, 1, 256, 2048),
+              ("paged_d112", 64, 8, 112, 40),
+              ("paged_d128_kimi", 64, 8, 128, 40))
 
 
 def child(tree: Path) -> dict:
@@ -91,7 +104,8 @@ def child(tree: Path) -> dict:
         rows[name] = ms
 
     for row in FLASH_ROWS:
-        flash_row(*row)
+        if row[5] in fa.HEAD_DIMS:
+            flash_row(*row)
 
     def bwd_row(name, b, s, h, kh, d, causal, window):
         q, do = (cs._randn((b, h, s, d), bf16, dev, i) for i in (21, 24))
@@ -119,10 +133,13 @@ def child(tree: Path) -> dict:
                 rows[f"{name}.{entry}"] = ms
 
     for row in BWD_ROWS:
-        bwd_row(*row)
+        if row[5] in fa.HEAD_DIMS:
+            bwd_row(*row)
 
     ident = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     for name, h, kh, d, span in PAGED_ROWS:
+        if d not in pa.HEAD_DIMS:
+            continue
         q = cs._randn((1, h, d), bf16, dev, 10)
         kp = cs._randn((1, span, kh, d), bf16, dev, 11)
         vp = cs._randn((1, span, kh, d), bf16, dev, 12)
