@@ -54,7 +54,16 @@ Phases (any mismatch raises, and the script exits non-zero):
    case ran, checked from the profiler's kernel names (``BWD_ENTRIES``:
    the tensor-core entries in bf16 at every D, with the reduce launch
    where the launcher split D 256's dK/dV pass over head groups, by its
-   report (``counter_bwd_plan``); the CUDA-core ones in f32).
+   report (``counter_bwd_plan``); the CUDA-core ones in f32).  Head dims
+   between the kernels' compiled instances (``BETWEEN``,
+   ``PAGED_BETWEEN``), each run on the next instance with zero-filled
+   columns: D 16 (recurrentgemma-9b's smoke config: 4 query heads on one
+   kv head, window 16), 48, 72 and 200, forward and backward, causal,
+   non-causal and windowed, in bf16 and f32; paged D 16 over the smoke's
+   40-row slot and 16-row ring and D 80 (on paged's 96 instance), every
+   length; every launch on the instance ``instance_of`` plans, by the
+   launcher's report (``counter_instance``), in bf16 on the tensor cores;
+   kernel, plain, SDPA and bound times at each row's first mask.
 2. the ``engine_json`` configuration (65,536 slots, batch 4096, 16 windows,
    write-intensive Zipf 0.99, 16 CNs) in all four SyncModes: every verb
    counter and the modeled Mops/s and latency percentiles must equal the
@@ -127,7 +136,12 @@ Phases (any mismatch raises, and the script exits non-zero):
     ``phi-3-vision-4.2b`` (576 stub patches + 64 tokens), and
     ``kimi-k2-1t-a32b`` (D 112, 384 experts; prefill B 1 x 2048) at 1 of
     its 61 layers (``PHASE14``'s ``n_layers``: one layer's 19.4 B
-    parameters are 36.2 GiB), each prefill's
+    parameters are 36.2 GiB), then ``recurrentgemma-9b``'s smoke config
+    (D 16, on every attention kernel's 32-column instance:
+    ``phase14_smoke``: ``serve.main --smoke`` with the reference's stats,
+    card against CPU at its own depth with decode against prefill past its
+    16-token window, and its 16-row ring wrapped, ``RING_SMOKE``), each
+    prefill's
     flash launches on the design phase 1 holds for its head dim (the
     launcher's report); decode against
     prefill (``DECODE_HELD_AT_DEPTH``: held to the tolerance at full depth
@@ -180,7 +194,9 @@ Phases (any mismatch raises, and the script exits non-zero):
     replaying the CPU's expert choices.  No step trains kimi-k2-1t-a32b at
     width (one layer with AdamW is about 410 GB); its head dim 112 trains
     through ``train_vs_cpu`` at its smoke config with ``head_dim`` 112
-    (``TRAIN_D112``), the backward's D-112 instance on the card.
+    (``TRAIN_D112``), the backward's D-112 instance on the card; and
+    recurrentgemma-9b's smoke config (D 16) through ``train_vs_cpu``, the
+    backward on its 32-column instance and the tensor cores.
 
 16. the distribution and dry-run layer: (a) ``decode_attention_spmd`` at
     decode_32k (B 8, qwen3's H 16, KH 8, D 128, Smax 32,768, bf16,
@@ -230,7 +246,10 @@ hotspot runs only).  Every phase prints its time.  The launch counters
 are zeroed just before phase 2 and read after phase 17; every kernel must have launched in that run, in
 the phases that run it, and every head-dim instance of the attention
 kernels and ``wc_combine`` from the MoE dispatch (a launch tag) in phase
-14.  A kernel captured into a CUDA graph (phase 13) is counted once at capture, so its replays' launches
+14.  The attention kernels' tallies by (head dim, instance) must show
+each head dim on the instance ``instance_of`` names, every published
+config's head dim on its own instance, and D 16 on the 32-column one; the
+kernel line carries them (``launches_by_instance``).  A kernel captured into a CUDA graph (phase 13) is counted once at capture, so its replays' launches
 are added from the graphs' capture counts and replay counts.  The last
 lines are the kernel table as JSON, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
@@ -368,6 +387,27 @@ for _kernel, _rows in (("flash_attention", FLASH_NEW),
     for _row in _rows:
         ATTN_META[_row[0]] = dict(ATTN_META[_kernel], main=_row[1],
                                   d=_row[2], kernel=_kernel)
+# head dims between the kernels' compiled instances, each run on the next
+# instance with zero-filled columns (phase 1): (D, B, S, H, KH, the
+# window of the windowed mask, model or None).  Every row is held causal,
+# non-causal and windowed, in bf16 and f32, forward and backward, and
+# timed at its first mask.  D 16 is recurrentgemma-9b's smoke config (4
+# query heads on one kv head, window 16; phases 14 and 15 serve and train
+# it), at its training shape (B 1 x S 256) and first mask, causal with the
+# window; D 48, 72 and 200 reach the 64-, 80- and 256-column instances at
+# small shapes, causal first.
+BETWEEN = ((16, 1, 256, 4, 1, 16, "recurrentgemma-9b (smoke)"),
+           (48, 1, 1024, 8, 2, 128, None),
+           (72, 2, 512, 8, 8, 128, None),
+           (200, 1, 1024, 8, 1, 256, None))
+# paged_attention between its instances: (D, H, KH, spans, model or None):
+# the smoke's 40-row serve slot (prompt 32 + 8 new tokens; timed) and its
+# 16-row ring, every length; D 80, which paged runs on its 96 instance
+PAGED_BETWEEN = ((16, 4, 1, (40, 16), "recurrentgemma-9b (smoke)"),
+                 (80, 16, 16, (40,), None))
+for _kernel in ("flash_attention", "paged_attention", "flash_attention_bwd"):
+    ATTN_META[f"{_kernel}_d16"] = dict(ATTN_META[_kernel], d=16,
+                                       main=BETWEEN[0][-1], kernel=_kernel)
 
 
 def say(msg: str) -> None:
@@ -443,8 +483,8 @@ def attention_smem() -> None:
         fn = getattr(lib, f"{name}_smem_bytes")
         fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * n_args
         fns[name] = fn
-    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS as FLASH_D
-    from repro_torch.kernels.paged_attention.ops import HEAD_DIMS as PAGED_D
+    from repro_torch.kernels.flash_attention.ops import INSTANCES as FLASH_D
+    from repro_torch.kernels.paged_attention.ops import INSTANCES as PAGED_D
     bwd = ctypes.CDLL(str(build.library_path("flash_attention_bwd")))
     bwd.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
     bwd.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -1140,6 +1180,7 @@ def phase1_attention(dev, card: str) -> dict:
             f"[{card}]")
         del q, kp, vp
     torch.cuda.empty_cache()
+    phase1_between(dev, card, out, compare, planned, windowed_sdpa)
     phase1_backward(dev, card, out)
     return out
 
@@ -1176,17 +1217,27 @@ BWD_ENTRIES = {"tensor cores": ("flash_bwd_delta", "flash_bwd_dkdv_bf16",
 BWD_REDUCE = "flash_bwd_reduce_bf16"
 
 
+def _instance(fa, d: int):
+    """The instance that runs head dim ``d`` (``instance_of``'s), or None
+    past the widest (mamba2's 2,048, of no attention layer)."""
+    return next((w for w in fa.INSTANCES if w >= d), None)
+
+
 def fwd_design(fa, dtype, d: int) -> str:
-    """The forward design the launcher runs for a dtype and head dim."""
+    """The forward design the launcher runs for a dtype and head dim (its
+    instance's)."""
     return ("tensor cores" if str(dtype) == "torch.bfloat16"
-            and d in fa.FWD_TENSOR_CORE_DIMS else "CUDA cores")
+            and _instance(fa, d) in fa.FWD_TENSOR_CORE_DIMS
+            else "CUDA cores")
 
 
 def bwd_design(dtype_name: str, d: int) -> str:
-    """The backward design the launcher runs for a dtype and head dim."""
-    from repro_torch.kernels.flash_attention.ops import BWD_TENSOR_CORE_DIMS
+    """The backward design the launcher runs for a dtype and head dim (its
+    instance's)."""
+    from repro_torch.kernels.flash_attention import ops as fa
     return ("tensor cores" if dtype_name == "bfloat16"
-            and d in BWD_TENSOR_CORE_DIMS else "CUDA cores")
+            and _instance(fa, d) in fa.BWD_TENSOR_CORE_DIMS
+            else "CUDA cores")
 
 
 def bwd_entries(design: str, plan) -> tuple:
@@ -1197,11 +1248,11 @@ def bwd_entries(design: str, plan) -> tuple:
                                   else ())
 
 
-def new_plans(fa, before: dict) -> list:
-    """The dK/dV plans ``counter_bwd_plan`` tallied since ``before`` (a
-    copy of its ``by_size``)."""
-    return [p for p, n in fa.counter_bwd_plan.by_size.items()
-            if n > before.get(p, 0)]
+def new_tallies(counter, before: dict) -> dict:
+    """What ``counter`` tallied since ``before`` (a copy of its
+    ``by_size``): the dK/dV plans, the (head dim, instance) pairs."""
+    return {k: n - before.get(k, 0) for k, n in counter.by_size.items()
+            if n > before.get(k, 0)}
 
 
 def fwd_checked(fa, design: str, q, k, v, kw: dict):
@@ -1284,7 +1335,7 @@ def phase1_backward(dev, card: str, out: dict) -> None:
             check(ran == bwd_design(dname, d),
                   f"flash_attention_bwd {label} {dname}: the launcher ran "
                   f"the {ran}, expected the {bwd_design(dname, d)}")
-            plans = new_plans(fa, plans0)
+            plans = list(new_tallies(fa.counter_bwd_plan, plans0))
             check(len(plans) == 1, f"flash_attention_bwd {label} {dname}: "
                                    f"plans {plans}")
             plan = plans[0]
@@ -1429,6 +1480,255 @@ def flash_fn_backward(dev, card: str) -> None:
         say(f"  _FlashFn backward B{b} H{h} KH{kh} S{s} D{d} causal={causal}"
             f" window={window} (bf16, the f32 out saved): (dq, dk, dv) "
             f"elements beyond BWD_TOL of the plain backward {bad} [{card}]")
+
+
+def published_head_dims(decode: bool) -> list:
+    """The head dims of the registered configs at their published widths
+    that have attention layers (and, with ``decode``, a decode step)."""
+    from repro_torch.configs import ALL_ARCHS, get_config
+    cfgs = [get_config(arch) for arch in ALL_ARCHS]
+    return sorted({c.hd for c in cfgs if c.family != "ssm"
+                   and (c.has_decode or not decode)})
+
+
+def grads_beyond(got, want, dname: str):
+    """``(bad, max |diff|)`` of the gradients ``got`` against ``want``:
+    the elements of each of dq, dk, dv beyond ``BWD_TOL[dname]`` (atol as
+    a share of max(1, max |want|)), after checking dtype, shape and
+    finiteness."""
+    import torch
+    rtol, atol = BWD_TOL[dname]
+    bad, err = [], 0.0
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"{name}: shape or finiteness")
+        diff = (g.float() - w.float()).abs()
+        scale = max(float(w.float().abs().max()), 1.0)
+        bad.append(int((diff > atol * scale + rtol * w.float().abs()).sum()))
+        err = max(err, float(diff.max()))
+    return bad, err
+
+
+def phase1_between(dev, card: str, out: dict, compare, planned,
+                   windowed_sdpa) -> None:
+    """The three attention kernels at head dims between their compiled
+    instances (``BETWEEN``, ``PAGED_BETWEEN``) against their plain versions
+    in bf16 and f32 at every mask (``compare``: ``ATT_TOL`` and, in bf16,
+    two ulps; the backward within ``BWD_TOL``, fed the kernel forward's f32
+    output and lse), every launch on the instance ``instance_of`` plans by
+    the launcher's report (``counter_instance``, ``counter_bwd_instance``)
+    and, in bf16, on the tensor cores (``counter_tc``,
+    ``counter_bwd_tc``); paged every length of each span, on the grid the
+    host plans (``planned``).  Kernel, SDPA (forward, backward, dense decode;
+    a window as a boolean mask, ``windowed_sdpa``) and bound times at each
+    row's first mask, the plain version's in bf16.  D 16's bf16 numbers
+    fill the kernel table's D-16 rows; the others go under each kernel's
+    row as ``between_instances``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    def bound(nbytes, flops, dtype):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                        else "operations")
+
+    def keep(kernel, d, row):
+        if d == 16:
+            out[f"{kernel}_d16"].update(row)
+        else:
+            out[kernel].setdefault("between_instances", {})[f"d{d}"] = row
+
+    for d, b, s, h, kh, window, model in BETWEEN:
+        masks = ((True, window), (True, 0), (False, 0)) if d == 16 else \
+            ((True, 0), (False, 0), (True, window))
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            w = fa.instance_of(d, dtype)
+            design = fwd_design(fa, dtype, d)
+            q, do = (_randn((b, h, s, d), dtype, dev, i) for i in (41, 44))
+            k, v = (_randn((b, kh, s, d), dtype, dev, i) for i in (42, 43))
+            name = f"flash_attention_d{d}" if d == 16 else "flash_attention"
+            bname = ("flash_attention_bwd_d16" if d == 16
+                     else "flash_attention_bwd")
+            errs, berrs = [], []
+            for causal, win in masks:
+                kw = dict(causal=causal, window=win)
+                what = f"D {d} (instance {w}) causal={causal} window={win} " \
+                       f"{dname}"
+                i0 = dict(fa.counter_instance.by_size)
+                got = fwd_checked(fa, design, q, k, v, kw)
+                check(new_tallies(fa.counter_instance, i0) == {(d, w): 1},
+                      f"flash_attention {what}: the launcher ran "
+                      f"{new_tallies(fa.counter_instance, i0)}")
+                errs.append(compare(name, got, fa.flash_attention_ref(
+                    q, k, v, **kw), dtype, what))
+                _, lse, o = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                    **kw)
+                i0 = dict(fa.counter_bwd_instance.by_size)
+                t0 = fa.counter_bwd_tc.count
+                got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+                ran = ("tensor cores" if fa.counter_bwd_tc.count > t0
+                       else "CUDA cores")
+                check(ran == bwd_design(dname, d)
+                      and new_tallies(fa.counter_bwd_instance, i0)
+                      == {(d, w): 1},
+                      f"flash_attention_bwd {what}: ran the {ran}, "
+                      f"{new_tallies(fa.counter_bwd_instance, i0)}")
+                bad, err = grads_beyond(got, fa.flash_attention_bwd_ref(
+                    q, k, v, o, do, lse, **kw), dname)
+                check(bad == [0, 0, 0], f"flash_attention_bwd {what}: "
+                                        f"(dq, dk, dv) beyond BWD_TOL {bad}")
+                out[bname]["max_abs_err"] = max(out[bname]["max_abs_err"],
+                                                err)
+                berrs.append(err)
+                del got
+            # timed at the first mask
+            causal, win = masks[0]
+            kw = dict(causal=causal, window=win)
+            es = q.element_size()
+            pairs = flash_pairs(s, causal, win)
+            nbytes = 2 * (b * h * s * d + b * kh * s * d) * es
+            flops = 4 * b * h * d * pairs
+            fl = floor_ms(nbytes, flops)
+            ms, call = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                             5, floor=fl)
+            plain, plain_call = (
+                timed(lambda: fa.flash_attention_ref(q, k, v, **kw), 3,
+                      floor=fl) if dtype == torch.bfloat16 else (None, None))
+            lib_kernel = None
+            if win:
+                lib, lib_call, lib_kernel = windowed_sdpa(
+                    q, k, v, causal, win, fa.flash_attention_ref(q, k, v,
+                                                                 **kw), fl)
+            else:
+                lib, lib_call = timed(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True), 5,
+                    floor=fl)
+            bnd, by = bound(nbytes, flops, dtype)
+            row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by, call_ms=call, plain_call_ms=plain_call,
+                       library_call_ms=lib_call, floor_ms=fl, instance=w,
+                       design=design, library_kernel=lib_kernel,
+                       masks=[list(m) for m in masks], model=model)
+            # the backward at the same mask
+            _, lse, o = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                **kw)
+            args = (q, k, v, o, do, lse)
+            bbytes = (3 * b * h * s * d + 4 * b * kh * s * d) * es \
+                + 4 * b * h * s * d + 4 * b * h * s
+            bflops = 10 * b * h * d * pairs
+            bfl = floor_ms(bbytes, bflops)
+            bms, bcall = timed(
+                lambda: fa.flash_attention_bwd_cuda(*args, **kw), 3,
+                floor=bfl)
+            bplain, bplain_call = (
+                timed(lambda: fa.flash_attention_bwd_ref(*args, **kw), 2,
+                      floor=bfl) if dtype == torch.bfloat16 else (None, None))
+            kk, vv = (x.repeat_interleave(h // kh, 1) for x in (k, v))
+            leaves = [x.detach().requires_grad_(True) for x in (q, kk, vv)]
+            if win:
+                pos = torch.arange(s, device=dev)
+                mask = pos[None, :] > pos[:, None] - win
+                if causal:
+                    mask &= pos[None, :] <= pos[:, None]
+                ref_out = F.scaled_dot_product_attention(*leaves,
+                                                         attn_mask=mask)
+            else:
+                ref_out = F.scaled_dot_product_attention(*leaves,
+                                                         is_causal=causal)
+            blib, blib_call = timed(lambda: torch.autograd.grad(
+                ref_out, leaves, do, retain_graph=True), 3, floor=bfl)
+            del leaves, ref_out, kk, vv
+            bbnd, bby = bound(bbytes, bflops, dtype)
+            brow = dict(ms=bms, plain_ms=bplain, library_ms=blib,
+                        bound_ms=bbnd, bound_by=bby, call_ms=bcall,
+                        plain_call_ms=bplain_call, library_call_ms=blib_call,
+                        floor_ms=bfl, instance=w,
+                        design=bwd_design(dname, d),
+                        masks=[list(m) for m in masks], model=model)
+            if dtype == torch.bfloat16:
+                keep("flash_attention", d, row)
+                keep("flash_attention_bwd", d, brow)
+            say(f"  flash_attention D {d} on its {w}-column instance "
+                f"({model or 'no registered config'}) B{b} S{s} H{h} KH{kh} "
+                f"{dname} on the {design}, masks {masks}: max |diff| "
+                f"{[round(e, 6) for e in errs]}; timed causal={causal} "
+                f"window={win}: device: kernel {ms:.5f} ms, plain {plain} ms, "
+                f"SDPA {lib:.5f} ms ({lib_kernel or 'its own mask'}); bound "
+                f"{bnd:.6f} ms ({by}; floor {fl:.6f} ms) [{card}]")
+            say(f"  flash_attention_bwd D {d} on its {w}-column instance, "
+                f"{dname} on the {brow['design']}, masks {masks}: max |diff| "
+                f"{[round(e, 6) for e in berrs]} (BWD_TOL); timed at the "
+                f"first: device: kernel {bms:.5f} ms, plain {bplain} ms, SDPA "
+                f"backward {blib:.5f} ms; bound {bbnd:.6f} ms ({bby}; floor "
+                f"{bfl:.6f} ms) [{card}]")
+            del q, k, v, do, o, lse
+
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    for d, h, kh, spans, model in PAGED_BETWEEN:
+        name = "paged_attention_d16" if d == 16 else "paged_attention"
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            w = pa.instance_of(d, dtype)
+            for span in spans:
+                q = _randn((1, h, d), dtype, dev, 45)
+                kp, vp = (_randn((1, span, kh, d), dtype, dev, i)
+                          for i in (46, 47))
+                i0 = dict(pa.counter_instance.by_size)
+                err = 0.0
+                for n in range(1, span + 1):
+                    ln = torch.full((1,), n, dtype=torch.int32, device=dev)
+                    got, plan = planned(
+                        f"D {d} span {span} {dname}",
+                        lambda: pa.paged_attention_cuda(q, kp, vp, bt, ln),
+                        1, kh, h // kh, span)
+                    err = max(err, compare(
+                        name, got, pa.paged_attention_ref(q, kp, vp, bt, ln),
+                        dtype, f"D {d} span {span} length {n} {dname}"))
+                check(new_tallies(pa.counter_instance, i0) == {(d, w): span},
+                      f"paged_attention D {d}: the launcher ran "
+                      f"{new_tallies(pa.counter_instance, i0)}")
+                paged_lse_check((q, kp, vp, bt, ln),
+                                f"D {d} span {span} {dname}")
+                msg = (f"  paged_attention D {d} on its {w}-column instance "
+                       f"({model or 'no registered config'}) B1 H{h} KH{kh} "
+                       f"page {span} x 1 ({plan}), lengths 1-{span}, {dname}: "
+                       f"max |diff| {err:.3g}")
+                if span == spans[0]:
+                    args = (q, kp, vp, bt, ln)
+                    es = q.element_size()
+                    nbytes = 2 * span * kh * d * es + 2 * h * d * es + 8
+                    flops = 4 * span * h * d
+                    fl = floor_ms(nbytes, flops)
+                    ms, call = timed(lambda: pa.paged_attention_cuda(*args),
+                                     20, floor=fl)
+                    plain, plain_call = (
+                        timed(lambda: pa.paged_attention_ref(*args), 5,
+                              floor=fl)
+                        if dtype == torch.bfloat16 else (None, None))
+                    lib, lib_call = timed(
+                        lambda: F.scaled_dot_product_attention(
+                            q[:, :, None], kp.transpose(1, 2),
+                            vp.transpose(1, 2), enable_gqa=True), 20,
+                        floor=fl)
+                    bnd, by = bound(nbytes, flops, dtype)
+                    if dtype == torch.bfloat16:
+                        keep("paged_attention", d, dict(
+                            ms=ms, plain_ms=plain, library_ms=lib,
+                            bound_ms=bnd, bound_by=by, call_ms=call,
+                            plain_call_ms=plain_call,
+                            library_call_ms=lib_call, floor_ms=fl,
+                            instance=w, plan=plan, model=model))
+                    msg += (f"; device at length {span}: kernel {ms:.5f} ms, "
+                            f"plain {plain} ms, SDPA {lib:.5f} ms; bound "
+                            f"{bnd:.6f} ms ({by}; floor {fl:.6f} ms)")
+                say(msg + f" [{card}]")
+                del q, kp, vp
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3498,6 +3798,13 @@ CPU_CUT = {"kimi-k2-1t-a32b": dict(
 # card at full width)
 FLIP_MAX = 0.1
 RING = dict(n_layers=3, window=32, steps=80)   # the hybrid's ring wrap
+# recurrentgemma-9b's smoke config (head dim 16, 4 query heads on one kv
+# head, window 16, 5 layers: one attention layer), which every attention
+# kernel runs on its 32-column instance: served on the card (``serve.main
+# --smoke``, the default 16 requests), card against CPU at its own depth,
+# and its 16-row ring past the window (64 decode steps at 3 layers)
+SMOKE_ARCH = "recurrentgemma-9b"
+RING_SMOKE = dict(n_layers=3, window=16, steps=64)
 
 
 def _family_inputs(cfg, b: int, n: int, gen):
@@ -3630,7 +3937,8 @@ def decode_vs_prefill(cfg, model, params, dev, card: str,
 
 def card_vs_cpu(cfg, dev, card: str) -> None:
     """At full width, depth cut to 2 layers (the hybrid to two triples,
-    6), or as ``CPU_CUT`` says: decode against prefill on the card, held
+    6), or as ``CPU_CUT`` says (a smoke config at its own depth): decode
+    against prefill on the card, held
     to the tolerance; then the same weights on the card and on the CPU: a
     forward of 32 positions of 4 sequences (hubert: frames; phi-3-vision:
     one sequence of its 576 patches + 32 tokens; ``CPU_CUT``'s batch and
@@ -3643,9 +3951,10 @@ def card_vs_cpu(cfg, dev, card: str) -> None:
     from repro_torch.models import transformer as tfm
     from repro_torch.models.model import Model
     from repro_torch.models.moe import pinned_routing
-    over = CPU_CUT.get(cfg.name, {})
-    cut = dataclasses.replace(cfg, **{
-        "n_layers": CPU_LAYERS.get(cfg.family, 2), **over.get("cfg", {})})
+    over = CPU_CUT.get(cfg.name, {}) if not cfg.smoke else {}
+    depth = cfg.n_layers if cfg.smoke else CPU_LAYERS.get(cfg.family, 2)
+    cut = dataclasses.replace(cfg, **{"n_layers": depth,
+                                      **over.get("cfg", {})})
     mg = Model(cut, device=dev)
     pg = mg.init(torch.Generator(device=dev).manual_seed(5))
     mc, pc = Model(cut, device="cpu"), _tree_to(pg, "cpu")
@@ -3666,8 +3975,9 @@ def card_vs_cpu(cfg, dev, card: str) -> None:
     err, agree = _logits_close(lg, lc, f"{cfg.name} forward card vs CPU")
     cuts = {k: (getattr(cfg, k), v) for k, v in over.get("cfg", {}).items()
             if k != "n_layers"}
+    width = "the smoke config" if cfg.smoke else "full width"
     msg = (f"  card vs CPU (n_layers cut {cfg.n_layers} -> {cut.n_layers}, "
-           f"full width{f' but {cuts}' if cuts else ''}; forward of "
+           f"{width}{f' but {cuts}' if cuts else ''}; forward of "
            f"{lg.shape[0]} x {lg.shape[1]} positions)"
            f": max |diff| "
            f"{err:.4f}, argmax agreement {agree:.3f}")
@@ -3702,35 +4012,36 @@ def card_vs_cpu(cfg, dev, card: str) -> None:
     del pg, pc
 
 
-def ring_wrap(cfg, dev, card: str) -> None:
-    """The hybrid at full width with one triple and a 32-token window:
-    80 decode steps (the ring of 32 rows wraps twice) against the forward
-    over the same 80 tokens, both on the card: the windowed flash_attention
-    and the ring-cache paged_attention at D 256 held to each other past the
-    window."""
+def ring_wrap(cfg, dev, card: str, ring: dict = RING) -> None:
+    """The hybrid at its width (full, or the smoke config's) with
+    ``ring``'s layers and window (``RING``: one triple and a 32-token
+    window): ``ring["steps"]`` decode steps (80: the ring of 32 rows wraps
+    twice) against the forward over the same tokens, both on the card: the
+    windowed flash_attention and the ring-cache paged_attention at the
+    config's head dim held to each other past the window."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.models.model import Model
-    cut = dataclasses.replace(cfg, n_layers=RING["n_layers"],
-                              window=RING["window"])
+    cut = dataclasses.replace(cfg, n_layers=ring["n_layers"],
+                              window=ring["window"])
     m = Model(cut, device=dev)
     p = m.init(torch.Generator(device=dev).manual_seed(7))
-    n = RING["steps"]
+    n = ring["steps"]
     toks = torch.randint(0, cut.vocab, (1, n), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(8))
     full, _, _ = tfm.forward(cut, p, toks)
     st = m.init_decode_state(1, n)
-    check(st["k"].shape[2] == RING["window"], "the ring is not window rows")
+    check(st["k"].shape[2] == ring["window"], "the ring is not window rows")
     outs = []
     for t in range(n):
         lg, st = m.decode_step(p, st, toks[:, t:t + 1], t)
         outs.append(lg[:, 0])
     err, agree = _logits_close(torch.stack(outs, 1), full,
                                f"{cfg.name} ring decode vs windowed prefill")
-    say(f"  ring wrap (n_layers cut to {cut.n_layers}, window cut to "
-        f"{cut.window}, full width): {n} decode steps against the windowed "
-        f"forward: max |diff| {err:.4f}, argmax agreement {agree:.3f} "
-        f"[{card}]")
+    say(f"  ring wrap (n_layers cut to {cut.n_layers}, window "
+        f"{cut.window}, {'the smoke config' if cfg.smoke else 'full width'}"
+        f", hd {cut.hd}): {n} decode steps against the windowed forward: "
+        f"max |diff| {err:.4f}, argmax agreement {agree:.3f} [{card}]")
 
 
 def phase14_family(dev, card: str, arch: str, spec: dict) -> dict:
@@ -3916,9 +4227,57 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+def phase14_smoke(dev, card: str) -> dict:
+    """``SMOKE_ARCH``'s smoke config on the card, every attention launch
+    at head dim 16 on the 32-column instance (the launchers' reports):
+    ``serve.main --smoke`` (weights from seed 0) with the reference's
+    stats, ``card_vs_cpu`` at its own depth (decode against prefill past
+    the window on the card, then the card against the CPU) and
+    ``ring_wrap`` past its 16-token window (``RING_SMOKE``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.launch import serve
+
+    cfg = get_config(SMOKE_ARCH, smoke=True)
+    t0 = time.perf_counter()
+    f0, p0 = dict(fa.counter_instance.by_size), \
+        dict(pa.counter_instance.by_size)
+    stats = serve.main(["--arch", SMOKE_ARCH, "--smoke"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(stats == SERVE_STATS, f"{SMOKE_ARCH} --smoke serve stats {stats}, "
+                                f"the reference's are {SERVE_STATS}")
+    # the serve prefills token by token: every prompt and new token one
+    # decode step, one paged launch an attention layer
+    steps = SERVE_STATS["admitted"] * (32 + 8 - 1)
+    paged = new_tallies(pa.counter_instance, p0)
+    check(paged == {(16, 32): steps * _n_attn(cfg)},
+          f"{SMOKE_ARCH} --smoke serve: paged_attention launches by (head "
+          f"dim, instance) {paged}")
+    say(f"  serve {SMOKE_ARCH} --smoke (hd {cfg.hd}, H {cfg.n_heads}, KH "
+        f"{cfg.n_kv}, window {cfg.window}, {cfg.n_layers} layers; 16 "
+        f"requests): stats {stats} == the reference's; {wall:.3f} s "
+        f"(weights init included), {wall / steps * 1e3:.3f} ms a decode "
+        f"step; paged_attention launches by (head dim, instance) {paged} "
+        f"[{card}]")
+    card_vs_cpu(cfg, dev, card)
+    ring_wrap(cfg, dev, card, RING_SMOKE)
+    flash = new_tallies(fa.counter_instance, f0)
+    check(set(flash) == {(16, 32)},
+          f"{SMOKE_ARCH} smoke forwards: flash_attention launches by (head "
+          f"dim, instance) {flash}")
+    say(f"  {SMOKE_ARCH} smoke forwards on the card: flash_attention "
+        f"launches by (head dim, instance) {flash} [{card}]")
+    return {"serve_s": wall, "wall_s": time.perf_counter() - t0}
+
+
 def phase14_families(dev, card: str) -> dict:
-    return {arch: phase14_family(dev, card, arch, spec)
-            for arch, spec in PHASE14.items()}
+    out = {arch: phase14_family(dev, card, arch, spec)
+           for arch, spec in PHASE14.items()}
+    out[f"{SMOKE_ARCH} (smoke)"] = phase14_smoke(dev, card)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4161,7 +4520,7 @@ def train_family(dev, card: str, arch: str, spec: dict) -> dict:
           f"train {arch}: {bwd_tc} of {bwd} backwards a step on the tensor "
           f"cores at D {cfg.head_dim}, expected the {design}")
     # every layer's backward has the step's shape, so one dK/dV plan
-    plans = new_plans(fa, plans0)
+    plans = list(new_tallies(fa.counter_bwd_plan, plans0))
     check(len(plans) == (1 if n_attn else 0),
           f"train {arch}: dK/dV plans {plans}")
     plan = plans[0] if plans else None
@@ -4393,6 +4752,20 @@ def phase15_train(dev, card: str) -> dict:
           f"launches on the card, {ran_tc} on the tensor cores")
     say(f"  {arch} D 112 training on the card: {ran} flash_attention_bwd "
         f"D 112 launches, all on the tensor cores [{card}]")
+
+    # head dim 16 (recurrentgemma-9b's smoke config) in training: the
+    # backward's 32-column instance, columns 16-31 zero-filled
+    i0, t16 = (dict(fa.counter_bwd_instance.by_size),
+               fa.counter_bwd_tc.by_size.get(16, 0))
+    train_vs_cpu(dev, card, SMOKE_ARCH, get_config(SMOKE_ARCH, smoke=True))
+    ran = new_tallies(fa.counter_bwd_instance, i0)
+    ran_tc = fa.counter_bwd_tc.by_size.get(16, 0) - t16
+    check(set(ran) == {(16, 32)} and ran_tc == ran[(16, 32)],
+          f"{SMOKE_ARCH} --smoke training: flash_attention_bwd launches by "
+          f"(head dim, instance) {ran}, {ran_tc} on the tensor cores")
+    say(f"  {SMOKE_ARCH} smoke (D 16) training on the card: "
+        f"flash_attention_bwd launches by (head dim, instance) {ran}, all "
+        f"on the tensor cores [{card}]")
     return out
 
 
@@ -4966,8 +5339,11 @@ def main() -> int:
     say(f"  (t = {time.perf_counter() - t_start:.1f} s)")
     att = phase1_attention(dev, card)
 
-    for c in (*counters.values(), fa.counter_tc, fa.counter_bwd_tc,
-              fa.counter_bwd_plan):
+    instances = {"flash_attention": fa.counter_instance,
+                 "flash_attention_bwd": fa.counter_bwd_instance,
+                 "paged_attention": pa.counter_instance}
+    for c in (*counters.values(), *instances.values(), fa.counter_tc,
+              fa.counter_bwd_tc, fa.counter_bwd_plan):
         c.reset()              # the main paths' runs start here
     per_phase = {1: {n: 0 for n in counters}}
     steps = (
@@ -5051,6 +5427,30 @@ def main() -> int:
     for name in ("flash_attention", "paged_attention", "flash_attention_bwd"):
         by_d = dict(sorted(counters[name].by_size.items()))
         say(f"  {name} main-path launches by head dim: {by_d}")
+        # each head dim on the instance its plan names; every published
+        # config's head dim that runs this kernel launched, on its own
+        # instance (no published path runs zero columns); D 16 (the smoke
+        # recurrentgemma-9b) on the 32-column instance
+        ops = pa if name == "paged_attention" else fa
+        by_inst = dict(sorted(instances[name].by_size.items()))
+        say(f"  {name} main-path launches by (head dim, instance): {by_inst}")
+        check(sum(by_inst.values()) == counters[name].count,
+              f"{name}: {sum(by_inst.values())} launches by instance, "
+              f"{counters[name].count} in all")
+        for (d, w), n in by_inst.items():
+            check(w == ops.instance_of(d, torch.float32),
+                  f"{name} D {d} ran on the {w}-column instance, its plan "
+                  f"names {ops.instance_of(d, torch.float32)}")
+        published = published_head_dims(decode=name == "paged_attention")
+        ran = {d: w for d, w in by_inst if d in published}
+        check(ran == {d: d for d in published},
+              f"{name}: the published head dims {published} ran on the "
+              f"instances {ran}")
+        say(f"  {name}: every published head dim {published} ran on its "
+            f"own instance; D 16 on {[w for d, w in by_inst if d == 16]}")
+        check(by_inst.get((16, 32), 0) > 0,
+              f"{name} D 16 did not run on the 32-column instance on the "
+              f"main path")
     moe_dispatch = wcc.counter.by_tag.get("moe_dispatch", 0)
     say(f"  wc_combine main-path launches from the MoE dispatch: "
         f"{moe_dispatch}, from everything else (graph replays included): "
@@ -5113,12 +5513,16 @@ def main() -> int:
                "library_call_ms": t["library_call_ms"],
                "head_dim": meta["d"], "shape_of": meta["main"]}
         for key in ("design", "ms_by_entry", "library_kernel", "ptxas",
-                    "smem_bytes", "plan", "ring"):
+                    "smem_bytes", "plan", "ring", "instance", "floor_ms",
+                    "between_instances"):
             if t.get(key) is not None:
                 row[key] = t[key]
         if kernel == name:
             row["launches_by_head_dim"] = dict(sorted(
                 counters[name].by_size.items()))
+            row["launches_by_instance"] = {
+                f"{d}->{w}": n for (d, w), n
+                in sorted(instances[name].by_size.items())}
         if kernel == "flash_attention_bwd":
             row["launches_tensor_cores"] = (
                 fa.counter_bwd_tc.count if kernel == name

@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["SOURCES", "LaunchCounter", "launch_tag", "build", "library",
            "library_path", "check", "stream_of", "require_cuda",
-           "require_cuda_views"]
+           "require_cuda_views", "head_dim_instance"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -198,3 +198,21 @@ def require_cuda_views(what: str, named: dict, dtypes, ndims: dict,
                              f"16-byte boundaries, got strides {t.stride()} "
                              f"at address {t.data_ptr():#x}")
 
+
+def head_dim_instance(what: str, d: int, dtype: torch.dtype,
+                      instances: tuple[int, ...]) -> int:
+    """The compiled width (of ``instances``, ascending) on which an
+    attention kernel runs head dim ``d`` in ``dtype``: the smallest at or
+    above ``d``.  The kernel reads columns ``d`` and beyond as zeros and
+    stores none of them.  Raise ``ValueError`` where no instance takes
+    ``d``: above the widest, or where a row of ``d`` elements is not a
+    whole number of the 16-byte chunks the kernels load."""
+    if d < 1 or d > instances[-1]:
+        raise ValueError(f"{what}: head dim {d} is outside 1..{instances[-1]}"
+                         f" (the widest compiled instance of {instances})")
+    if d * dtype.itemsize % 16:
+        raise ValueError(f"{what}: head dim {d} in {dtype} is a row of "
+                         f"{d * dtype.itemsize} bytes, not a multiple of the "
+                         f"16-byte chunks the kernel loads (a multiple of "
+                         f"{16 // dtype.itemsize} elements)")
+    return next(w for w in instances if w >= d)

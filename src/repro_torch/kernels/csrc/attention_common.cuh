@@ -12,6 +12,13 @@
 // reaching 16 columns past the row, which TMA fills with zeros (Cols<D>):
 // both flash kernels, forward and backward, load and read their tiles
 // through the same helpers.
+//
+// Each kernel is compiled at a few widths W, its instances; a head dim D
+// up to 256 whose rows are whole 16-byte chunks runs on the smallest W at
+// or above it.  The tensor maps cover the view's true D columns in W's
+// boxes (encode_cols), so TMA fills every tile's columns D .. W - 1 with
+// zeros, every product runs at W over those zeros (which add nothing),
+// and no kernel stores a column at or past D.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
@@ -55,7 +62,7 @@ constexpr int kErrTensorMap = -1;  // cuTensorMapEncodeTiled refused a map
 // Hopper: tiles in shared memory, TMA, wgmma
 // ---------------------------------------------------------------------------
 
-// the head dims at which bf16 runs the tensor-core kernels (every one; f32
+// the instances at which bf16 runs the tensor-core kernels (every one; f32
 // runs the CUDA cores): both directions load a row of D 80 or 96 as a
 // whole box and a narrower tail box, and one of D 112 as two whole boxes
 // (Cols<D>); at D 256 each direction
@@ -580,28 +587,25 @@ inline bool encode_box(CUtensorMap* map, const void* ptr, int cols, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// a map over the bf16 (D, S, heads, B) view at `ptr` in the boxes of a
-// tile with D columns (Swz<D>; at D 112 the second box reads 16 zero
-// columns past the row)
+// the maps of a tile of the instance with D columns and `rows` rows over
+// the bf16 (cols, S, heads, B) view at `ptr`, cols <= D (Cols<D>): the
+// main part's boxes over the view's first min(cols, MAIN) columns into
+// `map` and, at D 80 and 96, the tail box over the view from column MAIN
+// on (cols > MAIN there) into `tail`, which is left as it is otherwise.
+// Columns cols .. D - 1 of every box read as zeros (at D 112 and cols 112,
+// the second box's last 16).
 template <int D>
-bool encode(CUtensorMap* map, const void* ptr, int S, int heads, int B,
-            Strides st, int rows) {
-  using W = Swz<D>;
-  return encode_box(map, ptr, D, S, heads, B, st, rows, W::AC, W::SW);
-}
-
-// the maps of a tile with D columns and `rows` rows over the bf16 (D, S,
-// heads, B) view at `ptr` (Cols<D>): the main part's into `map` and, at D
-// 80 and 96, the tail box's (the view from column MAIN on) into `tail`,
-// which is left as it is otherwise
-template <int D>
-bool encode_cols(CUtensorMap* map, CUtensorMap* tail, const void* ptr, int S,
-                 int heads, int B, Strides st, int rows) {
+bool encode_cols(CUtensorMap* map, CUtensorMap* tail, const void* ptr,
+                 int cols, int S, int heads, int B, Strides st, int rows) {
   using C = Cols<D>;
-  if (!encode<C::MAIN>(map, ptr, S, heads, B, st, rows)) return false;
+  using W = Swz<C::MAIN>;
+  if (!encode_box(map, ptr, cols < C::MAIN ? cols : C::MAIN, S, heads, B, st,
+                  rows, W::AC, W::SW))
+    return false;
   if constexpr (C::TAIL > 0)
-    return encode_box(tail, static_cast<const __nv_bfloat16*>(ptr) + C::MAIN,
-                      C::TAIL, S, heads, B, st, rows, C::TAIL, C::TSW);
+    return cols > C::MAIN &&
+           encode_box(tail, static_cast<const __nv_bfloat16*>(ptr) + C::MAIN,
+                      cols - C::MAIN, S, heads, B, st, rows, C::TAIL, C::TSW);
   return true;
 }
 

@@ -19,6 +19,15 @@
 // (B 2, S 4096, H 16, KH 8, D 128, causal) that is about 137 GFLOP,
 // 0.14 ms in bf16: operations bound.
 //
+// Instances.  Each design is compiled at the widths W 32, 64, 80, 96, 112,
+// 128 and 256, and a head dim D (at most 256, its rows whole 16-byte
+// chunks) runs on the smallest W at or above it, the launcher's caller
+// choosing it (ops.py's instance_of) and the kernel taking D at run time:
+// columns D .. W - 1 of every tile load as zeros (TMA's out-of-bounds fill
+// past the tensor maps' D columns, or the CUDA-core loads), every product
+// runs at W over them, exact since they add nothing, and no column at or
+// past D is stored.  Every published head dim is an instance of its own.
+//
 // bf16 design (tensor cores), at D 32, 64, 80, 96, 112, 128 and 256.  One
 // block
 // per (128-query tile, head, batch): two consumer warpgroups of 64 query
@@ -128,9 +137,10 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
-             float* __restrict__ lse, int H, int KH, int S, Strides qs,
-             Strides ks, Strides vs, Strides os, int causal, int window,
-             float scale) {
+             float* __restrict__ lse, int H, int KH, int S, int hd,
+             Strides qs, Strides ks, Strides vs, Strides os, int causal,
+             int window, float scale) {
+  // D: the instance's width; hd <= D: the head dim, columns past it zeros
   constexpr int LQ = D + 1, LK = D + 1, LV = D, LP = kBK + 1;
   // V elements per 16-byte chunk, C chunks per row, NJ output columns a
   // thread
@@ -152,7 +162,7 @@ flash_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < kBQ * C; idx += kThreads) {
     const int r = idx / C, c = idx % C, pos = q0 + r;
     float e[V];
-    if (pos < S) {
+    if (pos < S && c * V < hd) {
       load_chunk(qb + pos * qs.s + c * V, e);
     } else {
 #pragma unroll
@@ -183,7 +193,7 @@ flash_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < kBK * C; idx += kThreads) {
       const int r = idx / C, c = idx % C, pos = k0 + r;
       float ek[V], ev[V];
-      if (pos < S) {
+      if (pos < S && c * V < hd) {
         load_chunk(kb + pos * ks.s + c * V, ek);
         load_chunk(vb + pos * vs.s + c * V, ev);
       } else {
@@ -273,7 +283,8 @@ flash_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        ob[qpos * os.s + tx + 16 * j] = acc[i][j] / denom;
+        if (tx + 16 * j < hd)
+          ob[qpos * os.s + tx + 16 * j] = acc[i][j] / denom;
       if (lse != nullptr && tx == 0)
         lse[(static_cast<long long>(b) * H + h) * S + qpos] =
             m[i] + logf(denom);
@@ -325,7 +336,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk_tail,
                const __grid_constant__ CUtensorMap tv_tail,
                __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
-               float* __restrict__ lse, int H, int KH, int B, int S,
+               float* __restrict__ lse, int H, int KH, int B, int S, int hd,
                Strides os, int causal, int window,
                float scale_log2) {
   using G = Geom<D>;
@@ -485,8 +496,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
   float* o32b = o32 == nullptr ? nullptr : o32 + b * os.b + h * os.h;
-  // columns (col, col + 1) of row `row`
+  // columns (col, col + 1) of row `row`, none at or past hd (even, as col)
   auto store = [&](float x0, float x1, int row, int col) {
+    if (col >= hd) return;
     const float2 x = make_float2(x0, x1);
     const long long at = row * os.s + col;
     *reinterpret_cast<__nv_bfloat162*>(ob + at) =
@@ -518,7 +530,8 @@ using attn::kTensorCoresFwd;
 
 template <int D>
 int launch_cc(const void* q, const void* k, const void* v, void* o,
-              float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
+              float* lse, int B, int H, int KH, int S, int hd, Strides qs,
+              Strides ks,
               Strides vs, Strides os, int causal, int window, float scale,
               cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
@@ -530,22 +543,23 @@ int launch_cc(const void* q, const void* k, const void* v, void* o,
   flash_fwd_cc<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, KH, S,
-      qs, ks, vs, os, causal, window, scale);
+      hd, qs, ks, vs, os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* o32, float* lse, int B, int H, int KH, int S, Strides qs,
-                Strides ks, Strides vs, Strides os, int causal, int window,
-                float scale, cudaStream_t stream) {
-  // at D 80 and 96 each map has a tail map over its view from column 64 on
-  // (at D 112 none: the main map's second box reads past the row as zeros)
+                float* o32, float* lse, int B, int H, int KH, int S, int hd,
+                Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                int window, float scale, cudaStream_t stream) {
+  // maps over the views' hd columns in the instance's boxes; at D 80 and
+  // 96 each has a tail map over its view from column 64 on (at D 112 none:
+  // the main map's second box reads past the row as zeros)
   CUtensorMap tq, tk, tv, tq_tail{}, tk_tail{}, tv_tail{};
   using G = tc::Geom<D>;
-  if (!attn::encode_cols<D>(&tq, &tq_tail, q, S, H, B, qs, tc::kBQ) ||
-      !attn::encode_cols<D>(&tk, &tk_tail, k, S, KH, B, ks, tc::kBK) ||
-      !attn::encode_cols<D>(&tv, &tv_tail, v, S, KH, B, vs, tc::kBK))
+  if (!attn::encode_cols<D>(&tq, &tq_tail, q, hd, S, H, B, qs, tc::kBQ) ||
+      !attn::encode_cols<D>(&tk, &tk_tail, k, hd, S, KH, B, ks, tc::kBK) ||
+      !attn::encode_cols<D>(&tv, &tv_tail, v, hd, S, KH, B, vs, tc::kBK))
     return kErrTensorMap;
   const long long blocks =
       static_cast<long long>((S + tc::kBQ - 1) / tc::kBQ) * H * B;
@@ -558,25 +572,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   tc::flash_fwd_bf16<D><<<static_cast<unsigned>(blocks), G::THREADS, bytes,
                           stream>>>(
       tq, tk, tv, tq_tail, tk_tail, tv_tail, static_cast<__nv_bfloat16*>(o),
-      o32, lse, H, KH, B, S, os, causal, window,
+      o32, lse, H, KH, B, S, hd, os, causal, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
-// *design: 1 for the tensor-core kernel, 0 for the CUDA-core one
+// the instance of width D at head dim hd; *design: 1 for the tensor-core
+// kernel, 0 for the CUDA-core one
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           float* o32, float* lse, int B, int H, int KH, int S, Strides qs, Strides ks,
-           Strides vs, Strides os, int causal, int window, float scale,
-           int* design, cudaStream_t stream) {
+           float* o32, float* lse, int B, int H, int KH, int S, int hd,
+           Strides qs, Strides ks, Strides vs, Strides os, int causal,
+           int window, float scale, int* design, cudaStream_t stream) {
   static_assert(kTensorCoresFwd<D>, "bf16 runs the tensor cores at every D");
   *design = 0;
   if (dtype == 0)  // the output is f32 itself
-    return launch_cc<D>(q, k, v, o, lse, B, H, KH, S, qs, ks, vs, os, causal,
-                        window, scale, stream);
+    return launch_cc<D>(q, k, v, o, lse, B, H, KH, S, hd, qs, ks, vs, os,
+                        causal, window, scale, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   *design = 1;
-  return launch_bf16<D>(q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, os,
+  return launch_bf16<D>(q, k, v, o, o32, lse, B, H, KH, S, hd, qs, ks, vs, os,
                         causal, window, scale, stream);
 }
 
@@ -586,26 +601,33 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // Strides are in elements; the D axis is contiguous and every row starts on
 // a 16-byte boundary.  lse: f32 (B, H, S) contiguous, or nullptr.  o32: in
 // bf16, f32 with out's element strides, or nullptr; ignored in f32.
-// *design is set to the design launched: 1 = the tensor-core kernel (bf16
-// at every D), 0 = the CUDA-core one (f32).
+// D is the head dim, W the instance it runs on (a width below, D <= W,
+// D's rows whole 16-byte chunks).  *design is set to the design launched:
+// 1 = the tensor-core kernel (bf16 at every W), 0 = the CUDA-core one
+// (f32); *instance to the W it dispatched on.
 extern "C" int flash_attention_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
-    void* o, int B, int H, int KH, int S, int D, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, long long osb, long long oss, long long osh,
+    void* o, int B, int H, int KH, int S, int D, int W, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, long long osb, long long oss,
+    long long osh,
     int causal, int window, float scale, float* lse, float* o32, int* design,
-    cudaStream_t stream) {
+    int* instance, cudaStream_t stream) {
   *design = 0;
+  *instance = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0 || H == 0) return 0;
+  if (D < 1 || D > W || D * (dtype ? 2 : 4) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
-  switch (D) {
-#define FLASH_CASE(DD)                                                     \
-  case DD:                                                                 \
-    return launch<DD>(dtype, q, k, v, o, o32, lse, B, H, KH, S, qs, ks, vs, \
-                      os, causal, window, scale, design, stream);
+  switch (W) {
+#define FLASH_CASE(WW)                                                      \
+  case WW:                                                                  \
+    *instance = WW;                                                         \
+    return launch<WW>(dtype, q, k, v, o, o32, lse, B, H, KH, S, D, qs, ks,   \
+                      vs, os, causal, window, scale, design, stream);
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(80)
@@ -619,7 +641,8 @@ extern "C" int flash_attention_launch(
   }
 }
 
-// dynamic shared memory of one block (dtype as above), 0 for an unknown D
+// dynamic shared memory of one block of the instance of width D (dtype as
+// above), 0 for an unknown width
 extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   switch (D) {
 #define FLASH_SMEM(DD)                                          \

@@ -39,6 +39,13 @@
 // are recomputed in both passes: 7 products where an atomic dQ would take
 // 5, which keeps every output owned by one block.
 //
+// Instances: as in the forward, each kernel is compiled at the widths W
+// 32, 64, 80, 96, 112, 128 and 256, and a head dim D runs on the smallest
+// W at or above it with D as a run-time argument: the loads fill columns
+// D .. W - 1 with zeros (TMA's fill past the maps' D columns; the f32
+// staging), the products run at W over them, delta sums D columns, and no
+// gradient column at or past D is stored.  Below, D is the instance's W.
+//
 // bf16 at every D (32, 64, 80, 96, 112, 128 and 256): tensor cores.  Both
 // passes have the forward's shape: blocks of 384 threads, two consumer
 // warpgroups and a producer warpgroup, one warp of which issues the TMA
@@ -156,17 +163,18 @@ struct Cfg {
   static_assert(SMEM_DKDV <= 232448 && SMEM_DQ <= 232448, "shared memory");
 };
 
-// rows [pos0, pos0 + rows) of a (S, D) slice at `src` (row stride
-// `stride`) into `dst` as f32 with row pitch D + 1; rows past S as zeros
+// rows [pos0, pos0 + rows) of a (S, hd) slice at `src` (row stride
+// `stride`) into `dst` as f32 with row pitch D + 1; rows past S and
+// columns hd .. D - 1 as zeros
 template <typename T, int D, int NT>
 __device__ __forceinline__ void stage(float* dst, const T* src,
                                       long long stride, int pos0, int rows,
-                                      int S) {
+                                      int S, int hd) {
   constexpr int V = 16 / sizeof(T), C = D / V;
   for (int idx = threadIdx.x; idx < rows * C; idx += NT) {
     const int r = idx / C, c = idx % C, pos = pos0 + r;
     float e[V];
-    if (pos < S) {
+    if (pos < S && c * V < hd) {
       load_chunk(src + pos * stride + c * V, e);
     } else {
 #pragma unroll
@@ -197,14 +205,15 @@ __device__ __forceinline__ bool unmasked(int qpos, int kpos, int S,
          (window <= 0 || kpos > qpos - window);
 }
 
-// (a) delta[b, h, s] = sum_d dO * o, o in f32; 4 warps a block, one row a
-// warp
+// (a) delta[b, h, s] = sum_d dO * o over the hd <= D columns, o in f32; 4
+// warps a block, one row a warp
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
 flash_bwd_delta(const float* __restrict__ o, const T* __restrict__ dout,
-                float* __restrict__ delta, int H, int S, long long rows,
-                Strides os, Strides ds) {
-  constexpr int V = 16 / sizeof(T), C = D / V;
+                float* __restrict__ delta, int H, int S, int hd,
+                long long rows, Strides os, Strides ds) {
+  constexpr int V = 16 / sizeof(T);
+  const int C = hd / V;
   const long long row = blockIdx.x * 4ll + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -235,7 +244,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int H, int KH, int B,
-               int S, Strides qs, Strides ks, Strides vs, Strides ds,
+               int S, int hd, Strides qs, Strides ks, Strides vs, Strides ds,
                Strides dks, Strides dvs, int causal, int window,
                float scale) {
   using C = Cfg<D>;
@@ -257,8 +266,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = kt * BK;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  stage<T, D, NT>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BK, S);
-  stage<T, D, NT>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BK, S);
+  stage<T, D, NT>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BK, S, hd);
+  stage<T, D, NT>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BK, S, hd);
 
   // the query tiles holding a query that sees a key of this tile
   const int kmax = min(k0 + BK, S) - 1;
@@ -278,8 +287,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       const int h = hk * g + hh;
       const long long bh = static_cast<long long>(b) * H + h;
       __syncthreads();  // the previous tile's Q, dO, P, dS are read
-      stage<T, D, NT>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BQ, S);
-      stage<T, D, NT>(dOs, dout + b * ds.b + h * ds.h, ds.s, q0, BQ, S);
+      stage<T, D, NT>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BQ, S, hd);
+      stage<T, D, NT>(dOs, dout + b * ds.b + h * ds.h, ds.s, q0, BQ, S, hd);
       stage_rows<NT>(lse_s, delta_s, lse + bh * S, delta + bh * S, q0, BQ,
                      S);
       __syncthreads();
@@ -376,6 +385,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     if (kpos < S) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
+        if (tx + 16 * j >= hd) continue;
         dkb[kpos * dks.s + tx + 16 * j] = from_f32<T>(akk[i][j] * scale);
         dvb[kpos * dvs.s + tx + 16 * j] = from_f32<T>(avv[i][j]);
       }
@@ -389,9 +399,9 @@ __global__ void __launch_bounds__(Cfg<D>::NT)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int H, int KH, int B, int S, Strides qs,
-             Strides ks, Strides vs, Strides ds, Strides dqs, int causal,
-             int window, float scale) {
+             T* __restrict__ dq, int H, int KH, int B, int S, int hd,
+             Strides qs, Strides ks, Strides vs, Strides ds, Strides dqs,
+             int causal, int window, float scale) {
   using C = Cfg<D>;
   constexpr int L = C::L, LS = C::BK + 1, RQ = C::RQ, CK = C::CK,
                 NJ = C::NJ, BQ = C::BQ, BK = C::BK, NT = C::NT;
@@ -412,8 +422,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long bh = static_cast<long long>(b) * H + h;
 
-  stage<T, D, NT>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BQ, S);
-  stage<T, D, NT>(dOs, dout + b * ds.b + h * ds.h, ds.s, q0, BQ, S);
+  stage<T, D, NT>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BQ, S, hd);
+  stage<T, D, NT>(dOs, dout + b * ds.b + h * ds.h, ds.s, q0, BQ, S, hd);
   stage_rows<NT>(lse_s, delta_s, lse + bh * S, delta + bh * S, q0, BQ, S);
 
   // key tiles holding an unmasked key for some row of the tile
@@ -430,8 +440,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's K, V and dS are read
-    stage<T, D, NT>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BK, S);
-    stage<T, D, NT>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BK, S);
+    stage<T, D, NT>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BK, S, hd);
+    stage<T, D, NT>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BK, S, hd);
     __syncthreads();
 
     // P = exp(scale Q K^T - lse) under the masks
@@ -511,7 +521,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     if (qpos < S) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        dqb[qpos * dqs.s + tx + 16 * j] = from_f32<T>(aq[i][j] * scale);
+        if (tx + 16 * j < hd)
+          dqb[qpos * dqs.s + tx + 16 * j] = from_f32<T>(aq[i][j] * scale);
     }
   }
 }
@@ -620,18 +631,18 @@ __device__ __forceinline__ void bar_arrive(int id) {
 
 // rows kr0 and kr0 + 8 of an accumulator of N columns times `scale`,
 // columns (c0, c0 + 1) of each 8-column group, stored as bf16 from column
-// col0 of `dst` (row stride `stride`)
+// col0 of `dst` (row stride `stride`), but none at or past column hd
+// (even, as every column pair's first)
 template <int N>
 __device__ __forceinline__ void store_cols(__nv_bfloat16* dst,
                                            long long stride, int kr0, int c0,
                                            int S, const float (&acc)[N / 2],
-                                           int col0, float scale) {
+                                           int col0, float scale, int hd) {
 #pragma unroll
   for (int j = 0; j < N / 2; j += 2) {
-    const int row = kr0 + 8 * ((j >> 1) & 1);
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row * stride + col0 +
-                                         8 * (j / 4) + c0) =
+    const int row = kr0 + 8 * ((j >> 1) & 1), col = col0 + 8 * (j / 4) + c0;
+    if (row < S && col < hd)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * stride + col) =
           __floats2bfloat162_rn(acc[j] * scale, acc[j + 1] * scale);
   }
 }
@@ -643,17 +654,17 @@ __device__ __forceinline__ void store_rows(
     __nv_bfloat16* dst, long long stride, int kr0, int c0, int S,
     const float (&acc)[Cols<D>::MAIN / 2],
     const float (&acc_t)[Cols<D>::TAIL > 0 ? Cols<D>::TAIL / 2 : 1],
-    float scale) {
+    float scale, int hd) {
   using C = Cols<D>;
-  store_cols<C::MAIN>(dst, stride, kr0, c0, S, acc, 0, scale);
+  store_cols<C::MAIN>(dst, stride, kr0, c0, S, acc, 0, scale, hd);
   if constexpr (C::TAIL > 0)
-    store_cols<C::TAIL>(dst, stride, kr0, c0, S, acc_t, C::MAIN, scale);
+    store_cols<C::TAIL>(dst, stride, kr0, c0, S, acc_t, C::MAIN, scale, hd);
 }
 
 // (b) dK and dV of one (key tile, group of a kv head's query heads, kv
 // head, batch); one group (n_groups 1) but at D 256, where n_groups > 1
 // makes each group write its f32 partial sums to `part` ([dK, dV][group]
-// [B][KH][S][D]) for (d) to add up
+// [B][KH][S][hd]) for (d) to add up
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
@@ -668,9 +679,9 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
-                    int H, int KH, int B, int S, int n_groups, Strides dks,
-                    Strides dvs, int causal, int window, float scale,
-                    float scale_log2) {
+                    int H, int KH, int B, int S, int hd, int n_groups,
+                    Strides dks, Strides dvs, int causal, int window,
+                    float scale, float scale_log2) {
   using G = Geom<D>;
   using C = Cols<D>;
   constexpr int OWN = G::OWN_ROWS, STAGES = G::STAGES;
@@ -831,22 +842,21 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
     if (n_groups == 1) {
       if (wg == 0)
         store_rows<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, kr0, c0, S, acc,
-                      unused, 1.f);
+                      unused, 1.f, hd);
       else
         store_rows<D>(dk + b * dks.b + hk * dks.h, dks.s, kr0, c0, S, acc,
-                      unused, scale);
+                      unused, scale, hd);
       return;
     }
     float* dst = part + ((static_cast<long long>(wg == 0) * n_groups + grp) *
                              B * KH + b * KH + hk) *
-                            S * D;
+                            S * hd;
 #pragma unroll
     for (int j = 0; j < D / 2; j += 2) {
-      const int row = kr0 + 8 * ((j >> 1) & 1);
-      if (row < S)
-        *reinterpret_cast<float2*>(dst + static_cast<long long>(row) * D +
-                                   8 * (j / 4) + c0) =
-            make_float2(acc[j], acc[j + 1]);
+      const int row = kr0 + 8 * ((j >> 1) & 1), col = 8 * (j / 4) + c0;
+      if (row < S && col < hd)
+        *reinterpret_cast<float2*>(dst + static_cast<long long>(row) * hd +
+                                   col) = make_float2(acc[j], acc[j + 1]);
     }
   } else {
     // warpgroup wg owns keys [wk0, wk0 + 64)
@@ -939,9 +949,9 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
 
     if (wk0 >= S) return;
     store_rows<D>(dk + b * dks.b + hk * dks.h, dks.s, kr0, c0, S, acc_k,
-                  acc_kt, scale);
+                  acc_kt, scale, hd);
     store_rows<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, kr0, c0, S, acc_v,
-                  acc_vt, 1.f);
+                  acc_vt, 1.f, hd);
   }
 }
 
@@ -959,7 +969,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dq, int H, int KH, int B, int S,
-                  Strides dqs, int causal, int window, float scale,
+                  int hd, Strides dqs, int causal, int window, float scale,
                   float scale_log2) {
   using G = Geom<D>;
   using C = Cols<D>;
@@ -1105,7 +1115,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     }
 
     store_cols<D / 2>(dq + b * dqs.b + h * dqs.h, dqs.s, r0, c0, S, acc,
-                      wg * (D / 2), scale);
+                      wg * (D / 2), scale, hd);
   } else {
     int wlo = 0, whi = 0;  // this warpgroup's key tiles (none past S)
     if (wr_lo < S) key_tiles<kRows>(wr_lo, wr_hi, S, causal, window, wlo, whi);
@@ -1176,21 +1186,22 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
 
     if (wr_lo >= S) return;
     store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, r0, c0, S, acc, acc_t,
-                  scale);
+                  scale, hd);
   }
 }
 
 // (d) dK and dV of a dK/dV pass split over n_groups head groups: each
 // element the sum of the groups' f32 partials (`part`, [dK, dV][group][B]
-// [KH][S][D]) in group order, dK times `scale`, rounded once; a thread
+// [KH][S][hd]) in group order, dK times `scale`, rounded once; a thread
 // takes 4 columns of a row of dK or dV
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_reduce_bf16(const float* __restrict__ part,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int n_groups, int B,
-                      int KH, int S, Strides dks, Strides dvs, float scale) {
-  constexpr int CH = D / 4;  // chunks a row
+                      int KH, int S, int hd, Strides dks, Strides dvs,
+                      float scale) {
+  const int CH = hd / 4;  // chunks a row
   const long long rows = static_cast<long long>(B) * KH * S;
   const long long chunks = rows * CH;  // of dK, and of dV
   const long long idx = blockIdx.x * 256ll + threadIdx.x;
@@ -1198,11 +1209,11 @@ flash_bwd_reduce_bf16(const float* __restrict__ part,
   const int which = idx >= chunks;  // 0: dK, 1: dV
   const long long e = idx - which * chunks, row = e / CH;
   const int col = static_cast<int>(e % CH) * 4;
-  const float* src = part + (which * n_groups * rows + row) * D + col;
+  const float* src = part + (which * n_groups * rows + row) * hd + col;
   float4 a = *reinterpret_cast<const float4*>(src);
   for (int grp = 1; grp < n_groups; ++grp) {
     const float4 x =
-        *reinterpret_cast<const float4*>(src + grp * rows * D);
+        *reinterpret_cast<const float4*>(src + grp * rows * hd);
     a.x += x.x;
     a.y += x.y;
     a.z += x.z;
@@ -1237,12 +1248,12 @@ struct Views {
 
 template <typename T, int D>
 int launch_delta(const float* o, const void* dout, float* delta, int B,
-                 int H, int S, const Views& st, cudaStream_t stream) {
+                 int H, int S, int hd, const Views& st, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * H * S;
   const long long blocks = (rows + 3) / 4;
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   flash_bwd_delta<T, D><<<static_cast<unsigned>(blocks), 128, 0, stream>>>(
-      o, static_cast<const T*>(dout), delta, H, S, rows, st.o, st.dout);
+      o, static_cast<const T*>(dout), delta, H, S, hd, rows, st.o, st.dout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1250,7 +1261,7 @@ int launch_delta(const float* o, const void* dout, float* delta, int B,
 template <int D>
 int launch_cc(const void* q, const void* k, const void* v, const float* o,
               const void* dout, const float* lse, float* delta, void* dq,
-              void* dk, void* dv, int B, int H, int KH, int S,
+              void* dk, void* dv, int B, int H, int KH, int S, int hd,
               const Views& st, int causal, int window, float scale,
               int* plan, cudaStream_t stream) {
   using T = float;
@@ -1267,7 +1278,7 @@ int launch_cc(const void* q, const void* k, const void* v, const float* o,
   plan[0] = 1;
   plan[1] = static_cast<int>(n_dkdv);
 
-  int code = launch_delta<T, D>(o, dout, delta, B, H, S, st, stream);
+  int code = launch_delta<T, D>(o, dout, delta, B, H, S, hd, st, stream);
   if (code != 0) return code;
 
   cudaError_t err = cudaFuncSetAttribute(
@@ -1277,8 +1288,8 @@ int launch_cc(const void* q, const void* k, const void* v, const float* o,
   flash_bwd_dkdv<T, D><<<static_cast<unsigned>(n_dkdv), C::NT, C::SMEM_DKDV,
                          stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      H, KH, B, S, st.q, st.k, st.v, st.dout, st.dk, st.dv, causal, window,
-      scale);
+      H, KH, B, S, hd, st.q, st.k, st.v, st.dout, st.dk, st.dv, causal,
+      window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -1288,19 +1299,20 @@ int launch_cc(const void* q, const void* k, const void* v, const float* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq<T, D><<<static_cast<unsigned>(n_dq), C::NT, C::SMEM_DQ,
                        stream>>>(tq, tk, tv, tdo, lse, delta,
-                                 static_cast<T*>(dq), H, KH, B, S, st.q, st.k,
-                                 st.v, st.dout, st.dq, causal, window, scale);
+                                 static_cast<T*>(dq), H, KH, B, S, hd, st.q,
+                                 st.k, st.v, st.dout, st.dq, causal, window,
+                                 scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 on the tensor cores, the dK/dV pass over n_groups head groups (1
-// but at D 256; more need `part`, n_groups x B x KH x S x D x 2 f32);
+// but at D 256; more need `part`, n_groups x B x KH x S x hd x 2 f32);
 // plan = {n_groups, the dK/dV pass's blocks}
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const float* o,
               const void* dout, const float* lse, float* delta, void* dq,
               void* dk, void* dv, float* part, int B, int H, int KH, int S,
-              int n_groups, const Views& st, int causal, int window,
+              int hd, int n_groups, const Views& st, int causal, int window,
               float scale, int* plan, cudaStream_t stream) {
   using G = tc::Geom<D>;
   using tc::kRows;
@@ -1309,32 +1321,34 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
       (n_groups > 1 && (!G::SPLIT || part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the dK/dV pass streams 64-row Q and dO tiles past OWN-row K and V
-  // tiles; the dQ pass the other way round.  At D 80 and 96 each map has
-  // a tail map over its view from column 64 on (Cols<D>).
+  // tiles; the dQ pass the other way round.  The maps cover the views' hd
+  // columns in the instance's boxes; at D 80 and 96 each has a tail map
+  // over its view from column 64 on (Cols<D>).
   CUtensorMap q_s, do_s, k_own, v_own, q_own, do_own, k_s, v_s;
   CUtensorMap q_st{}, do_st{}, k_ownt{}, v_ownt{}, q_ownt{}, do_ownt{},
       k_st{}, v_st{};
-  if (!attn::encode_cols<D>(&q_s, &q_st, q, S, H, B, st.q, kRows) ||
-      !attn::encode_cols<D>(&do_s, &do_st, dout, S, H, B, st.dout, kRows) ||
-      !attn::encode_cols<D>(&k_own, &k_ownt, k, S, KH, B, st.k, OWN) ||
-      !attn::encode_cols<D>(&v_own, &v_ownt, v, S, KH, B, st.v, OWN) ||
-      !attn::encode_cols<D>(&q_own, &q_ownt, q, S, H, B, st.q, OWN) ||
-      !attn::encode_cols<D>(&do_own, &do_ownt, dout, S, H, B, st.dout,
+  if (!attn::encode_cols<D>(&q_s, &q_st, q, hd, S, H, B, st.q, kRows) ||
+      !attn::encode_cols<D>(&do_s, &do_st, dout, hd, S, H, B, st.dout,
+                            kRows) ||
+      !attn::encode_cols<D>(&k_own, &k_ownt, k, hd, S, KH, B, st.k, OWN) ||
+      !attn::encode_cols<D>(&v_own, &v_ownt, v, hd, S, KH, B, st.v, OWN) ||
+      !attn::encode_cols<D>(&q_own, &q_ownt, q, hd, S, H, B, st.q, OWN) ||
+      !attn::encode_cols<D>(&do_own, &do_ownt, dout, hd, S, H, B, st.dout,
                             OWN) ||
-      !attn::encode_cols<D>(&k_s, &k_st, k, S, KH, B, st.k, kRows) ||
-      !attn::encode_cols<D>(&v_s, &v_st, v, S, KH, B, st.v, kRows))
+      !attn::encode_cols<D>(&k_s, &k_st, k, hd, S, KH, B, st.k, kRows) ||
+      !attn::encode_cols<D>(&v_s, &v_st, v, hd, S, KH, B, st.v, kRows))
     return kErrTensorMap;
   const long long n_tiles = (S + OWN - 1) / OWN;
   const long long n_dkdv = n_tiles * n_groups * KH * B;
   const long long n_reduce =
-      (2ll * B * KH * S * (D / 4) + 255) / 256;  // (d), when split
+      (2ll * B * KH * S * (hd / 4) + 255) / 256;  // (d), when split
   if (n_tiles * H * B >= (1ll << 31) || n_dkdv >= (1ll << 31) ||
       n_reduce >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   plan[0] = n_groups;
   plan[1] = static_cast<int>(n_dkdv);
 
-  int code = launch_delta<__nv_bfloat16, D>(o, dout, delta, B, H, S, st,
+  int code = launch_delta<__nv_bfloat16, D>(o, dout, delta, B, H, S, hd, st,
                                             stream);
   if (code != 0) return code;
 
@@ -1348,8 +1362,8 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
       <<<static_cast<unsigned>(n_dkdv), tc::kThreads, bytes, stream>>>(
           q_s, k_own, v_own, do_s, q_st, k_ownt, v_ownt, do_st, lse, delta,
           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          part, H, KH, B, S, n_groups, st.dk, st.dv, causal, window, scale,
-          scale_log2);
+          part, H, KH, B, S, hd, n_groups, st.dk, st.dv, causal, window,
+          scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -1357,7 +1371,7 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
     tc::flash_bwd_reduce_bf16<D>
         <<<static_cast<unsigned>(n_reduce), 256, 0, stream>>>(
             part, static_cast<__nv_bfloat16*>(dk),
-            static_cast<__nv_bfloat16*>(dv), n_groups, B, KH, S, st.dk,
+            static_cast<__nv_bfloat16*>(dv), n_groups, B, KH, S, hd, st.dk,
             st.dv, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1371,28 +1385,30 @@ int launch_tc(const void* q, const void* k, const void* v, const float* o,
       <<<static_cast<unsigned>(n_tiles * H * B), tc::kThreads, bytes,
          stream>>>(q_own, k_s, v_s, do_own, q_ownt, k_st, v_st, do_ownt,
                    lse, delta, static_cast<__nv_bfloat16*>(dq), H, KH, B, S,
-                   st.dq, causal, window, scale, scale_log2);
+                   hd, st.dq, causal, window, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-// *design: 1 for the tensor-core kernels, 0 for the CUDA-core ones
+// the instances of width D at head dim hd; *design: 1 for the
+// tensor-core kernels, 0 for the CUDA-core ones
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const float* o, const void* dout, const float* lse, float* delta,
            void* dq, void* dk, void* dv, float* part, int B, int H, int KH,
-           int S, int n_groups, const Views& st, int causal, int window,
-           float scale, int* design, int* plan, cudaStream_t stream) {
+           int S, int hd, int n_groups, const Views& st, int causal,
+           int window, float scale, int* design, int* plan,
+           cudaStream_t stream) {
   static_assert(kTensorCoresBwd<D>, "bf16 runs the tensor cores at every D");
   *design = 0;
   if (dtype == 0) {
     if (n_groups != 1) return static_cast<int>(cudaErrorInvalidValue);
     return launch_cc<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KH,
-                        S, st, causal, window, scale, plan, stream);
+                        S, hd, st, causal, window, scale, plan, stream);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   *design = 1;
   return launch_tc<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, H,
-                      KH, S, n_groups, st, causal, window, scale, plan,
+                      KH, S, hd, n_groups, st, causal, window, scale, plan,
                       stream);
 }
 
@@ -1403,34 +1419,41 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // is taken).  Strides are in elements, each view's (batch, position, head);
 // the D axis is contiguous and every row starts on a 16-byte boundary.  lse
 // (the forward's) and delta (scratch) are f32 (B, H, S) contiguous.
-// n_groups: the head groups of the dK/dV pass, 1 but in bf16 at D 256,
-// where more need `part`, f32 scratch of n_groups x B x KH x S x D x 2.
-// *design is set to the design launched: 1 = the tensor-core kernels
-// (bf16 at every D), 0 = the CUDA-core ones (f32); plan[0] to the head
-// groups and plan[1] to the dK/dV pass's blocks.
+// D is the head dim, W the instances it runs on (a width below, D <= W,
+// D's rows whole 16-byte chunks).  n_groups: the head groups of the dK/dV
+// pass, 1 but in bf16 at W 256, where more need `part`, f32 scratch of
+// n_groups x B x KH x S x D x 2.  *design is set to the design launched:
+// 1 = the tensor-core kernels (bf16 at every W), 0 = the CUDA-core ones
+// (f32); plan[0] to the head groups and plan[1] to the dK/dV pass's
+// blocks; *instance to the W it dispatched on.
 extern "C" int flash_attention_bwd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     const float* o, const void* dout, const float* lse, float* delta,
     void* dq, void* dk, void* dv, float* part, int B, int H, int KH, int S,
-    int D, int n_groups, long long qsb, long long qss, long long qsh,
+    int D, int W, int n_groups, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, long long dsb,
     long long dss, long long dsh, long long dqsb, long long dqss,
     long long dqsh, long long dksb, long long dkss, long long dksh,
     long long dvsb, long long dvss, long long dvsh, int causal, int window,
-    float scale, int* design, int* plan, cudaStream_t stream) {
+    float scale, int* design, int* plan, int* instance,
+    cudaStream_t stream) {
+  *instance = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   plan[0] = plan[1] = 0;
   if (B == 0 || S == 0 || H == 0) return 0;
+  if (D < 1 || D > W || D * (dtype ? 2 : 4) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Views st{{qsb, qss, qsh},    {ksb, kss, ksh},    {vsb, vss, vsh},
                  {osb, oss, osh},    {dsb, dss, dsh},    {dqsb, dqss, dqsh},
                  {dksb, dkss, dksh}, {dvsb, dvss, dvsh}};
-  switch (D) {
-#define BWD_CASE(DD)                                                        \
-  case DD:                                                                  \
-    return launch<DD>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, part, \
-                      B, H, KH, S, n_groups, st, causal, window, scale,      \
+  switch (W) {
+#define BWD_CASE(WW)                                                        \
+  case WW:                                                                  \
+    *instance = WW;                                                         \
+    return launch<WW>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, part, \
+                      B, H, KH, S, D, n_groups, st, causal, window, scale,   \
                       design, plan, stream);
     BWD_CASE(32)
     BWD_CASE(64)
@@ -1446,7 +1469,8 @@ extern "C" int flash_attention_bwd_launch(
 }
 
 // dynamic shared memory of one block (dtype as above) of the dK/dV
-// (which = 0) or the dQ (which = 1) kernel, 0 for an unknown D
+// (which = 0) or the dQ (which = 1) kernel of the instance of width D, 0
+// for an unknown width
 extern "C" int flash_attention_bwd_smem_bytes(int dtype, int D, int which) {
   switch (D) {
 #define BWD_SMEM(DD)                                 \

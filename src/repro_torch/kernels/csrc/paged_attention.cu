@@ -42,15 +42,25 @@
 //  * Scores: the g dot products of a position split D over 4 lanes of a
 //    warp (16-byte reads of every 4th chunk; K rows padded so that the reads
 //    fall in distinct banks), finished by two shuffles; 8 positions a warp.
-//    D is one of 32, 64, 96, 112, 128 and 256.  A row of D 112 in bf16 is
-//    14 chunks, not a multiple of 4: lanes 0 and 1 take 4 chunks, lanes 2
-//    and 3 take 3, and a lane's last round is skipped where its chunk lies
-//    past the row.
+//    The kernel is compiled at the widths W 32, 64, 96, 112, 128 and 256,
+//    and a head dim D (at most 256, its rows whole 16-byte chunks) runs on
+//    the smallest W at or above it (D 80 on W 96, recurrentgemma-9b's
+//    smoke D 16 on W 32), with D as a run-time argument: a block loads and
+//    reads the D / (16 bytes) chunks of a row, and its P.V threads and
+//    stores the D columns, in tiles laid out at W (each width compiled
+//    twice: with D = W a compile-time constant, as every published head
+//    dim runs, and with D read at run time, whose divisions by D made the
+//    published shapes 21-31 % slower on an H100).  A row that is not a
+//    multiple of 4 chunks (D 112 in bf16: 14; D 80: 10; D 16: 2) leaves
+//    some lanes' last round past the row, which they skip: at D 112 lanes 0
+//    and 1 take 4 chunks, lanes 2 and 3 take 3; at D 16 lanes 0 and 1 one
+//    each and lanes 2 and 3 none.
 //  * Softmax: a warp per query head, a lane per position; P.V by threads
 //    that own (head, column pair).
 // With one split the block writes the output; with more, each writes its
 // heads' partials (acc[gh][D], m, l) in f32 to scratch, laid out (B, KH,
-// n_split, g, D + 2) whatever the grouping, and paged_merge_kernel (a
+// n_split, g, D + 2) with the true D whatever the grouping, and
+// paged_merge_kernel (a
 // second launch, one block per (query head, sequence)) combines them by
 // their log-sum-exp weights.
 //
@@ -159,20 +169,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T, int D>
+// D: the instance's width, the tiles' row length; the head dim hd <= D
+// is D itself when WHOLE (a compile-time constant), else `hd_arg`
+template <typename T, int D, bool WHOLE>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ lengths, void* __restrict__ o,
                    float* __restrict__ part, float* __restrict__ lse, int H,
-                   int KH, int n_hgroups, int page, int NP, int split,
-                   int n_split, long long qsb, long long qsh, Pool ks,
-                   Pool vs, long long btsb, long long osb, long long osh,
-                   float scale) {
+                   int KH, int n_hgroups, int page, int NP, int hd_arg,
+                   int split, int n_split, long long qsb, long long qsh,
+                   Pool ks, Pool vs, long long btsb, long long osb,
+                   long long osh, float scale) {
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int RC = D / CH;          // chunks per row
   constexpr int LK = k_stride<T, D>();
-  constexpr int RJ = (RC + 3) / 4;    // rounds of 4 chunks a row
+  constexpr int RJ = (D / CH + 3) / 4;  // rounds of 4 chunks, at most
+  const int hd = WHOLE ? D : hd_arg;
+  const int rc = hd / CH;               // chunks per row
   // this block's kv head hk and its query heads h0 .. h0 + g - 1 (g of the
   // kv head's H / KH)
   const int g = H / KH / n_hgroups;
@@ -187,8 +200,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (p0 >= n_pos) {
     if (n_pos == 0 && sp == 0 && part == nullptr) {
       // an empty part with one split: no merge writes its output
-      for (int idx = threadIdx.x; idx < g * D; idx += kThreads)
-        store_out<T>(o, true, b * osb + (h0 + idx / D) * osh + idx % D,
+      for (int idx = threadIdx.x; idx < g * hd; idx += kThreads)
+        store_out<T>(o, true, b * osb + (h0 + idx / hd) * osh + idx % hd,
                      0.f);
       for (int gi = threadIdx.x; gi < g; gi += kThreads)
         lse[static_cast<long long>(b) * H + h0 + gi] = -INFINITY;
@@ -213,8 +226,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   auto load_tile = [&](int tile, int buf) {
     const int t0 = p0 + tile * kTP;
-    for (int idx = tid; idx < kTP * RC; idx += kThreads) {
-      const int r = idx / RC, c = idx % RC, t = t0 + r;
+    for (int idx = tid; idx < kTP * rc; idx += kThreads) {
+      const int r = idx / rc, c = idx % rc, t = t0 + r;
       const T* ksrc = kp;
       const T* vsrc = vp;
       if (t < p1) {
@@ -230,10 +243,10 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   };
   load_tile(0, 0);
 
-  for (int idx = tid; idx < g * D; idx += kThreads) {
-    const int gi = idx / D, d = idx % D;
-    Qs[idx] = to_f32(q[b * qsb + (h0 + gi) * qsh + d]) * scale;
-    Acc[idx] = 0.f;
+  for (int idx = tid; idx < g * hd; idx += kThreads) {
+    const int gi = idx / hd, d = idx % hd;
+    Qs[gi * D + d] = to_f32(q[b * qsb + (h0 + gi) * qsh + d]) * scale;
+    Acc[gi * D + d] = 0.f;
   }
   for (int gi = tid; gi < g; gi += kThreads) {
     Ms[gi] = kNegInf;
@@ -251,22 +264,21 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     __syncthreads();  // this tile (and, at first, Qs/Acc/Ms/Ls) in place
 
     // scores: 4 lanes per position, each taking every 4th 16-byte chunk of
-    // D, two shuffles to finish a dot product; 8 positions a warp
+    // the row, two shuffles to finish a dot product; 8 positions a warp
     {
       const int r = warp * (kTP / kWarps) + lane / 4, qd = lane % 4;
       const T* krow = Kt + (buf * kTP + r) * LK;
       float kf[RJ][CH];
 #pragma unroll
       for (int j = 0; j < RJ; ++j)
-        if (RC % 4 == 0 || 4 * j + qd < RC)
-          chunk_f32(krow + (4 * j + qd) * CH, kf[j]);
+        if (4 * j + qd < rc) chunk_f32(krow + (4 * j + qd) * CH, kf[j]);
       const int t = t0 + r;
       for (int gi = 0; gi < g; ++gi) {
         const float* qrow = Qs + gi * D;
         float s0 = 0.f, s1 = 0.f;
 #pragma unroll
         for (int j = 0; j < RJ; ++j) {
-          if (RC % 4 != 0 && 4 * j + qd >= RC) continue;
+          if (4 * j + qd >= rc) continue;
 #pragma unroll
           for (int e = 0; e < CH; e += 2) {
             s0 = fmaf(qrow[(4 * j + qd) * CH + e], kf[j][e], s0);
@@ -307,8 +319,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     __syncthreads();
 
     // acc = acc * alpha + P V: a thread per (head, column pair)
-    for (int idx = tid; idx < g * (D / 2); idx += kThreads) {
-      const int gi = idx / (D / 2), d = 2 * (idx % (D / 2));
+    for (int idx = tid; idx < g * (hd / 2); idx += kThreads) {
+      const int gi = idx / (hd / 2), d = 2 * (idx % (hd / 2));
       const float alpha = As[gi];
       float a0 = Acc[gi * D + d] * alpha, a1 = Acc[gi * D + d + 1] * alpha;
       const T* vcol = Vt + buf * kTP * D + d;
@@ -327,10 +339,10 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 
   if (part == nullptr) {  // one split: the output itself
-    for (int idx = tid; idx < g * D; idx += kThreads) {
-      const int gi = idx / D, d = idx % D;
+    for (int idx = tid; idx < g * hd; idx += kThreads) {
+      const int gi = idx / hd, d = idx % hd;
       store_out<T>(o, f32_out, b * osb + (h0 + gi) * osh + d,
-                   Acc[idx] / fmaxf(Ls[gi], 1e-30f));
+                   Acc[gi * D + d] / fmaxf(Ls[gi], 1e-30f));
     }
     if (lse != nullptr)
       for (int gi = tid; gi < g; gi += kThreads)
@@ -338,28 +350,30 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
             Ms[gi] + logf(fmaxf(Ls[gi], 1e-30f));
     return;
   }
-  // partial of split sp: part[b][hk][sp][h - hk * H / KH] = (acc[0..D), m,
-  // l) for this block's heads h
+  // partial of split sp: part[b][hk][sp][h - hk * H / KH] = (acc[0..hd),
+  // m, l) for this block's heads h
   float* pb = part + (((static_cast<long long>(b) * KH + hk) * n_split + sp) *
-                          (H / KH) + h0 - hk * (H / KH)) * (D + 2);
-  for (int idx = tid; idx < g * D; idx += kThreads)
-    pb[(idx / D) * (D + 2) + idx % D] = Acc[idx];
+                          (H / KH) + h0 - hk * (H / KH)) * (hd + 2);
+  for (int idx = tid; idx < g * hd; idx += kThreads)
+    pb[(idx / hd) * (hd + 2) + idx % hd] = Acc[(idx / hd) * D + idx % hd];
   for (int gi = tid; gi < g; gi += kThreads) {
-    pb[gi * (D + 2) + D] = Ms[gi];
-    pb[gi * (D + 2) + D + 1] = Ls[gi];
+    pb[gi * (hd + 2) + hd] = Ms[gi];
+    pb[gi * (hd + 2) + hd + 1] = Ls[gi];
   }
 }
 
 // out[b, h] from the partials of the splits that ran, weighted by
 // exp(m_split - max m): one block per (query head, sequence), so that a
 // few kv heads (recurrentgemma's one) still merge on as many blocks as
-// there are query heads
-template <typename T, int D>
+// there are query heads; the head dim D is W when WHOLE, else `d_arg`
+template <typename T, int W, bool WHOLE>
 __global__ void __launch_bounds__(kThreads)
 paged_merge_kernel(const float* __restrict__ part,
                    const int* __restrict__ lengths, void* __restrict__ o,
                    float* __restrict__ lse, int H, int KH, int page, int NP,
-                   int split, int n_split, long long osb, long long osh) {
+                   int d_arg, int split, int n_split, long long osb,
+                   long long osh) {
+  const int D = WHOLE ? W : d_arg;
   const int g = H / KH;
   const int h = blockIdx.x, hk = h / g, gi = h % g, b = blockIdx.y;
   const bool f32_out = lse != nullptr;
@@ -384,10 +398,11 @@ paged_merge_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename T, int D>
+// the instance of width D at head dim hd (WHOLE: hd == D)
+template <typename T, int D, bool WHOLE>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* lengths, void* o, float* part, float* lse, int B,
-           int H, int KH, int n_hgroups, int page, int NP, int split,
+           int H, int KH, int n_hgroups, int page, int NP, int hd, int split,
            int n_split, long long qsb, long long qsh, Pool ks, Pool vs,
            long long btsb, long long osb, long long osh, float scale,
            int* grid, cudaStream_t stream) {
@@ -396,37 +411,47 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = smem_bytes<T, D>(H / KH / n_hgroups);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      paged_split_kernel<T, D, WHOLE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 blocks(KH * n_hgroups, B, n_split);
-  paged_split_kernel<T, D><<<blocks, kThreads, bytes, stream>>>(
+  paged_split_kernel<T, D, WHOLE><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), bt, lengths, o, part, lse, H, KH, n_hgroups,
-      page, NP, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
+      page, NP, hd, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
   grid[0] = blocks.x;
   grid[1] = blocks.y;
   grid[2] = blocks.z;
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  paged_merge_kernel<T, D><<<dim3(H, B), kThreads, 0, stream>>>(
-      part, lengths, o, lse, H, KH, page, NP, split, n_split, osb, osh);
+  paged_merge_kernel<T, D, WHOLE><<<dim3(H, B), kThreads, 0, stream>>>(
+      part, lengths, o, lse, H, KH, page, NP, hd, split, n_split, osb, osh);
   return static_cast<int>(cudaGetLastError());
 }
 
+// head dim D on the instance of width W
 template <typename T>
-int launch_d(int D, const void* q, const void* kp, const void* vp,
+int launch_d(int D, int W, const void* q, const void* kp, const void* vp,
              const int* bt, const int* lengths, void* o, float* part,
              float* lse, int B, int H, int KH, int n_hgroups, int page,
              int NP, int split, int n_split, long long qsb, long long qsh,
              Pool ks, Pool vs, long long btsb, long long osb, long long osh,
-             float scale, int* grid, cudaStream_t stream) {
-  switch (D) {
-#define PAGED_CASE(DD)                                                      \
-  case DD:                                                                  \
-    return launch<T, DD>(q, kp, vp, bt, lengths, o, part, lse, B, H, KH,     \
-                         n_hgroups, page, NP, split, n_split, qsb, qsh, ks,  \
-                         vs, btsb, osb, osh, scale, grid, stream);
+             float scale, int* grid, int* instance, cudaStream_t stream) {
+  if (D < 1 || D > W || D * int(sizeof(T)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (W) {
+#define PAGED_CASE(WW)                                                      \
+  case WW:                                                                  \
+    *instance = WW;                                                         \
+    return D == WW                                                          \
+               ? launch<T, WW, true>(q, kp, vp, bt, lengths, o, part, lse,  \
+                                     B, H, KH, n_hgroups, page, NP, D,      \
+                                     split, n_split, qsb, qsh, ks, vs,      \
+                                     btsb, osb, osh, scale, grid, stream)   \
+               : launch<T, WW, false>(q, kp, vp, bt, lengths, o, part, lse, \
+                                      B, H, KH, n_hgroups, page, NP, D,     \
+                                      split, n_split, qsb, qsh, ks, vs,     \
+                                      btsb, osb, osh, scale, grid, stream);
     PAGED_CASE(32)
     PAGED_CASE(64)
     PAGED_CASE(96)
@@ -444,7 +469,9 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
 // dtype: 0 = float32, 1 = bfloat16 (q, the pools and out share it).
 // Strides are in elements; the D axis is contiguous and every row starts on
 // a 16-byte boundary; block_table's page axis is contiguous; block_table
-// and lengths are int32.  `split` (a multiple of 32) positions per block,
+// and lengths are int32.  D is the head dim, W the instance it runs on (a
+// width above, D <= W, D's rows whole 16-byte chunks); *instance is set to
+// the W it dispatched on.  `split` (a multiple of 32) positions per block,
 // n_split blocks per (kv head, sequence) and, across them, n_hgroups
 // blocks per kv head (n_hgroups divides H / KH); with n_split > 1, `part`
 // is f32 scratch of B * KH * n_split * (H / KH) * (D + 2) elements, else
@@ -456,30 +483,32 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
 extern "C" int paged_attention_launch(
     int device, int dtype, const void* q, const void* kp, const void* vp,
     const int* bt, const int* lengths, void* o, float* part, float* lse,
-    int B, int H, int KH, int n_hgroups, int page, int NP, int D, int split,
-    int n_split, long long qsb, long long qsh, long long ksp, long long kso,
-    long long ksh, long long vsp, long long vso, long long vsh,
+    int B, int H, int KH, int n_hgroups, int page, int NP, int D, int W,
+    int split, int n_split, long long qsb, long long qsh, long long ksp,
+    long long kso, long long ksh, long long vsp, long long vso, long long vsh,
     long long btsb, long long osb, long long osh, float scale, int* grid,
-    cudaStream_t stream) {
+    int* instance, cudaStream_t stream) {
   grid[0] = grid[1] = grid[2] = 0;
+  *instance = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || H == 0) return 0;
   const Pool ks{ksp, kso, ksh}, vs{vsp, vso, vsh};
   if (dtype == 0)
-    return launch_d<float>(D, q, kp, vp, bt, lengths, o, part, lse, B, H,
+    return launch_d<float>(D, W, q, kp, vp, bt, lengths, o, part, lse, B, H,
                            KH, n_hgroups, page, NP, split, n_split, qsb, qsh,
-                           ks, vs, btsb, osb, osh, scale, grid, stream);
+                           ks, vs, btsb, osb, osh, scale, grid, instance,
+                           stream);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, kp, vp, bt, lengths, o, part, lse,
-                                   B, H, KH, n_hgroups, page, NP, split,
+    return launch_d<__nv_bfloat16>(D, W, q, kp, vp, bt, lengths, o, part,
+                                   lse, B, H, KH, n_hgroups, page, NP, split,
                                    n_split, qsb, qsh, ks, vs, btsb, osb, osh,
-                                   scale, grid, stream);
+                                   scale, grid, instance, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of one split block (dtype as above) that serves g
-// query heads, 0 for an unknown D
+// dynamic shared memory of one split block (dtype as above) of the
+// instance of width D that serves g query heads, 0 for an unknown width
 extern "C" int paged_attention_smem_bytes(int dtype, int D, int g) {
   switch (D) {
 #define PAGED_SMEM(DD)                                              \

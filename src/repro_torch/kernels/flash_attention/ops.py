@@ -26,18 +26,28 @@ and the producer is a warpgroup that hands its registers to the consumers
 per (64-query tile, head, batch), products as f32 FMAs on the CUDA cores.
 Both skip key tiles their masks cover wholly; any S (rows
 past S read as zeros and are masked), any strides with a contiguous,
-16-byte aligned D axis, D in ``HEAD_DIMS``.
+16-byte aligned D axis.  Both directions are compiled at the widths
+``INSTANCES``, and any D up to 256 whose rows are whole 16-byte chunks (a
+multiple of 8 in bf16, of 4 in f32) runs on the smallest at or above it
+(``instance_of``): the kernels take D at run time, load columns D and
+beyond as zeros (TMA's fill past the tensor maps' D columns, or the f32
+loads), run every product at the instance's width over them, and store
+none of them.  Every published head dim is an instance of its own;
+recurrentgemma-9b's smoke D 16 runs on 32, D 48 on 64, D 200 on 256.
 
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.gqa_attention`` sends CPU tensors
 to its plain chunked version instead.  ``counter`` counts one per launch,
-tallied by head dim, and ``counter_tc`` the launches the C launcher reports
-it ran on the tensor-core kernel; a failed build or launch raises, with no
-other design to fall back to.  With ``return_lse`` (training) the forward
-also writes the backward's residuals: each row's log-sum-exp of its scaled
-scores (f32, natural log) and, in bf16, the output in f32 before its
-rounding (in f32 it is the output itself), from which the backward takes
-delta, as the reference takes delta from its f32 forward output.
+tallied by head dim, ``counter_tc`` the launches the C launcher reports
+it ran on the tensor-core kernel, and ``counter_instance`` the launches by
+(head dim, the instance the launcher reports it dispatched on); a head dim
+no instance takes raises before any launch, and a failed build or launch
+raises, with no other design to fall back to.  With ``return_lse``
+(training) the forward also writes the backward's residuals: each row's
+log-sum-exp of its scaled scores (f32, natural log) and, in bf16, the
+output in f32 before its rounding (in f32 it is the output itself), from
+which the backward takes delta, as the reference takes delta from its f32
+forward output.
 
 ``flash_attention_bwd_cuda`` launches the backward kernels
 (``csrc/flash_attention_bwd.cu``), which replace the jnp FlashAttention
@@ -73,7 +83,8 @@ launched; a failure raises.  ``counter_bwd`` counts one per backward
 (three or four kernel launches), tallied by head dim, ``counter_bwd_tc``
 the backwards the launcher ran on the tensor-core kernels, and
 ``counter_bwd_plan`` the backwards by the dK/dV grid it reported (a
-``BwdPlan``).
+``BwdPlan``), and ``counter_bwd_instance`` the backwards by (head dim,
+instance).
 """
 from __future__ import annotations
 
@@ -90,37 +101,50 @@ from repro_torch.kernels.paged_attention.ops import (fill_blocks,
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "flash_attention_ref", "flash_attention_bwd_ref", "counter",
-           "counter_tc", "counter_bwd", "counter_bwd_tc", "counter_bwd_plan",
-           "bwd_head_groups", "BwdPlan", "HEAD_DIMS", "FWD_TENSOR_CORE_DIMS",
+           "counter_tc", "counter_instance", "counter_bwd", "counter_bwd_tc",
+           "counter_bwd_plan", "counter_bwd_instance", "bwd_head_groups",
+           "BwdPlan", "instance_of", "INSTANCES", "FWD_TENSOR_CORE_DIMS",
            "BWD_TENSOR_CORE_DIMS", "BWD_GROUPED_DIMS"]
 
 counter = build.LaunchCounter("flash_attention")
 counter_tc = build.LaunchCounter("flash_attention_tc")
+counter_instance = build.LaunchCounter("flash_attention_instance")
 counter_bwd = build.LaunchCounter("flash_attention_bwd")
 counter_bwd_tc = build.LaunchCounter("flash_attention_bwd_tc")
 counter_bwd_plan = build.LaunchCounter("flash_attention_bwd_plan")
-HEAD_DIMS = (32, 64, 80, 96, 112, 128, 256)
-# the head dims at which bf16 runs the tensor-core (wgmma) kernels, by
+counter_bwd_instance = build.LaunchCounter("flash_attention_bwd_instance")
+# the widths both directions are compiled at (the C launchers' instances)
+INSTANCES = (32, 64, 80, 96, 112, 128, 256)
+# the instances at which bf16 runs the tensor-core (wgmma) kernels, by
 # direction (``kTensorCoresFwd`` and ``kTensorCoresBwd`` of
 # csrc/attention_common.cuh): every one; f32 runs the CUDA-core kernels
 FWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 112, 128, 256)
 BWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 112, 128, 256)
-# the head dims whose bf16 dK/dV pass (64-key blocks, ``Geom<D>::SPLIT``)
+# the instances whose bf16 dK/dV pass (64-key blocks, ``Geom<D>::SPLIT``)
 # may split a kv head's query heads over groups; the others run one group
 BWD_GROUPED_DIMS = (256,)
 _BWD_KEY_ROWS = 64      # keys a dK/dV block owns at BWD_GROUPED_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_INT_OUT = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {"flash_attention_launch": (
     ctypes.c_int,
-    [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12
-    + [_I, _I, ctypes.c_float, _P, _P, ctypes.POINTER(ctypes.c_int), _P])}
+    [_I, _I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
+    + [_I, _I, ctypes.c_float, _P, _P, _INT_OUT, _INT_OUT, _P])}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": (
     ctypes.c_int,
-    [_I, _I] + [_P] * 11 + [_I] * 6 + [_L] * 24
-    + [_I, _I, ctypes.c_float, ctypes.POINTER(ctypes.c_int),
-       ctypes.POINTER(ctypes.c_int * 2), _P])}
+    [_I, _I] + [_P] * 11 + [_I] * 7 + [_L] * 24
+    + [_I, _I, ctypes.c_float, _INT_OUT, ctypes.POINTER(ctypes.c_int * 2),
+       _INT_OUT, _P])}
+
+
+def instance_of(d: int, dtype: torch.dtype) -> int:
+    """The instance (of ``INSTANCES``) on which both directions run head
+    dim ``d`` in ``dtype``: the smallest at or above ``d``.  Raises
+    ``ValueError`` past 256, or where a row of ``d`` elements is not whole
+    16-byte chunks (``d`` not a multiple of 8 in bf16, of 4 in f32)."""
+    return build.head_dim_instance("flash_attention", d, dtype, INSTANCES)
 
 
 class BwdPlan(NamedTuple):
@@ -144,7 +168,8 @@ def bwd_head_groups(b: int, kh: int, g: int, s: int, fill: int) -> int:
     return groups_to_fill(b * kh * -(-s // _BWD_KEY_ROWS), g, fill)
 
 
-def _check_shapes(what: str, q, k, v, window: int) -> None:
+def _check_shapes(what: str, q, k, v, window: int) -> int:
+    """Check the shapes; returns the instance that runs the head dim."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     if k.shape != v.shape or k.shape != (b, kh, s, d):
@@ -153,13 +178,12 @@ def _check_shapes(what: str, q, k, v, window: int) -> None:
     if kh == 0 or h % kh:
         raise ValueError(f"{what}: {h} query heads are not a multiple of "
                          f"{kh} kv heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
     if h > 65535 or b > 65535 or s >= 2**31 - 128 \
             or -(-s // 64) * h * b >= 2**31:
         raise ValueError(f"{what}: grid too large for {q.shape}")
     if window < 0:
         raise ValueError(f"{what}: window {window} < 0")
+    return build.head_dim_instance(what, d, q.dtype, INSTANCES)
 
 
 def _strides(t: torch.Tensor):
@@ -181,7 +205,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "flash_attention", {"q": q, "k": k, "v": v},
         dtypes={"q": tuple(_DTYPES), "k": (q.dtype,), "v": (q.dtype,)},
         ndims={"q": 4, "k": 4, "v": 4}, rows16=("q", "k", "v"))
-    _check_shapes("flash_attention", q, k, v, window)
+    w = _check_shapes("flash_attention", q, k, v, window)
     b, h, s, d = q.shape
     kh = k.shape[1]
     out = torch.empty_like(q)
@@ -196,16 +220,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{out32.stride()} differ from the output's "
                              f"{out.stride()}")
     lib = build.library("flash_attention", _SIGNATURES)
-    design = ctypes.c_int(-1)
+    design, ran = ctypes.c_int(-1), ctypes.c_int(0)
     err = lib.flash_attention_launch(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), b, h, kh, s, d, *_strides(q),
+        v.data_ptr(), out.data_ptr(), b, h, kh, s, d, w, *_strides(q),
         *_strides(k), *_strides(v), *_strides(out), int(bool(causal)),
         int(window), d ** -0.5, None if lse is None else lse.data_ptr(),
         None if out32 is None or out32 is out else out32.data_ptr(),
-        ctypes.byref(design), build.stream_of(q))
+        ctypes.byref(design), ctypes.byref(ran), build.stream_of(q))
     build.check(lib, err, "flash_attention")
     counter.add(d)
+    counter_instance.add((d, ran.value))
     if design.value == 1:
         counter_tc.add(d)
     return (out, lse, out32) if return_lse else out
@@ -230,7 +255,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                 "lse": (torch.float32,)},
         ndims={"q": 4, "k": 4, "v": 4, "out": 4, "dout": 4, "lse": 3},
         rows16=("q", "k", "v", "out", "dout"))
-    _check_shapes("flash_attention_bwd", q, k, v, window)
+    w = _check_shapes("flash_attention_bwd", q, k, v, window)
     b, h, s, d = q.shape
     kh = k.shape[1]
     if out.shape != q.shape or dout.shape != q.shape \
@@ -243,25 +268,26 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     n_groups = (bwd_head_groups(b, kh, h // kh, s, fill_blocks(q.device))
-                if q.dtype == torch.bfloat16 and d in BWD_GROUPED_DIMS
+                if q.dtype == torch.bfloat16 and w in BWD_GROUPED_DIMS
                 else 1)
     # the groups' f32 partial dK and dV, which the fourth launch sums
     part = (torch.empty((2, n_groups, b, kh, s, d), dtype=torch.float32,
                         device=q.device) if n_groups > 1 else None)
     lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
-    design = ctypes.c_int(-1)
+    design, ran = ctypes.c_int(-1), ctypes.c_int(0)
     plan = (ctypes.c_int * 2)()
     err = lib.flash_attention_bwd_launch(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if part is None else part.data_ptr(), b, h, kh, s, d, n_groups,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        None if part is None else part.data_ptr(), b, h, kh, s, d, w,
+        n_groups, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         *_strides(dout), *_strides(dq), *_strides(dk), *_strides(dv),
         int(bool(causal)), int(window), d ** -0.5, ctypes.byref(design),
-        ctypes.byref(plan), build.stream_of(q))
+        ctypes.byref(plan), ctypes.byref(ran), build.stream_of(q))
     build.check(lib, err, "flash_attention_bwd")
     counter_bwd.add(d)
+    counter_bwd_instance.add((d, ran.value))
     if design.value == 1:
         counter_bwd_tc.add(d)
     counter_bwd_plan.add(BwdPlan(plan[0], plan[1]))

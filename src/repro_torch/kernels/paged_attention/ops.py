@@ -25,7 +25,12 @@ has streaming multiprocessors (``fill_blocks``: 132 on an H100 SXM): one
 group, so each K/V row is read once, wherever the grid fills the card
 (decode_32k: 4,096 blocks), and up to g groups of one head at
 recurrentgemma's MQA (KH 1, g 16: at B 1 the 40-row slot would be one
-block).
+block).  The kernel is compiled at the widths ``INSTANCES``, and any D up
+to 256 whose rows are whole 16-byte chunks (a multiple of 8 in bf16, of 4
+in f32) runs on the smallest at or above it (``instance_of``: D 80 on 96,
+recurrentgemma-9b's smoke D 16 on 32), with D as a run-time argument: a
+block loads, reads and stores only the D columns of its tiles, which are
+laid out at the instance's width.
 
 ``paged_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.decode_attention`` sends CPU
@@ -39,8 +44,10 @@ comes in f32, unrounded, so that the merge rounds once; and a length <= 0
 (a part past its sequence's length, whose weight is 0) reads nothing:
 output 0, lse -inf.
 ``counter`` counts one per call that launches the kernel, tallied by head
-dim, and ``counter_plan`` the same launches tallied by the grid the C
-launcher reports it ran (a ``Plan``).
+dim, ``counter_plan`` the same launches tallied by the grid the C
+launcher reports it ran (a ``Plan``), and ``counter_instance`` by (head
+dim, the instance the launcher reports it dispatched on).  A head dim no
+instance takes raises before any launch.
 """
 from __future__ import annotations
 
@@ -54,12 +61,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 __all__ = ["paged_attention_cuda", "paged_attention_ref", "counter",
-           "counter_plan", "split_plan", "head_group_plan", "groups_to_fill",
-           "fill_blocks", "Plan", "HEAD_DIMS", "SPLIT", "TILE"]
+           "counter_plan", "counter_instance", "split_plan",
+           "head_group_plan", "groups_to_fill", "fill_blocks", "instance_of",
+           "Plan", "INSTANCES", "SPLIT", "TILE"]
 
 counter = build.LaunchCounter("paged_attention")
 counter_plan = build.LaunchCounter("paged_attention_plan")
-HEAD_DIMS = (32, 64, 96, 112, 128, 256)
+counter_instance = build.LaunchCounter("paged_attention_instance")
+INSTANCES = (32, 64, 96, 112, 128, 256)     # the compiled widths
 TILE = 32           # positions per tile of the kernel
 SPLIT = 512         # positions per block, unless the span needs more
 _MAX_SPLITS = 65535  # the grid's z extent
@@ -68,8 +77,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"paged_attention_launch": (
     ctypes.c_int,
-    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9 + [_L] * 11
-    + [ctypes.c_float, ctypes.POINTER(ctypes.c_int * 3), _P])}
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_L] * 11
+    + [ctypes.c_float, ctypes.POINTER(ctypes.c_int * 3),
+       ctypes.POINTER(ctypes.c_int), _P])}
+
+
+def instance_of(d: int, dtype: torch.dtype) -> int:
+    """The instance (of ``INSTANCES``) on which the kernel runs head dim
+    ``d`` in ``dtype``: the smallest at or above ``d``.  Raises
+    ``ValueError`` past 256, or where a row of ``d`` elements is not whole
+    16-byte chunks (``d`` not a multiple of 8 in bf16, of 4 in f32)."""
+    return build.head_dim_instance("paged_attention", d, dtype, INSTANCES)
 
 
 class Plan(NamedTuple):
@@ -163,8 +181,7 @@ def _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
                          "mismatch")
     if page < 1 or np_ < 1 or np_ * page >= 2**31 - 64:
         raise ValueError(f"paged_attention: page {page} x {np_} pages")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged_attention: head dim {d} not in {HEAD_DIMS}")
+    w = instance_of(d, q.dtype)
     if kh > 65535 or b > 65535:
         raise ValueError(f"paged_attention: grid too large for {q.shape}")
     split, n_split = split_plan(np_ * page)
@@ -184,19 +201,21 @@ def _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
                            dtype=torch.float32, device=q.device)
     dev = q.device
     lib = build.library("paged_attention", _SIGNATURES)
-    grid = (ctypes.c_int * 3)()
+    grid, ran = (ctypes.c_int * 3)(), ctypes.c_int(0)
     err = lib.paged_attention_launch(
         dev.index, _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if lse is None else lse.data_ptr(), b, h, kh, n_hgroups, page,
-        np_, d, split, n_split, q.stride(0), q.stride(1),
+        np_, d, w, split, n_split, q.stride(0), q.stride(1),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
         block_table.stride(0), out.stride(0), out.stride(1),
-        d ** -0.5, ctypes.byref(grid), build.stream_of(q))
+        d ** -0.5, ctypes.byref(grid), ctypes.byref(ran),
+        build.stream_of(q))
     build.check(lib, err, "paged_attention")
     counter.add(d)
+    counter_instance.add((d, ran.value))
     counter_plan.add(Plan(grid[0] // kh, grid[2],
                           grid[0] * grid[1] * grid[2]))
     return (out, lse) if return_lse else out

@@ -4,9 +4,14 @@ versions of both kernels against ``flash_attention_ref`` /
 shape sweeps of ``tests/test_kernels.py``, plus a ragged S and pages that
 are not a multiple of the CUDA kernel's 64-position tile), and the model
 functions ``gqa_attention`` / ``decode_attention`` against the reference's,
-decode also through the identity block table.  Inputs are made with numpy
-from a seed and handed to both.  Tolerances are those of
-``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in bf16 (3e-2 for paged).
+decode also through the identity block table.  Head dims that are no
+compiled instance of the CUDA kernels (16, recurrentgemma-9b's smoke
+config's, 48, 72 and 200, each run on the card at the next instance with
+zero columns) go through the same comparisons and the backward against
+``jax.vjp``.  Inputs are made with numpy from a seed and handed to both.
+Tolerances are those of ``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in
+bf16 (3e-2 for paged); gradients those of
+``tests/test_torch_train_attention.py``.
 """
 from __future__ import annotations
 
@@ -194,3 +199,94 @@ def test_paged_length_zero_averages_pages_like_reference():
     assert torch.isfinite(got).all()
     _close(got, j_paged_ref(qj, kj, vj, jnp.asarray(bt), jnp.asarray(ln)),
            2e-5)
+
+
+# head dims between the kernels' compiled instances: recurrentgemma-9b's
+# smoke D 16 (instance 32), 48 (64), 72 (80) and 200 (256); the masks of
+# the smoke config (a 16-token window) and none
+ANY_D = [16, 48, 72, 200]
+ANY_D_MASKS = [(True, 0), (False, 0), (True, 16)]
+
+
+@pytest.mark.parametrize("causal,window", ANY_D_MASKS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("d", ANY_D)
+def test_any_head_dim_prefill_matches_reference_and_pallas(d, dt, causal,
+                                                           window):
+    """recurrentgemma's MQA (4 query heads on 1 kv head) at a head dim no
+    instance has: the model's attention (several chunks) against the
+    reference's, and the dense plain version against the Pallas kernel in
+    interpret mode."""
+    b, h, kh, s, chunk = 1, 4, 1, 128, 64
+    rng = np.random.default_rng(d + s)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, b, h, kh, s, d, dt, "bshd")
+    tol = DTYPES[dt][2]
+    got = tatt.gqa_attention(qt, kt, vt, causal=causal, window=window,
+                             chunk=chunk)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, jatt.gqa_attention(qj, kj, vj, causal=causal, window=window,
+                                   chunk=chunk), tol)
+    tr = [x.transpose(1, 2) for x in (qt, kt, vt)]
+    dense = t_flash_ref(*tr, causal=causal, window=window)
+    jt = [x.transpose(0, 2, 1, 3) for x in (qj, kj, vj)]
+    _close(dense, j_flash_ref(*jt, causal=causal, window=window), tol)
+    _close(dense, flash_attention_op(*jt, causal=causal, window=window,
+                                     block_q=64, block_k=64, interpret=True)
+           .astype(jnp.float32), tol)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("d", ANY_D)
+def test_any_head_dim_decode_matches_reference_and_pallas(d, dt):
+    """One-token decode at those head dims: the model's decode over a
+    dense cache against the reference's at lengths 1, 17 and 40, and the
+    paged plain version against the reference's and the Pallas kernel in
+    interpret mode over a permuted block table, lengths 40 and 17."""
+    b, h, kh, smax = 2, 4, 1, 40
+    tol = DTYPES[dt][2]
+    rng = np.random.default_rng(d)
+    qj, qt = _pair(rng.standard_normal((b, 1, h, d)).astype(np.float32), dt)
+    kj, kt = _pair(rng.standard_normal((b, smax, kh, d)).astype(np.float32),
+                   dt)
+    vj, vt = _pair(rng.standard_normal((b, smax, kh, d)).astype(np.float32),
+                   dt)
+    for length in (1, 17, smax):
+        got = tatt.decode_attention(qt, kt, vt, length)
+        assert got.dtype == qt.dtype and got.shape == qt.shape
+        _close(got, j_decode(qj, kj, vj, length), tol)
+    (pj, pt), (kpj, kpt), (vpj, vpt), bt, _ = _paged_inputs(
+        rng, b, h, kh, d, 16, 3, dt)
+    ln = np.array([40, 17], np.int32)
+    got = t_paged_ref(pt, kpt, vpt, torch.from_numpy(bt), torch.from_numpy(ln))
+    tol = 3e-2 if dt == "bf16" else tol
+    _close(got, j_paged_ref(pj, kpj, vpj, jnp.asarray(bt), jnp.asarray(ln)),
+           tol)
+    _close(got, paged_attention_op(pj, kpj, vpj, jnp.asarray(bt),
+                                   jnp.asarray(ln), interpret=True)
+           .astype(jnp.float32), tol)
+
+
+@pytest.mark.parametrize("causal,window", ANY_D_MASKS)
+@pytest.mark.parametrize("d", ANY_D)
+def test_any_head_dim_grads_match_jax_vjp(d, causal, window):
+    """The plain backward (``_FlashFn`` on the CPU) at those head dims
+    against ``jax.vjp`` of the reference's ``gqa_attention``, in f32
+    within tests/test_torch_train_attention.py's rtol 1e-4 / atol 1e-5."""
+    b, s, h, kh, chunk = 1, 64, 4, 1, 16
+    rng = np.random.default_rng(d + 1)
+    q, k, v, do = (rng.standard_normal(shape).astype(np.float32) for shape in
+                   ((b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
+    jout, vjp = jax.vjp(lambda q_, k_, v_: jatt.gqa_attention(
+        q_, k_, v_, causal=causal, window=window, chunk=chunk),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = tatt.gqa_attention(*ts, causal=causal, window=window, chunk=chunk)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-4, atol=1e-5)
+    for t, want, name in zip(ts, jgrads, "qkv"):
+        assert t.grad.shape == want.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5, err_msg=f"d{name}")
+

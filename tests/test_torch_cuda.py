@@ -666,8 +666,14 @@ def test_attention_wrappers_check_their_inputs_on_card(cuda_device):
         fa.flash_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="contiguous last axis"):
         fa.flash_attention_cuda(q, q, q.transpose(2, 3))
-    with pytest.raises(ValueError, match="head dim"):
-        z = torch.zeros((1, 4, 64, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 264"):
+        z = torch.zeros((1, 4, 64, 264), device=cuda_device)
+        fa.flash_attention_cuda(z, z, z)
+    with pytest.raises(ValueError, match="head dim 20 in torch.bfloat16"):
+        # rows on 16-byte boundaries, but a row of 40 bytes, not whole
+        # 16-byte chunks
+        z = torch.zeros((1, 4, 64, 24), device=cuda_device,
+                        dtype=torch.bfloat16)[..., :20]
         fa.flash_attention_cuda(z, z, z)
     with pytest.raises(ValueError, match="cpu"):
         fa.flash_attention_cuda(q, q.cpu(), q)
@@ -687,6 +693,10 @@ def test_attention_wrappers_check_their_inputs_on_card(cuda_device):
         pa.paged_attention_cuda(qd, pool, pad[..., 1:], bt, ln)
     with pytest.raises(ValueError, match="head groups"):
         pa._launch(qd, pool, pool, bt, ln, False, 3)
+    with pytest.raises(ValueError, match="head dim 264"):
+        big = torch.zeros((4, 16, 2, 264), device=cuda_device)
+        pa.paged_attention_cuda(torch.zeros((2, 4, 264), device=cuda_device),
+                                big, big, bt, ln)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-32b"])
@@ -816,30 +826,58 @@ def test_model_attention_on_card_matches_cpu(cuda_device):
     _assert_close(got.cpu(), want, 2e-2)
 
 
+# The profiler sessions of test_sweeps_launch_one_kernel_per_call, run in
+# a process of their own: in a process that has already profiled (the
+# file's earlier cases, under chip_smoke-style sessions) and launched many
+# kernels, a new session may record no GPU event at all; a fresh process
+# has profiled nothing.  Prints, as JSON, each sweep's GPU event names.
+_SWEEP_PROFILE = """
+import json, sys
+sys.path[:0] = sys.argv[1:3]
+import torch
+from torch.profiler import ProfilerActivity, profile
+import test_torch_cuda as t
+dev = torch.device("cuda", 0)
+args = t._probe_args("giant_run", 69632, 6, dev)
+names = {}
+for fn, call_args, name in ((t.wcc.wc_combine_cuda, args[:1],
+                             "wc_combine_kernel"),
+                            (t.sp.scan_probe_cuda, args,
+                             "scan_probe_kernel")):
+    fn(*call_args)
+    torch.cuda.synchronize()
+    for _ in range(3):   # a session that records no GPU event runs again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*call_args)
+            torch.cuda.synchronize()
+        names[name] = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names[name]:
+            break
+print(json.dumps(names))
+"""
+
+
 def test_sweeps_launch_one_kernel_per_call(cuda_device):
     """One kernel and nothing else (no memset, no second pass) per call,
     read from the profiler (CPU and CUDA activities, as chip_smoke.py
-    profiles)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    args = _probe_args("giant_run", 69632, 6, cuda_device)
-    for fn, call_args, name in ((wcc.wc_combine_cuda, args[:1],
-                                 "wc_combine_kernel"),
-                                (sp.scan_probe_cuda, args,
-                                 "scan_probe_kernel")):
-        fn(*call_args)
-        torch.cuda.synchronize()
-        for _ in range(3):   # a session that records no GPU event runs again
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn(*call_args)
-                torch.cuda.synchronize()
-            events = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            if events:
-                break
-        assert len(events) == 1 and name in events[0].name, [
-            e.name for e in events]
+    profiles), in a fresh process (``_SWEEP_PROFILE``), so that the
+    profiler sessions of the cases before this one cannot leave it
+    recording nothing."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    run = subprocess.run(
+        [sys.executable, "-c", _SWEEP_PROFILE, str(here.parent / "src"),
+         str(here)], capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    for name in ("wc_combine_kernel", "scan_probe_kernel"):
+        events = names[name]
+        assert len(events) == 1 and name in events[0], (name, events)
 
 
 # ---------------------------------------------------------------------------
@@ -1243,6 +1281,133 @@ def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
     assert o32 is o
 
 
+# head dims between the compiled instances, each run on the next one with
+# zero-filled columns: recurrentgemma-9b's smoke D 16 (instance 32), 48
+# (64), 72 (80), 136 (256: a whole 64-column box past the row) and 200
+# (256); paged also D 80 (96)
+ANY_D = [16, 48, 72, 136, 200]
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a view of the first D columns of a wider tensor whose
+    other 8 columns are NaN: a kernel that read past column D would put
+    NaN into its result."""
+    wide = torch.full(x.shape[:-1] + (x.shape[-1] + 8,), float("nan"),
+                      dtype=x.dtype, device=x.device)
+    wide[..., :x.shape[-1]] = x
+    return wide[..., :x.shape[-1]]
+
+
+def _new_instances(counter, before: dict) -> dict:
+    """The (head dim, instance) tallies ``counter`` gained since
+    ``before`` (a copy of its ``by_size``)."""
+    return {k: n - before.get(k, 0) for k, n in counter.by_size.items()
+            if n > before.get(k, 0)}
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 16)])
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("d", ANY_D)
+def test_flash_attention_any_head_dim_on_its_instance_on_card(
+        cuda_device, d, dt, causal, window):
+    """The forward at a head dim between the instances, recurrentgemma's
+    MQA and a GQA shape, ragged S: against the plain version; the
+    launcher reports the instance ``instance_of`` plans and, in bf16, the
+    tensor cores; inputs whose rows run on past column D (NaN there) give
+    the same output, and so do (B, S, H, D) views; with ``return_lse`` the
+    f32 output rounds to the output and lse holds 1e-5."""
+    dtype, tol = ATT_DTYPES[dt]
+    w = fa.instance_of(d, dtype)
+    kw = dict(causal=causal, window=window)
+    for b, h, kh, s in ((1, 4, 1, 300), (2, 8, 2, 129)):
+        q = _randn((b, h, s, d), dtype, cuda_device, d + s)
+        k, v = (_randn((b, kh, s, d), dtype, cuda_device, d + s + i)
+                for i in (1, 2))
+        i0, t0 = dict(fa.counter_instance.by_size), fa.counter_tc.count
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert _new_instances(fa.counter_instance, i0) == {(d, w): 1}
+        assert fa.counter_tc.count - t0 == (dtype == torch.bfloat16)
+        assert got.dtype == dtype and got.shape == q.shape
+        _assert_close(got, want, tol)
+        padded = [_padded(x) for x in (q, k, v)]
+        assert torch.equal(fa.flash_attention_cuda(*padded, **kw), got)
+        tr = [x.transpose(1, 2).contiguous().transpose(1, 2)
+              for x in (q, k, v)]
+        _assert_close(fa.flash_attention_cuda(*tr, **kw), want, tol)
+        out, lse, out32 = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+        assert torch.equal(out, got)
+        assert torch.equal(out32.to(dtype), out)
+        _, lse_ref, _ = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("d", ANY_D)
+def test_flash_attention_bwd_any_head_dim_on_its_instance_on_card(
+        cuda_device, d, dt):
+    """The backward at those head dims against its plain version
+    (``BWD_TOL``; dense, through views and the same bits again), causal
+    with recurrentgemma's smoke window, MQA, ragged S, and non-causal GQA;
+    the launcher reports the planned instance, and at the W-256 instance
+    in bf16 the dK/dV plan ``bwd_head_groups`` gives on this card."""
+    dtype = ATT_DTYPES[dt][0]
+    w = fa.instance_of(d, dtype)
+    for b, h, kh, s, causal, window in ((1, 4, 1, 300, True, 16),
+                                        (2, 8, 2, 129, False, 0)):
+        i0 = dict(fa.counter_bwd_instance.by_size)
+        p0 = dict(fa.counter_bwd_plan.by_size)
+        _check_bwd_on_card(cuda_device, dtype, b, h, kh, s, d, causal,
+                           window)
+        assert _new_instances(fa.counter_bwd_instance, i0) == {(d, w): 3}
+        groups = (fa.bwd_head_groups(b, kh, h // kh, s,
+                                     pa.fill_blocks(cuda_device))
+                  if dtype == torch.bfloat16 and w in fa.BWD_GROUPED_DIMS
+                  else 1)
+        assert {p.head_groups for p in _new_instances(
+            fa.counter_bwd_plan, p0)} == {groups}
+
+
+@pytest.mark.parametrize("dt", list(ATT_DTYPES))
+@pytest.mark.parametrize("h,kh,d", [(4, 1, 16), (8, 2, 48), (4, 1, 72),
+                                    (16, 16, 80), (8, 1, 136), (16, 1, 200)])
+def test_paged_attention_any_head_dim_on_its_instance_on_card(cuda_device,
+                                                              dt, h, kh, d):
+    """Decode at head dims between the paged instances (recurrentgemma's
+    smoke D 16 with its 4 query heads on one kv head; D 80, which paged
+    runs on 96): the serve shape at every length 1-40, a permuted table
+    whose span takes three splits and the merge, and the split decode's
+    f32 output and lse; pools whose rows run on past column D (NaN there)
+    give the same output; the launcher reports the planned instance."""
+    dtype, tol = ATT_DTYPES[dt]
+    tol = 3e-2 if dt == "bf16" else tol
+    w = pa.instance_of(d, dtype)
+    q = _randn((1, h, d), dtype, cuda_device, d)
+    kp = _randn((1, 40, kh, d), dtype, cuda_device, d + 1)
+    vp = _randn((1, 40, kh, d), dtype, cuda_device, d + 2)
+    ident = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    i0 = dict(pa.counter_instance.by_size)
+    for n in range(1, 41):
+        ln = torch.full((1,), n, dtype=torch.int32, device=cuda_device)
+        _assert_close(pa.paged_attention_cuda(q, kp, vp, ident, ln),
+                      pa.paged_attention_ref(q, kp, vp, ident, ln), tol)
+    assert _new_instances(pa.counter_instance, i0) == {(d, w): 40}
+    q, kp, vp, bt, ln = _pages(3, h, kh, d, 16, 80, 5, dtype, cuda_device, d)
+    args = (q, kp, vp, torch.from_numpy(bt).to(cuda_device),
+            torch.from_numpy(ln).to(cuda_device))
+    assert pa.split_plan(80 * 16)[1] == 3
+    got = pa.paged_attention_cuda(*args)
+    _assert_close(got, pa.paged_attention_ref(*args), tol)
+    assert torch.equal(pa.paged_attention_cuda(
+        _padded(q), _padded(kp), _padded(vp), *args[3:]), got)
+    out, lse = pa.paged_attention_cuda(*args, return_lse=True)
+    want, want_lse = pa.paged_attention_ref(*args, return_lse=True)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
 def _gpu_kernel_names(fn, launches: int = 1) -> list[str]:
     """Names of the GPU kernels one call of ``fn()`` launches, by
     ``torch.profiler`` with CPU and CUDA activities, after a warm-up call
@@ -1501,6 +1666,6 @@ def test_flash_attention_bwd_wrapper_checks_inputs_on_card(cuda_device):
     with pytest.raises(ValueError, match="out is torch.bfloat16"):
         qb = q.to(torch.bfloat16)     # the output must come in f32
         fa.flash_attention_bwd_cuda(qb, qb, qb, qb, qb, lse)
-    with pytest.raises(ValueError, match="head dim"):
-        z = torch.zeros((1, 2, 8, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 264"):
+        z = torch.zeros((1, 2, 8, 264), device=cuda_device)
         fa.flash_attention_bwd_cuda(z, z, z, z, z, lse)

@@ -23,11 +23,13 @@ and the registry's head dims and group sizes against the kernels' tables.
   loss averages moved by 2.5e-4 and the router's gradient by 2.05e-2; in
   f32 every leaf holds 1e-4 and the auxiliary loss 1e-4), and one ``launch.train.train_step`` against the reference's ``main`` step
   (loss within ``LOSS_RTOL``, gradient norm within 2e-2).
-* Every registered config with attention layers has
-  a head dim that ``flash_attention`` takes, and every one with a decode
-  step one that ``paged_attention`` takes, so that no registered arch
-  reaches the card with a head dim no kernel has; ``head_group_plan`` and
-  ``split_plan`` at the registry's group sizes 5, 8 and 12 (and 4).
+* Every registered config with attention layers, published and smoke,
+  has a head dim that ``flash_attention`` runs on an instance (its own,
+  for a published config), and every one with a decode step one that
+  ``paged_attention`` runs, so that no registered arch reaches the card
+  with a head dim no kernel takes; head dims past the rule raise;
+  ``head_group_plan`` and ``split_plan`` at the registry's group sizes 5,
+  8 and 12 (and 4).
 
 The same kernels on the card: ``tests/test_torch_cuda.py``'s D-112 cases
 (``cuda``-marked; they skip without a GPU).
@@ -285,24 +287,44 @@ def test_kimi_d112_train_step_matches_reference_main_step(monkeypatch):
 # the registry against the kernels' head dims and plans
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("smoke", [False, True], ids=["published", "smoke"])
 @pytest.mark.parametrize("arch", ALL_ARCHS)
-def test_registered_head_dims_have_kernels(arch):
-    """Every registered config with attention layers (all but the ssm)
-    has its head dim among ``flash_attention``'s, forward and backward on
-    the tensor cores in bf16, and every one with a decode step among
-    ``paged_attention``'s.  (The smoke variants are CPU configs:
-    recurrentgemma-9b's has head dim 16, which no kernel takes; ROADMAP
-    logs it.)"""
-    cfg = get_config(arch)
+def test_registered_head_dims_have_kernels(arch, smoke):
+    """Every registered config with attention layers (all but the ssm),
+    published and smoke, has its head dim on an instance of
+    ``flash_attention`` in bf16 and f32, forward and backward on the tensor
+    cores in bf16, and every one with a decode step on an instance of
+    ``paged_attention``; a published head dim is an instance of its own
+    (no published path runs zero columns), recurrentgemma-9b's smoke D 16
+    runs on the 32-column instances.  D 264 (past the widest) and D 20 in
+    bf16 (a row of 40 bytes, not whole 16-byte chunks) raise."""
+    cfg = get_config(arch, smoke=smoke)
     blocks = Model(cfg, device="cpu").init_abstract()["blocks"]
     if cfg.family == "ssm":     # no attention layer
         assert "wq" not in blocks
         return
-    assert cfg.hd in fa.HEAD_DIMS, (arch, cfg.hd)
-    assert cfg.hd in fa.FWD_TENSOR_CORE_DIMS, (arch, cfg.hd)
-    assert cfg.hd in fa.BWD_TENSOR_CORE_DIMS, (arch, cfg.hd)
-    if cfg.has_decode:
-        assert cfg.hd in pa.HEAD_DIMS, (arch, cfg.hd)
+    for dtype in (torch.bfloat16, torch.float32):
+        w = fa.instance_of(cfg.hd, dtype)
+        assert w in fa.INSTANCES and w >= cfg.hd, (arch, cfg.hd, w)
+        assert w == min(x for x in fa.INSTANCES if x >= cfg.hd)
+        assert w in fa.FWD_TENSOR_CORE_DIMS, (arch, cfg.hd)
+        assert w in fa.BWD_TENSOR_CORE_DIMS, (arch, cfg.hd)
+        if cfg.has_decode:
+            wp = pa.instance_of(cfg.hd, dtype)
+            assert wp in pa.INSTANCES and wp >= cfg.hd, (arch, cfg.hd, wp)
+        if not smoke:
+            assert w == cfg.hd, (arch, cfg.hd, w)
+            if cfg.has_decode:
+                assert wp == cfg.hd, (arch, cfg.hd, wp)
+    if arch == "recurrentgemma-9b" and smoke:
+        assert cfg.hd == 16 and fa.instance_of(16, torch.bfloat16) == 32
+        assert pa.instance_of(16, torch.bfloat16) == 32
+    for ops in (fa, pa):
+        with pytest.raises(ValueError, match="head dim 264"):
+            ops.instance_of(264, torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.instance_of(20, torch.bfloat16)
+        assert ops.instance_of(20, torch.float32) == 32
     assert cfg.n_heads % cfg.n_kv == 0
 
 

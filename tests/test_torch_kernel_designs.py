@@ -1116,7 +1116,7 @@ def test_tensor_core_head_dims_match_the_sources():
     assert dims("kTensorCoresFwd") == fa.FWD_TENSOR_CORE_DIMS
     assert dims("kTensorCoresBwd") == fa.BWD_TENSOR_CORE_DIMS
     assert set(fa.BWD_TENSOR_CORE_DIMS) <= set(fa.FWD_TENSOR_CORE_DIMS) \
-        <= set(fa.HEAD_DIMS)
+        <= set(fa.INSTANCES)
     fwd = (build.CSRC / "flash_attention.cu").read_text()
     bwd = (build.CSRC / "flash_attention_bwd.cu").read_text()
     assert "kTensorCoresFwd<" in fwd and "kTensorCoresBwd" not in fwd
@@ -1129,6 +1129,121 @@ def test_tensor_core_head_dims_match_the_sources():
     for text in (fwd, bwd):     # one copy of the tail-box machinery
         assert "struct Cols" not in text and "Cols<D>" in text
     assert "struct Cols" in src
+
+
+def _switch_cases(src: str, macro: str) -> tuple[int, ...]:
+    """The widths a launcher's ``switch`` dispatches on: the arguments of
+    every use of ``macro`` (``FLASH_CASE(32)`` ...) in ``src``."""
+    return tuple(int(x) for x in re.findall(rf"^\s*{macro}\((\d+)\)", src,
+                                            re.M))
+
+
+def test_instances_match_the_launchers():
+    """``INSTANCES`` of each ``ops.py`` are the widths its C launcher
+    dispatches on and answers shared memory for (the forward and the
+    backward share theirs)."""
+    fwd = (build.CSRC / "flash_attention.cu").read_text()
+    bwd = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    paged = (build.CSRC / "paged_attention.cu").read_text()
+    assert _switch_cases(fwd, "FLASH_CASE") == fa.INSTANCES
+    assert _switch_cases(fwd, "FLASH_SMEM") == fa.INSTANCES
+    assert _switch_cases(bwd, "BWD_CASE") == fa.INSTANCES
+    assert _switch_cases(bwd, "BWD_SMEM") == fa.INSTANCES
+    assert _switch_cases(paged, "PAGED_CASE") == pa.INSTANCES
+    assert _switch_cases(paged, "PAGED_SMEM") == pa.INSTANCES
+    assert set(fa.INSTANCES) == set(fa.FWD_TENSOR_CORE_DIMS)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ops", [fa, pa], ids=["flash", "paged"])
+def test_instance_of_every_head_dim(ops, dtype):
+    """Every head dim 1-300: the smallest instance at or above it where a
+    row is whole 16-byte chunks and it is at most 256 (the widest), a
+    ``ValueError`` before any launch otherwise; each instance is its own."""
+    chunk = 16 // dtype.itemsize
+    for d in range(1, 301):
+        if d % chunk or d > 256:
+            with pytest.raises(ValueError, match=f"head dim {d}"):
+                ops.instance_of(d, dtype)
+            continue
+        w = ops.instance_of(d, dtype)
+        assert w == min(x for x in ops.INSTANCES if x >= d), d
+    for w in ops.INSTANCES:
+        assert ops.instance_of(w, dtype) == w
+    assert ops.instance_of(80, dtype) == (80 if ops is fa else 96)
+
+
+# head dims between the instances (B, H, KH, S, D, causal, window):
+# recurrentgemma-9b's smoke MQA at D 16 with its 16-token window, and D
+# 48, 72 and 200, which run on the 64-, 80- and 256-column instances
+ANY_D_CASES = [
+    (1, 4, 1, 256, 16, True, 16),
+    (1, 4, 1, 200, 16, False, 0),
+    (1, 4, 2, 300, 48, True, 0),
+    (1, 4, 4, 256, 72, False, 0),
+    (1, 4, 1, 256, 200, True, 64),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", ANY_D_CASES)
+def test_flash_any_head_dim_on_its_instance_within_two_ulps(b, h, kh, s, d,
+                                                            causal, window):
+    """The bf16 forward at a head dim between the instances, emulated on
+    its instance's tiles (the columns past D zeros, as TMA fills them, the
+    output cut back to D), stays within two bf16 ulps of the port's and
+    the JAX package's references, and gives the bits of the same
+    arithmetic at the true width: the zero columns add exact zeros."""
+    rng = np.random.default_rng(d)
+    (qj, qt), (kj, kt), (vj, vt) = (_bf16(rng, x) for x in (
+        (b, h, s, d), (b, kh, s, d), (b, kh, s, d)))
+    kw = dict(causal=causal, window=window)
+    w = fa.instance_of(d, torch.bfloat16)
+    assert w > d
+    got = flash_tensor_core_emulation(qt, kt, vt, split_p=True, width=w, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    assert _beyond_two_ulps(got, flash_attention_ref(qt, kt, vt, **kw)) == 0
+    want_j = torch.from_numpy(np.array(j_flash_ref(
+        qj, kj, vj, **kw).astype(jnp.float32)))
+    assert _beyond_two_ulps(got, want_j) == 0
+    assert torch.equal(got, flash_tensor_core_emulation(
+        qt, kt, vt, split_p=True, **kw))
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", ANY_D_CASES)
+def test_flash_bwd_any_head_dim_on_its_instance_within_tolerance(
+        b, h, kh, s, d, causal, window):
+    """The bf16 backward at those head dims, emulated on the instance's
+    tiles (delta over the D columns, every product over zero columns to
+    the instance's width, the gradients cut back to D), has no element
+    beyond ``BWD_TOL`` of the port's plain backward fed the same f32
+    output, nor of ``jax.vjp`` of the reference's ``gqa_attention``; at
+    W 256 with the dK/dV pass split over the head groups the launcher
+    picks on 132 SMs as well."""
+    rng = np.random.default_rng(d + 1)
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (_bf16(rng, x) for x in (
+        (b, h, s, d), (b, kh, s, d), (b, kh, s, d), (b, h, s, d)))
+    kw = dict(causal=causal, window=window)
+    w = fa.instance_of(d, torch.bfloat16)
+    _, lse, out32 = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
+    out = flash_tensor_core_emulation(qt, kt, vt, split_p=True, f32_out=True,
+                                      width=w, **kw)
+    want_t = flash_attention_bwd_ref(qt, kt, vt, out32, dot, lse, **kw)
+    j32 = [x.astype(jnp.float32).transpose(0, 2, 1, 3)
+           for x in (qj, kj, vj, doj)]
+    _, vjp = jax.vjp(lambda q_, k_, v_: jatt.gqa_attention(
+        q_, k_, v_, chunk=s, **kw), *j32[:3])
+    want_j = [torch.from_numpy(np.array(x)).transpose(1, 2)
+              for x in vjp(j32[3])]
+    groups = ((1, fa.bwd_head_groups(b, kh, h // kh, s, 132))
+              if w in fa.BWD_GROUPED_DIMS else (1,))
+    for n in groups:
+        got = flash_bwd_tensor_core_emulation(
+            qt, kt, vt, out, dot, lse, split_p=True, split_ds=True, width=w,
+            n_groups=n, **kw)
+        for x, wt, wj in zip(got, want_t, want_j):
+            assert x.dtype == torch.bfloat16 and x.shape == wt.shape
+            assert _beyond_bwd_tol(x, wt) == 0
+            assert _beyond_bwd_tol(x, wj) == 0
 
 
 @pytest.mark.parametrize("b,kh,g,s,fill,want", [

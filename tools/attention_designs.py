@@ -29,7 +29,8 @@ plain backward within ``chip_smoke.BWD_TOL``, with a row for each of its
 launches (``<row>.delta``, ``.dkdv``, ``.reduce`` where the dK/dV pass
 is split over head groups, ``.dq``) where the profiler recorded them.  A
 row whose head dim a tree's kernels do not take (D 112 before it was
-added) is left out of that tree's line.  Every call goes through
+added; a tree before the compiled instances took every D up to 256 lists
+its head dims in ``HEAD_DIMS``) is left out of that tree's line.  Every call goes through
 the public wrappers (``flash_attention_cuda``, ``paged_attention_cuda``,
 ``flash_attention_bwd_cuda``), so that a parent tree runs its own design.
 Prints one JSON line a tree, then a table.
@@ -72,6 +73,19 @@ PAGED_ROWS = (("paged_d128", 16, 8, 128, 40),
               ("paged_d128_kimi", 64, 8, 128, 40))
 
 
+def takes(ops, d: int) -> bool:
+    """Whether a tree's kernel module ``ops`` runs head dim ``d`` in
+    bf16."""
+    import torch
+    if not hasattr(ops, "instance_of"):     # a tree with a table of dims
+        return d in ops.HEAD_DIMS
+    try:
+        ops.instance_of(d, torch.bfloat16)
+    except ValueError:
+        return False
+    return True
+
+
 def child(tree: Path) -> dict:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(ROOT))
@@ -104,7 +118,7 @@ def child(tree: Path) -> dict:
         rows[name] = ms
 
     for row in FLASH_ROWS:
-        if row[5] in fa.HEAD_DIMS:
+        if takes(fa, row[5]):
             flash_row(*row)
 
     def bwd_row(name, b, s, h, kh, d, causal, window):
@@ -133,12 +147,12 @@ def child(tree: Path) -> dict:
                 rows[f"{name}.{entry}"] = ms
 
     for row in BWD_ROWS:
-        if row[5] in fa.HEAD_DIMS:
+        if takes(fa, row[5]):
             bwd_row(*row)
 
     ident = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     for name, h, kh, d, span in PAGED_ROWS:
-        if d not in pa.HEAD_DIMS:
+        if not takes(pa, d):
             continue
         q = cs._randn((1, h, d), bf16, dev, 10)
         kp = cs._randn((1, span, kh, d), bf16, dev, 11)
