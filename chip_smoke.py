@@ -63,7 +63,21 @@ Phases (any mismatch raises, and the script exits non-zero):
    40-row slot and 16-row ring and D 80 (on paged's 96 instance), every
    length; every launch on the instance ``instance_of`` plans, by the
    launcher's report (``counter_instance``), in bf16 on the tensor cores;
-   kernel, plain, SDPA and bound times at each row's first mask.
+   kernel, plain, SDPA and bound times at each row's first mask.  Head
+   dims whose rows no tensor map describes and past the widest instance
+   (``ANY_D``, ROADMAP C4): flash forward and backward at bf16 D 20 and
+   36, f32 D 6 and 30 (padded copies), D 32 on a view off 16-byte
+   boundaries, and D 264, 320 and 512 in both dtypes (column passes), B 1
+   x S 1,024, H 8, KH 2, causal, non-causal and a 64-token window, the
+   backward the same bits twice; paged at the same head dims over a
+   40-row slot (every length; element loads where the rows are not whole
+   16-byte chunks on 16-byte boundaries) and a 4,096-row page (split and
+   merge), with ``return_lse``; every launch on the plan ``plan_of``
+   gives, by the launchers' reports, and on its design's entries by the
+   profiler; kernel, plain, SDPA and bound times (causal; paged at length
+   40).  Then C4's seeded inputs (``c4_seeded``): ``gqa_attention``, its
+   gradients and ``decode_attention`` at bf16 D 20 and 264 from
+   ``default_rng(0)``, card against CPU.
 2. the ``engine_json`` configuration (65,536 slots, batch 4096, 16 windows,
    write-intensive Zipf 0.99, 16 CNs) in all four SyncModes: every verb
    counter and the modeled Mops/s and latency percentiles must equal the
@@ -196,7 +210,12 @@ Phases (any mismatch raises, and the script exits non-zero):
     through ``train_vs_cpu`` at its smoke config with ``head_dim`` 112
     (``TRAIN_D112``), the backward's D-112 instance on the card; and
     recurrentgemma-9b's smoke config (D 16) through ``train_vs_cpu``, the
-    backward on its 32-column instance and the tensor cores.
+    backward on its 32-column instance and the tensor cores.  Last,
+    qwen3-0.6b at full width, 2 layers, with ``head_dim`` 20 and then 264
+    (``HEAD_DIM_RUNS``), card against CPU: the prefill's last logits at B
+    2 x S 1,024, 16 decode steps and ``train_vs_cpu``, every launch on its
+    plan (D 20: flash on padded copies, paged's element loads; D 264: two
+    column passes in all three kernels).
 
 16. the distribution and dry-run layer: (a) ``decode_attention_spmd`` at
     decode_32k (B 8, qwen3's H 16, KH 8, D 128, Smax 32,768, bf16,
@@ -246,10 +265,13 @@ hotspot runs only).  Every phase prints its time.  The launch counters
 are zeroed just before phase 2 and read after phase 17; every kernel must have launched in that run, in
 the phases that run it, and every head-dim instance of the attention
 kernels and ``wc_combine`` from the MoE dispatch (a launch tag) in phase
-14.  The attention kernels' tallies by (head dim, instance) must show
-each head dim on the instance ``instance_of`` names, every published
-config's head dim on its own instance, and D 16 on the 32-column one; the
-kernel line carries them (``launches_by_instance``).  A kernel captured into a CUDA graph (phase 13) is counted once at capture, so its replays' launches
+14.  The attention kernels' tallies by plan (head dim, instance, column
+passes, padded) must show each head dim on the instance and passes
+``plan_of`` names, every published config's head dim on its own
+instance, unpadded, in one pass, and D 16, 20 and 264 on theirs; the
+kernel line carries them (``launches_by_plan_of_head_dim``).  A kernel
+captured into a CUDA graph (phase 13) is counted once at capture, so its
+replays' launches
 are added from the graphs' capture counts and replay counts.  The last
 lines are the kernel table as JSON, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}``.
@@ -408,6 +430,30 @@ PAGED_BETWEEN = ((16, 4, 1, (40, 16), "recurrentgemma-9b (smoke)"),
 for _kernel in ("flash_attention", "paged_attention", "flash_attention_bwd"):
     ATTN_META[f"{_kernel}_d16"] = dict(ATTN_META[_kernel], d=16,
                                        main=BETWEEN[0][-1], kernel=_kernel)
+# head dims whose rows no tensor map describes, a view off 16-byte
+# boundaries, and head dims past the widest instance (phase 1's
+# phase1_any_head_dim; ROADMAP C4): (D, dtype, view), the view the
+# columns 1 .. D of a (.., D + 2) tensor.  Flash forward and backward at
+# ANY_D_SHAPE (B, S, H, KH, window), causal, unmasked and windowed, timed
+# causal; paged with the same heads at every length 1-40 of a 40-row slot
+# (timed at 40), at 4,096 (eight splits and the merge), with return_lse.
+ANY_D = ((20, "bfloat16", False), (36, "bfloat16", False),
+         (6, "float32", False), (30, "float32", False),
+         (32, "bfloat16", True),
+         (264, "bfloat16", False), (264, "float32", False),
+         (320, "bfloat16", False), (320, "float32", False),
+         (512, "bfloat16", False), (512, "float32", False))
+ANY_D_SHAPE = (1, 1024, 8, 2, 64)
+# qwen3-0.6b at full width, 2 layers, with these head dims (phase 15's
+# head_dim_runs): prefill B 2 x S 1,024, 16 decode steps, one training
+# step, card against CPU; their bf16 phase-1 rows are kernel-table rows
+HEAD_DIM_RUNS = dict(arch="qwen3-0.6b", dims=(20, 264), n_layers=2,
+                     batch=2, seq=1024, steps=16)
+for _kernel in ("flash_attention", "paged_attention", "flash_attention_bwd"):
+    for _d in HEAD_DIM_RUNS["dims"]:
+        ATTN_META[f"{_kernel}_d{_d}"] = dict(
+            ATTN_META[_kernel], d=_d, kernel=_kernel,
+            main=f"{HEAD_DIM_RUNS['arch']} (head_dim {_d}, 2 layers)")
 
 
 def say(msg: str) -> None:
@@ -427,11 +473,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-_ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cc|flash_bwd_delta|"
-                    r"flash_bwd_dkdv_bf16|flash_bwd_dq_bf16|"
-                    r"flash_bwd_reduce_bf16|"
-                    r"flash_bwd_dkdv|flash_bwd_dq|paged_split_kernel|"
-                    r"paged_merge_kernel)I((?:13__nv_bfloat16|f)*)Li(\d+)E")
+_ENTRY = re.compile(r"(flash_fwd_bf16|flash_fwd_cols|flash_fwd_cc|"
+                    r"flash_bwd_delta|flash_bwd_dkdv_bf16|flash_bwd_dq_bf16|"
+                    r"flash_bwd_reduce_bf16|flash_bwd_dkdv_cols|"
+                    r"flash_bwd_dq_cols|flash_bwd_dkdv|flash_bwd_dq|"
+                    r"paged_split_kernel|paged_cols_kernel|"
+                    r"paged_merge_kernel)I((?:13__nv_bfloat16|f)*)"
+                    r"(?:Li(\d+)E)?(?:Lb([01])E)?")
 _SWEEP_ENTRY = re.compile(r"(wc_combine_kernel|scan_probe_kernel)")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 # ptxas -v's lines of each entry function (``flash_fwd_bf16<bf16, D=256>``
@@ -456,7 +504,10 @@ def ptxas_report(name: str, log: str) -> int:
             types = re.findall(r"13__nv_bfloat16|f", m.group(2)) if m else []
             dtype = "".join({"13__nv_bfloat16": "bf16, ", "f": "f32, "}[t]
                             for t in types)
-            entry = (f"{m.group(1)}<{dtype}D={m.group(3)}>" if m
+            args = ([f"D={m.group(3)}"] if m and m.group(3) else []) + (
+                [f"{bool(int(m.group(4)))}"] if m and m.group(4) else [])
+            entry = (f"{m.group(1)}<{dtype}{', '.join(args)}>".replace(
+                        ", >", ">") if m
                      else sweep.group(1) if sweep
                      else line.split("'")[1][:72])
         elif entry and any(w in line for w in ("registers", "spill",
@@ -826,12 +877,9 @@ def phase1_attention(dev, card: str) -> dict:
 
     def row_of(ms, call, plain, plain_call, lib, lib_call, nbytes, flops,
                dtype):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FLOPS[str(dtype).removeprefix("torch.")] * 1e3
-        return dict(ms=ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                    call_ms=call, plain_call_ms=plain_call,
+        bound_ms, bound_by = attention_bound(nbytes, flops, dtype)
+        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                    bound_by=bound_by, call_ms=call, plain_call_ms=plain_call,
                     library_call_ms=lib_call)
 
     def compare(name, got, want, dtype, what):
@@ -874,13 +922,14 @@ def phase1_attention(dev, card: str) -> dict:
             q, ke, ve, attn_mask=keep), 5, events=True, floor=fl)
         return ms, call, (top[0][0] if top else None)
 
-    def planned(what, launch, b, kh, g, span):
+    def planned(what, launch, b, kh, g, span, passes=1):
         """Runs ``launch``, one paged launch, and checks that the grid the
         launcher reported for it (``pa.counter_plan``) is the host's plan
-        for these shapes.  Returns the launch's output and the plan."""
+        for these shapes (``passes`` column passes a block of the grid).
+        Returns the launch's output and the plan."""
         groups = pa.head_group_plan(b, kh, g, span, pa.fill_blocks(dev))
         splits = pa.split_plan(span)[1]
-        want = pa.Plan(groups, splits, kh * groups * b * splits)
+        want = pa.Plan(groups, splits, kh * groups * b * splits * passes)
         pa.counter_plan.reset()
         got = launch()
         ran = dict(pa.counter_plan.by_size)
@@ -1181,6 +1230,7 @@ def phase1_attention(dev, card: str) -> dict:
         del q, kp, vp
     torch.cuda.empty_cache()
     phase1_between(dev, card, out, compare, planned, windowed_sdpa)
+    phase1_any_head_dim(dev, card, out, compare, planned)
     phase1_backward(dev, card, out)
     return out
 
@@ -1206,26 +1256,32 @@ BWD_CASES = (("train", 2, 4096, 16, 8, 128, True, 0),
              ("smoke_train",) + SMOKE_FLASH[1:])
 
 
-# the entry functions of each design, as the profiler names them
+# the entry functions of each design, as the profiler names them; the
+# column passes run head dims past 256 in both dtypes
 FWD_ENTRIES = {"tensor cores": ("flash_fwd_bf16",),
-               "CUDA cores": ("flash_fwd_cc",)}
+               "CUDA cores": ("flash_fwd_cc",),
+               "column passes": ("flash_fwd_cols",)}
 BWD_ENTRIES = {"tensor cores": ("flash_bwd_delta", "flash_bwd_dkdv_bf16",
                                 "flash_bwd_dq_bf16"),
                "CUDA cores": ("flash_bwd_delta", "flash_bwd_dkdv<",
-                              "flash_bwd_dq<")}
+                              "flash_bwd_dq<"),
+               "column passes": ("flash_bwd_delta", "flash_bwd_dkdv_cols",
+                                 "flash_bwd_dq_cols")}
 # the fourth launch of a dK/dV pass split over head groups (D 256)
 BWD_REDUCE = "flash_bwd_reduce_bf16"
 
 
 def _instance(fa, d: int):
     """The instance that runs head dim ``d`` (``instance_of``'s), or None
-    past the widest (mamba2's 2,048, of no attention layer)."""
+    past the widest (its column passes)."""
     return next((w for w in fa.INSTANCES if w >= d), None)
 
 
 def fwd_design(fa, dtype, d: int) -> str:
     """The forward design the launcher runs for a dtype and head dim (its
-    instance's)."""
+    instance's; past the widest the column passes)."""
+    if _instance(fa, d) is None:
+        return "column passes"
     return ("tensor cores" if str(dtype) == "torch.bfloat16"
             and _instance(fa, d) in fa.FWD_TENSOR_CORE_DIMS
             else "CUDA cores")
@@ -1233,8 +1289,10 @@ def fwd_design(fa, dtype, d: int) -> str:
 
 def bwd_design(dtype_name: str, d: int) -> str:
     """The backward design the launcher runs for a dtype and head dim (its
-    instance's)."""
+    instance's; past the widest the column passes)."""
     from repro_torch.kernels.flash_attention import ops as fa
+    if _instance(fa, d) is None:
+        return "column passes"
     return ("tensor cores" if dtype_name == "bfloat16"
             and _instance(fa, d) in fa.BWD_TENSOR_CORE_DIMS
             else "CUDA cores")
@@ -1250,30 +1308,45 @@ def bwd_entries(design: str, plan) -> tuple:
 
 def new_tallies(counter, before: dict) -> dict:
     """What ``counter`` tallied since ``before`` (a copy of its
-    ``by_size``): the dK/dV plans, the (head dim, instance) pairs."""
+    ``by_size``): the dK/dV plans, the head-dim plans."""
     return {k: n - before.get(k, 0) for k, n in counter.by_size.items()
             if n > before.get(k, 0)}
 
 
 def fwd_checked(fa, design: str, q, k, v, kw: dict):
     """One ``flash_attention_cuda`` call, which must report ``design``
-    (``counter_tc`` counts the launches it ran on the tensor cores)."""
-    t0 = fa.counter_tc.count
+    (``counter_tc`` and ``counter_cols`` count the launches it ran on the
+    tensor cores and on the column passes)."""
+    t0, c0 = fa.counter_tc.count, fa.counter_cols.count
     got = fa.flash_attention_cuda(q, k, v, **kw)
-    ran = "tensor cores" if fa.counter_tc.count > t0 else "CUDA cores"
+    ran = ("tensor cores" if fa.counter_tc.count > t0 else "column passes"
+           if fa.counter_cols.count > c0 else "CUDA cores")
     check(ran == design, f"flash_attention D {q.shape[-1]} {q.dtype}: the "
                          f"launcher ran the {ran}, expected the {design}")
     return got
 
 
-def check_entries(kernel: str, top, want: tuple, design: str,
-                  what: str) -> dict:
+def attention_bound(nbytes: int, flops: int, dtype) -> tuple:
+    """``(bound ms, "bytes" or "operations")``: the larger of ``nbytes``
+    over the memory rate and ``flops`` over the peak rate of ``dtype``."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                    else "operations")
+
+
+# PyTorch's copy and fill kernels: a padded plan's glue around the kernels
+GLUE = ("elementwise", "copy", "Copy", "fill", "Fill")
+
+
+def check_entries(kernel: str, top, want: tuple, design: str, what: str,
+                  may: tuple = ()) -> dict:
     """Check that the profiled GPU events ``top`` (``profile_device``'s)
-    are the entries ``want`` of ``design`` and nothing else; returns
-    ``{entry: ms a call}``."""
+    are the entries ``want`` of ``design`` and nothing else but names
+    holding one of ``may``; returns ``{entry: ms a call}``."""
     found = {w: sum(ms for name, ms, _ in top if w in name) for w in want}
     others = [name for name, _, _ in top
-              if not any(w in name for w in want)]
+              if not any(w in name for w in want + may)]
     check(all(n in " ".join(name for name, _, _ in top) for n in want)
           and not others,
           f"{kernel} {what}: expected the {design} entries {want}, the "
@@ -1529,12 +1602,6 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
 
-    def bound(nbytes, flops, dtype):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FLOPS[str(dtype).removeprefix("torch.")] * 1e3
-        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                        else "operations")
-
     def keep(kernel, d, row):
         if d == 16:
             out[f"{kernel}_d16"].update(row)
@@ -1560,7 +1627,8 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
                        f"{dname}"
                 i0 = dict(fa.counter_instance.by_size)
                 got = fwd_checked(fa, design, q, k, v, kw)
-                check(new_tallies(fa.counter_instance, i0) == {(d, w): 1},
+                check(new_tallies(fa.counter_instance, i0)
+                      == {fa.plan_of(d, dtype): 1},
                       f"flash_attention {what}: the launcher ran "
                       f"{new_tallies(fa.counter_instance, i0)}")
                 errs.append(compare(name, got, fa.flash_attention_ref(
@@ -1574,7 +1642,7 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
                        else "CUDA cores")
                 check(ran == bwd_design(dname, d)
                       and new_tallies(fa.counter_bwd_instance, i0)
-                      == {(d, w): 1},
+                      == {fa.plan_of(d, dtype): 1},
                       f"flash_attention_bwd {what}: ran the {ran}, "
                       f"{new_tallies(fa.counter_bwd_instance, i0)}")
                 bad, err = grads_beyond(got, fa.flash_attention_bwd_ref(
@@ -1608,7 +1676,7 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=causal, enable_gqa=True), 5,
                     floor=fl)
-            bnd, by = bound(nbytes, flops, dtype)
+            bnd, by = attention_bound(nbytes, flops, dtype)
             row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                        bound_by=by, call_ms=call, plain_call_ms=plain_call,
                        library_call_ms=lib_call, floor_ms=fl, instance=w,
@@ -1643,7 +1711,7 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
             blib, blib_call = timed(lambda: torch.autograd.grad(
                 ref_out, leaves, do, retain_graph=True), 3, floor=bfl)
             del leaves, ref_out, kk, vv
-            bbnd, bby = bound(bbytes, bflops, dtype)
+            bbnd, bby = attention_bound(bbytes, bflops, dtype)
             brow = dict(ms=bms, plain_ms=bplain, library_ms=blib,
                         bound_ms=bbnd, bound_by=bby, call_ms=bcall,
                         plain_call_ms=bplain_call, library_call_ms=blib_call,
@@ -1689,7 +1757,8 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
                     err = max(err, compare(
                         name, got, pa.paged_attention_ref(q, kp, vp, bt, ln),
                         dtype, f"D {d} span {span} length {n} {dname}"))
-                check(new_tallies(pa.counter_instance, i0) == {(d, w): span},
+                check(new_tallies(pa.counter_instance, i0)
+                      == {pa.plan_of(d, dtype): span},
                       f"paged_attention D {d}: the launcher ran "
                       f"{new_tallies(pa.counter_instance, i0)}")
                 paged_lse_check((q, kp, vp, bt, ln),
@@ -1715,7 +1784,7 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
                             q[:, :, None], kp.transpose(1, 2),
                             vp.transpose(1, 2), enable_gqa=True), 20,
                         floor=fl)
-                    bnd, by = bound(nbytes, flops, dtype)
+                    bnd, by = attention_bound(nbytes, flops, dtype)
                     if dtype == torch.bfloat16:
                         keep("paged_attention", d, dict(
                             ms=ms, plain_ms=plain, library_ms=lib,
@@ -1729,6 +1798,276 @@ def phase1_between(dev, card: str, out: dict, compare, planned,
                 say(msg + f" [{card}]")
                 del q, kp, vp
     torch.cuda.empty_cache()
+
+
+def phase1_any_head_dim(dev, card: str, out: dict, compare,
+                        planned) -> None:
+    """The three attention kernels at head dims whose rows are not whole
+    16-byte chunks, on a view off 16-byte boundaries and past 256
+    (``ANY_D``; ROADMAP C4) against their plain versions at every mask
+    (``compare``; the backward within ``BWD_TOL``, fed the kernel
+    forward's f32 output and lse, and the same bits again), every launch
+    on the plan ``plan_of`` gives by the launchers' reports
+    (``counter_instance``, ``counter_bwd_instance``; paged's element loads
+    by ``counter_narrow``) and on its design's entries by the profiler.
+    Kernel, plain, SDPA (forward, backward, dense decode) and bound times
+    at one mask (causal) and the 40-row slot's length 40.  The bf16 rows
+    of ``HEAD_DIM_RUNS``' dims fill their kernel-table rows; the others go
+    under each kernel's row as ``any_head_dim``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    def keep(kernel, d, dname, view, row):
+        name = f"{kernel}_d{d}"
+        if name in ATTN_META and dname == "bfloat16" and not view:
+            out[name].update(row)
+        else:
+            key = f"d{d}_{dname}" + ("_view" if view else "")
+            out[kernel].setdefault("any_head_dim", {})[key] = row
+
+    b, s, h, kh, window = ANY_D_SHAPE
+    masks = ((True, 0), (False, 0), (True, window))
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    t_start = time.perf_counter()
+    for d, dname, view in ANY_D:
+        dtype = getattr(torch, dname)
+
+        def make(shape, seed):
+            if not view:
+                return _randn(shape, dtype, dev, seed)
+            wide = _randn(shape[:-1] + (d + 2,), dtype, dev, seed)
+            return wide[..., 1:d + 1]
+
+        q, do = (make((b, h, s, d), i) for i in (51, 54))
+        k, v = (make((b, kh, s, d), i) for i in (52, 53))
+        plan = fa.plan_of(d, dtype, q, k, v)
+        check(plan.padded == (view or d * q.element_size() % 16 != 0)
+              and plan.passes == max(1, -(-d // 256)),
+              f"flash_attention D {d} {dname}: plan {plan}")
+        design = fwd_design(fa, dtype, d)
+        bdesign = bwd_design(dname, d)
+        name = (f"flash_attention_d{d}" if f"flash_attention_d{d}"
+                in ATTN_META and dname == "bfloat16" and not view
+                else "flash_attention")
+        bname = name.replace("flash_attention", "flash_attention_bwd")
+        errs, berrs = [], []
+        for causal, win in masks:
+            kw = dict(causal=causal, window=win)
+            what = f"D {d} {dname}{' view' if view else ''} {plan} {kw}"
+            i0 = dict(fa.counter_instance.by_size)
+            got = fwd_checked(fa, design, q, k, v, kw)
+            check(new_tallies(fa.counter_instance, i0) == {plan: 1},
+                  f"flash_attention {what}: the launcher ran "
+                  f"{new_tallies(fa.counter_instance, i0)}")
+            errs.append(compare(name, got, fa.flash_attention_ref(
+                q, k, v, **kw), dtype, what))
+            _, lse, o = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                **kw)
+            _, lse_ref, o_ref = fa.flash_attention_ref(q, k, v,
+                                                       return_lse=True, **kw)
+            lerr = float((lse - lse_ref).abs().max())
+            oerr = float((o - o_ref).abs().max())
+            check(lerr <= 1e-4 and oerr <= ATT_TOL[dname],
+                  f"flash_attention {what}: lse off by {lerr}, the f32 "
+                  f"output by {oerr}")
+            i0 = dict(fa.counter_bwd_instance.by_size)
+            c0 = fa.counter_bwd_cols.count
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            ran = new_tallies(fa.counter_bwd_instance, i0)
+            cols = fa.counter_bwd_cols.count - c0
+            check(ran == {plan: 1} and cols == (plan.passes > 1),
+                  f"flash_attention_bwd {what}: ran {ran}, {cols} on the "
+                  f"column passes")
+            again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"flash_attention_bwd {what}: another run gave other "
+                  f"bits")
+            bad, err = grads_beyond(got, fa.flash_attention_bwd_ref(
+                q, k, v, o, do, lse, **kw), dname)
+            check(bad == [0, 0, 0], f"flash_attention_bwd {what}: "
+                                    f"(dq, dk, dv) beyond BWD_TOL {bad}")
+            out[bname]["max_abs_err"] = max(out[bname]["max_abs_err"], err)
+            berrs.append(err)
+            del got, again
+        # timed causal
+        kw = dict(causal=True, window=0)
+        es = q.element_size()
+        pairs = flash_pairs(s, True, 0)
+        nbytes = 2 * (b * h * s * d + b * kh * s * d) * es
+        flops = 4 * b * h * d * pairs
+        fl = floor_ms(nbytes, flops)
+        ms, call, top = timed(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                              3, events=True, floor=fl)
+        check_entries("flash_attention", top, FWD_ENTRIES[design], design,
+                      f"D {d} {dname}", GLUE if plan.padded else ())
+        plain, plain_call = timed(
+            lambda: fa.flash_attention_ref(q, k, v, **kw), 2, floor=fl)
+        # the library on dense copies: its kernels assume aligned rows
+        dense = [x.contiguous() for x in (q, k, v)]
+        lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
+            *dense, is_causal=True, enable_gqa=True), 3, floor=fl)
+        del dense
+        bnd, by = attention_bound(nbytes, flops, dtype)
+        keep("flash_attention", d, dname, view, dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+            call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+            floor_ms=fl, plan=list(plan), design=design,
+            masks=[list(m) for m in masks]))
+        _, lse, o = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        args = (q, k, v, o, do, lse)
+        bbytes = (3 * b * h * s * d + 4 * b * kh * s * d) * es \
+            + 4 * b * h * s * d + 4 * b * h * s
+        bflops = 10 * b * h * d * pairs
+        bfl = floor_ms(bbytes, bflops)
+        bms, bcall, btop = timed(
+            lambda: fa.flash_attention_bwd_cuda(*args, **kw), 2, events=True,
+            floor=bfl)
+        # the five longest events: the delta launch may fall out of them
+        check_entries("flash_attention_bwd", btop, BWD_ENTRIES[bdesign][1:],
+                      bdesign, f"D {d} {dname}",
+                      BWD_ENTRIES[bdesign][:1] + (GLUE if plan.padded
+                                                  else ()))
+        bplain, bplain_call = timed(
+            lambda: fa.flash_attention_bwd_ref(*args, **kw), 2, floor=bfl)
+        # SDPA's backward on dense copies (cuDNN's refuses the views)
+        kk, vv = (x.repeat_interleave(h // kh, 1) for x in (k, v))
+        leaves = [x.detach().contiguous().requires_grad_(True)
+                  for x in (q, kk, vv)]
+        ref_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        dod = do.contiguous()
+        blib, blib_call = timed(lambda: torch.autograd.grad(
+            ref_out, leaves, dod, retain_graph=True), 2, floor=bfl)
+        del leaves, ref_out, kk, vv
+        bbnd, bby = attention_bound(bbytes, bflops, dtype)
+        keep("flash_attention_bwd", d, dname, view, dict(
+            ms=bms, plain_ms=bplain, library_ms=blib, bound_ms=bbnd,
+            bound_by=bby, call_ms=bcall, plain_call_ms=bplain_call,
+            library_call_ms=blib_call, floor_ms=bfl, plan=list(plan),
+            design=bdesign, masks=[list(m) for m in masks]))
+        viewed = " (a view off 16-byte rows)" if view else ""
+        say(f"  flash_attention D {d} {dname}{viewed} plan {tuple(plan)} on "
+            f"the {design}, B{b} S{s} H{h} KH{kh}, "
+            f"masks {masks}: max |diff| {[round(e, 6) for e in errs]}; "
+            f"causal: kernel {ms:.5f} ms, plain {plain:.5f} ms, SDPA "
+            f"{lib:.5f} ms, bound {bnd:.6f} ms ({by}); backward on the "
+            f"{bdesign}: max |diff| {[round(e, 6) for e in berrs]}, kernel "
+            f"{bms:.5f} ms, plain {bplain:.5f} ms, SDPA backward "
+            f"{blib:.5f} ms, bound {bbnd:.6f} ms ({bby}) [{card}]")
+        del q, k, v, do, o, lse, args
+
+        # paged: the 40-row slot at every length, then a 4,096-row page
+        pplan = pa.plan_of(d, dtype)
+        qd = make((1, h, d), 55)
+        pname = (f"paged_attention_d{d}" if f"paged_attention_d{d}"
+                 in ATTN_META and dname == "bfloat16" and not view
+                 else "paged_attention")
+        for span in (40, 4096):
+            kp, vp = (make((1, span, kh, d), i) for i in (56, 57))
+            narrow = not (build.rows16(kp) and build.rows16(vp))
+            i0, n0 = dict(pa.counter_instance.by_size), pa.counter_narrow.count
+            err = 0.0
+            lengths = range(1, 41) if span == 40 else (4096,)
+            for n in lengths:
+                ln = torch.full((1,), n, dtype=torch.int32, device=dev)
+                got, pl = planned(
+                    f"D {d} {dname} span {span}",
+                    lambda: pa.paged_attention_cuda(qd, kp, vp, bt, ln),
+                    1, kh, h // kh, span, pplan.passes)
+                err = max(err, compare(
+                    pname, got, pa.paged_attention_ref(qd, kp, vp, bt, ln),
+                    dtype, f"D {d} {dname} span {span} length {n}"))
+            ran = new_tallies(pa.counter_instance, i0)
+            check(ran == {pplan: len(lengths)}
+                  and pa.counter_narrow.count - n0 == narrow * len(lengths),
+                  f"paged_attention D {d} {dname} span {span}: the launcher "
+                  f"ran {ran}, {pa.counter_narrow.count - n0} with element "
+                  f"loads (expected {narrow})")
+            paged_lse_check((qd, kp, vp, bt, ln),
+                            f"D {d} {dname} span {span}")
+            msg = (f"  paged_attention D {d} {dname} plan {tuple(pplan)}"
+                   f"{', element loads' if narrow else ''}, B1 H{h} KH{kh} "
+                   f"page {span} x 1 ({pl}), lengths "
+                   f"{'1-40' if span == 40 else span}: max |diff| {err:.3g}")
+            if span == 40:
+                args = (qd, kp, vp, bt, ln)
+                es = qd.element_size()
+                nbytes = 2 * span * kh * d * es + 2 * h * d * es + 8
+                flops = 4 * span * h * d
+                fl = floor_ms(nbytes, flops)
+                ms, call, top = timed(lambda: pa.paged_attention_cuda(*args),
+                                      10, events=True, floor=fl)
+                check_entries("paged_attention", top, ("paged_cols_kernel",),
+                              "column passes", f"D {d} {dname}")
+                plain, plain_call = timed(
+                    lambda: pa.paged_attention_ref(*args), 3, floor=fl)
+                dense = [qd[:, :, None].contiguous(),
+                         kp.transpose(1, 2).contiguous(),
+                         vp.transpose(1, 2).contiguous()]
+                lib, lib_call = timed(
+                    lambda: F.scaled_dot_product_attention(
+                        *dense, enable_gqa=True), 10, floor=fl)
+                del dense
+                bnd, by = attention_bound(nbytes, flops, dtype)
+                keep("paged_attention", d, dname, view, dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                    bound_by=by, call_ms=call, plain_call_ms=plain_call,
+                    library_call_ms=lib_call, floor_ms=fl, plan=list(pplan),
+                    grid=pl, narrow=narrow))
+                msg += (f"; at length 40: kernel {ms:.5f} ms, plain "
+                        f"{plain:.5f} ms, SDPA {lib:.5f} ms; bound "
+                        f"{bnd:.6f} ms ({by})")
+            say(msg + f" [{card}]")
+            del kp, vp
+    say(f"  (any head dim rows: {time.perf_counter() - t_start:.1f} s)")
+    torch.cuda.empty_cache()
+
+
+def c4_seeded(dev, card: str) -> None:
+    """ROADMAP C4's seeded inputs through the model's attention on the
+    card against the same calls on the CPU (the plain versions, which
+    tests/test_torch_attention.py and tests/test_torch_head_dim_any.py
+    hold to the reference): ``gqa_attention`` on bf16 q (1, 128, 4, D) and
+    k/v (1, 128, 1, D) from ``default_rng(0)``, causal, within ``ATT_TOL``
+    and two bf16 ulps; its gradients through ``_FlashFn`` within
+    ``BWD_TOL``; ``decode_attention`` of the last query over the 128 rows;
+    at D 20 and 264."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention as att
+    shapes = ((1, 128, 4), (1, 128, 1), (1, 128, 1), (1, 128, 4))
+    for d in HEAD_DIM_RUNS["dims"]:
+        rng = np.random.default_rng(0)
+        arrs = [rng.standard_normal(sh + (d,)).astype(np.float32)
+                for sh in shapes]
+        res = {}
+        for where in (dev, torch.device("cpu")):
+            q, k, v, do = (torch.from_numpy(a).to(where, torch.bfloat16)
+                           for a in arrs)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = att.gqa_attention(*leaves)
+            grads = torch.autograd.grad(out, leaves, do)
+            res[where.type] = (out.detach(), grads,
+                               att.decode_attention(q[:, -1:], k, v, 128))
+        (og, gg, dg), (oc, gc, dc) = res["cuda"], res["cpu"]
+        errs = []
+        for what, got, want in (("gqa_attention", og, oc),
+                                ("decode_attention", dg, dc)):
+            g, w = got.float().cpu(), want.float()
+            diff = (g - w).abs()
+            errs.append(float(diff.max()))
+            check(got.shape == want.shape and got.dtype == torch.bfloat16
+                  and not bool((diff > ATT_TOL["bfloat16"] * (1 + w.abs()))
+                               .any())
+                  and not bool((diff > 1e-5 + BF16_ULPS2 * w.abs()).any()),
+                  f"C4 D {d} {what}: card vs CPU max |diff| {errs[-1]}")
+        bad, gerr = grads_beyond([x.cpu() for x in gg], gc, "bfloat16")
+        check(bad == [0, 0, 0], f"C4 D {d} gradients: {bad} beyond BWD_TOL")
+        say(f"  C4's seeded inputs at D {d} (bf16, default_rng(0)), card vs "
+            f"CPU: gqa_attention max |diff| {errs[0]:.3g}, its gradients "
+            f"{gerr:.3g} (BWD_TOL), decode_attention {errs[1]:.3g} [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -4253,23 +4592,23 @@ def phase14_smoke(dev, card: str) -> dict:
     # decode step, one paged launch an attention layer
     steps = SERVE_STATS["admitted"] * (32 + 8 - 1)
     paged = new_tallies(pa.counter_instance, p0)
-    check(paged == {(16, 32): steps * _n_attn(cfg)},
+    check(paged == {pa.plan_of(16, torch.bfloat16): steps * _n_attn(cfg)},
           f"{SMOKE_ARCH} --smoke serve: paged_attention launches by (head "
           f"dim, instance) {paged}")
     say(f"  serve {SMOKE_ARCH} --smoke (hd {cfg.hd}, H {cfg.n_heads}, KH "
         f"{cfg.n_kv}, window {cfg.window}, {cfg.n_layers} layers; 16 "
         f"requests): stats {stats} == the reference's; {wall:.3f} s "
         f"(weights init included), {wall / steps * 1e3:.3f} ms a decode "
-        f"step; paged_attention launches by (head dim, instance) {paged} "
+        f"step; paged_attention launches by plan {paged} "
         f"[{card}]")
     card_vs_cpu(cfg, dev, card)
     ring_wrap(cfg, dev, card, RING_SMOKE)
     flash = new_tallies(fa.counter_instance, f0)
-    check(set(flash) == {(16, 32)},
+    check(set(flash) == {fa.plan_of(16, torch.bfloat16)},
           f"{SMOKE_ARCH} smoke forwards: flash_attention launches by (head "
           f"dim, instance) {flash}")
     say(f"  {SMOKE_ARCH} smoke forwards on the card: flash_attention "
-        f"launches by (head dim, instance) {flash} [{card}]")
+        f"launches by plan {flash} [{card}]")
     return {"serve_s": wall, "wall_s": time.perf_counter() - t0}
 
 
@@ -4760,12 +5099,87 @@ def phase15_train(dev, card: str) -> dict:
     train_vs_cpu(dev, card, SMOKE_ARCH, get_config(SMOKE_ARCH, smoke=True))
     ran = new_tallies(fa.counter_bwd_instance, i0)
     ran_tc = fa.counter_bwd_tc.by_size.get(16, 0) - t16
-    check(set(ran) == {(16, 32)} and ran_tc == ran[(16, 32)],
+    d16 = fa.plan_of(16, torch.bfloat16)
+    check(set(ran) == {d16} and ran_tc == ran[d16],
           f"{SMOKE_ARCH} --smoke training: flash_attention_bwd launches by "
-          f"(head dim, instance) {ran}, {ran_tc} on the tensor cores")
+          f"plan {ran}, {ran_tc} on the tensor cores")
     say(f"  {SMOKE_ARCH} smoke (D 16) training on the card: "
-        f"flash_attention_bwd launches by (head dim, instance) {ran}, all "
-        f"on the tensor cores [{card}]")
+        f"flash_attention_bwd launches by plan {ran}, all on the tensor "
+        f"cores [{card}]")
+    out["head_dims"] = head_dim_runs(dev, card)
+    return out
+
+
+def head_dim_runs(dev, card: str) -> dict:
+    """``HEAD_DIM_RUNS``: qwen3-0.6b at full width, 2 layers, with
+    ``head_dim`` 20 (bf16 rows of 40 bytes: flash on padded copies, paged
+    loading them element by element) and then 264 (past the widest
+    instance: column passes in all three kernels), card against CPU on
+    the same weights: the prefill's last logits at B 2 x S 1,024, 16
+    decode steps from a zero state (B 2), and one training step's loss
+    and every gradient leaf (``train_vs_cpu``, B 1 x S 256); every launch
+    on the plan ``plan_of`` gives, by the launchers' reports."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.models.model import Model
+
+    spec = HEAD_DIM_RUNS
+    b, n, steps = spec["batch"], spec["seq"], spec["steps"]
+    out = {}
+    for d in spec["dims"]:
+        t0 = time.perf_counter()
+        cfg = dc.replace(get_config(spec["arch"]), head_dim=d,
+                         n_layers=spec["n_layers"])
+        mg = Model(cfg, device=dev)
+        pg = mg.init(torch.Generator(device=dev).manual_seed(7))
+        mc, pc = Model(cfg, device="cpu"), _tree_to(pg, "cpu")
+        gen = torch.Generator(device=dev).manual_seed(8)
+        toks = torch.randint(0, cfg.vocab, (b, n), device=dev, generator=gen)
+        dtoks = torch.randint(0, cfg.vocab, (b, steps), device=dev,
+                              generator=gen)
+        f0, p0 = (dict(c.by_size) for c in (fa.counter_instance,
+                                            pa.counter_instance))
+        lg, _ = mg.prefill(pg, toks)
+        lc, _ = mc.prefill(pc, toks.cpu())
+        perr, _ = _logits_close(lg, lc, f"{cfg.name} D {d} prefill card vs "
+                                        f"CPU", argmax=False)
+        sg, sc = mg.init_decode_state(b, steps), mc.init_decode_state(b,
+                                                                      steps)
+        got, want = [], []
+        for t in range(steps):
+            tok = dtoks[:, t:t + 1]
+            lgd, sg = mg.decode_step(pg, sg, tok, t)
+            lcd, sc = mc.decode_step(pc, sc, tok.cpu(), t)
+            got.append(lgd[:, 0])
+            want.append(lcd[:, 0])
+        derr, _ = _logits_close(torch.stack(got, 1), torch.stack(want, 1),
+                                f"{cfg.name} D {d} {steps} decode steps card "
+                                f"vs CPU", argmax=False)
+        flash = new_tallies(fa.counter_instance, f0)
+        paged = new_tallies(pa.counter_instance, p0)
+        check(flash == {fa.plan_of(d, torch.bfloat16): cfg.n_layers}
+              and paged == {pa.plan_of(d, torch.bfloat16):
+                            steps * cfg.n_layers},
+              f"{cfg.name} D {d}: flash launches by plan {flash}, paged "
+              f"{paged}")
+        del mg, pg, mc, pc, sg, sc
+        b0 = dict(fa.counter_bwd_instance.by_size)
+        train_vs_cpu(dev, card, spec["arch"], cfg)
+        bwd = new_tallies(fa.counter_bwd_instance, b0)
+        check(bwd == {fa.plan_of(d, torch.bfloat16): cfg.n_layers},
+              f"{cfg.name} D {d} training: backward launches by plan {bwd}")
+        out[d] = dict(prefill_err=perr, decode_err=derr,
+                      wall_s=time.perf_counter() - t0)
+        say(f"  {cfg.name} head_dim {d} (full width, {cfg.n_layers} layers)"
+            f" card vs CPU: prefill B {b} x S {n} last logits max |diff| "
+            f"{perr:.4f}, {steps} decode steps B {b} max |diff| {derr:.4f} "
+            f"(rtol {MODEL_RTOL}, atol {MODEL_ATOL}); launches by plan: "
+            f"flash {flash}, paged {paged}, backward {bwd}; "
+            f"{out[d]['wall_s']:.1f} s [{card}]")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5338,12 +5752,14 @@ def main() -> int:
     phase1_helpers(dev)
     say(f"  (t = {time.perf_counter() - t_start:.1f} s)")
     att = phase1_attention(dev, card)
+    c4_seeded(dev, card)
 
     instances = {"flash_attention": fa.counter_instance,
                  "flash_attention_bwd": fa.counter_bwd_instance,
                  "paged_attention": pa.counter_instance}
     for c in (*counters.values(), *instances.values(), fa.counter_tc,
-              fa.counter_bwd_tc, fa.counter_bwd_plan):
+              fa.counter_bwd_tc, fa.counter_bwd_plan, fa.counter_cols,
+              fa.counter_bwd_cols, pa.counter_narrow):
         c.reset()              # the main paths' runs start here
     per_phase = {1: {n: 0 for n in counters}}
     steps = (
@@ -5427,30 +5843,36 @@ def main() -> int:
     for name in ("flash_attention", "paged_attention", "flash_attention_bwd"):
         by_d = dict(sorted(counters[name].by_size.items()))
         say(f"  {name} main-path launches by head dim: {by_d}")
-        # each head dim on the instance its plan names; every published
-        # config's head dim that runs this kernel launched, on its own
-        # instance (no published path runs zero columns); D 16 (the smoke
-        # recurrentgemma-9b) on the 32-column instance
+        # each head dim on the instance and passes its plan names; every
+        # published config's head dim that runs this kernel launched, on
+        # its own instance, unpadded, in one pass (no published path runs
+        # zero columns or a padded copy); D 16 (the smoke
+        # recurrentgemma-9b), 20 and 264 (HEAD_DIM_RUNS) on their plans
         ops = pa if name == "paged_attention" else fa
         by_inst = dict(sorted(instances[name].by_size.items()))
-        say(f"  {name} main-path launches by (head dim, instance): {by_inst}")
+        say(f"  {name} main-path launches by plan (head dim, instance, "
+            f"passes, padded): {by_inst}")
         check(sum(by_inst.values()) == counters[name].count,
               f"{name}: {sum(by_inst.values())} launches by instance, "
               f"{counters[name].count} in all")
-        for (d, w), n in by_inst.items():
-            check(w == ops.instance_of(d, torch.float32),
-                  f"{name} D {d} ran on the {w}-column instance, its plan "
-                  f"names {ops.instance_of(d, torch.float32)}")
+        for plan, n in by_inst.items():
+            want = ops.plan_of(plan.d, torch.float32)
+            check((plan.w, plan.passes) == (want.w, want.passes),
+                  f"{name} D {plan.d} ran on {plan}, its plan names the "
+                  f"{want.w}-column instance in {want.passes} passes")
         published = published_head_dims(decode=name == "paged_attention")
-        ran = {d: w for d, w in by_inst if d in published}
-        check(ran == {d: d for d in published},
+        ran = {p for p in by_inst if p.d in published}
+        check(ran == {(d, d, 1, False) for d in published},
               f"{name}: the published head dims {published} ran on the "
-              f"instances {ran}")
+              f"plans {ran}")
         say(f"  {name}: every published head dim {published} ran on its "
-            f"own instance; D 16 on {[w for d, w in by_inst if d == 16]}")
-        check(by_inst.get((16, 32), 0) > 0,
-              f"{name} D 16 did not run on the 32-column instance on the "
-              f"main path")
+            f"own instance, unpadded, in one pass; D 16, 20 and 264 on "
+            f"{[tuple(p) for p in by_inst if p.d in (16, 20, 264)]}")
+        for d in (16, *HEAD_DIM_RUNS["dims"]):
+            want = ops.plan_of(d, torch.bfloat16)
+            check(by_inst.get(want, 0) > 0,
+                  f"{name} D {d} did not run on its plan {want} on the "
+                  f"main path")
     moe_dispatch = wcc.counter.by_tag.get("moe_dispatch", 0)
     say(f"  wc_combine main-path launches from the MoE dispatch: "
         f"{moe_dispatch}, from everything else (graph replays included): "
@@ -5520,8 +5942,8 @@ def main() -> int:
         if kernel == name:
             row["launches_by_head_dim"] = dict(sorted(
                 counters[name].by_size.items()))
-            row["launches_by_instance"] = {
-                f"{d}->{w}": n for (d, w), n
+            row["launches_by_plan_of_head_dim"] = {
+                str(tuple(p)): n for p, n
                 in sorted(instances[name].by_size.items())}
         if kernel == "flash_attention_bwd":
             row["launches_tensor_cores"] = (

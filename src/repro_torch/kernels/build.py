@@ -19,13 +19,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Hashable
+from typing import Hashable, NamedTuple
 
 import torch
 
 __all__ = ["SOURCES", "LaunchCounter", "launch_tag", "build", "library",
            "library_path", "check", "stream_of", "require_cuda",
-           "require_cuda_views", "head_dim_instance"]
+           "require_cuda_views", "rows16", "padded_width", "HeadDimPlan",
+           "head_dim_plan"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -168,14 +169,11 @@ def require_cuda(what: str, *tensors: torch.Tensor, dtypes=()) -> None:
         raise ValueError(f"{what}: N={n} exceeds the kernel's int32 indexing")
 
 
-def require_cuda_views(what: str, named: dict, dtypes, ndims: dict,
-                       rows16=()) -> None:
+def require_cuda_views(what: str, named: dict, dtypes, ndims: dict) -> None:
     """Check the N-D inputs of a kernel that reads strided views: every
     tensor of ``named`` (``{name: tensor}``) is on one CUDA device, has the
     rank ``ndims[name]`` and a contiguous last axis, and its dtype is in
-    ``dtypes[name]``; the rows of each tensor named in ``rows16`` start on
-    16-byte boundaries (base pointer and every stride but the last), as the
-    kernel loads them 16 bytes at a time.  Raise ``ValueError`` otherwise."""
+    ``dtypes[name]``.  Raise ``ValueError`` otherwise."""
     dev = None
     for name, t in named.items():
         if t.device.type != "cuda" or (dev is not None and t.device != dev):
@@ -191,28 +189,50 @@ def require_cuda_views(what: str, named: dict, dtypes, ndims: dict,
         if t.dtype not in dtypes[name]:
             raise ValueError(f"{what}: {name} is {t.dtype}, expected one of "
                              f"{dtypes[name]}")
-        if name in rows16 and (
-                t.data_ptr() % 16
-                or any(st * t.element_size() % 16 for st in t.stride()[:-1])):
-            raise ValueError(f"{what}: the rows of {name} must start on "
-                             f"16-byte boundaries, got strides {t.stride()} "
-                             f"at address {t.data_ptr():#x}")
 
 
-def head_dim_instance(what: str, d: int, dtype: torch.dtype,
-                      instances: tuple[int, ...]) -> int:
-    """The compiled width (of ``instances``, ascending) on which an
-    attention kernel runs head dim ``d`` in ``dtype``: the smallest at or
-    above ``d``.  The kernel reads columns ``d`` and beyond as zeros and
-    stores none of them.  Raise ``ValueError`` where no instance takes
-    ``d``: above the widest, or where a row of ``d`` elements is not a
-    whole number of the 16-byte chunks the kernels load."""
-    if d < 1 or d > instances[-1]:
-        raise ValueError(f"{what}: head dim {d} is outside 1..{instances[-1]}"
-                         f" (the widest compiled instance of {instances})")
-    if d * dtype.itemsize % 16:
-        raise ValueError(f"{what}: head dim {d} in {dtype} is a row of "
-                         f"{d * dtype.itemsize} bytes, not a multiple of the "
-                         f"16-byte chunks the kernel loads (a multiple of "
-                         f"{16 // dtype.itemsize} elements)")
-    return next(w for w in instances if w >= d)
+def rows16(t: torch.Tensor) -> bool:
+    """Whether every row (last axis) of ``t`` is whole 16-byte chunks that
+    start on 16-byte boundaries: base pointer, every stride but the last
+    and the row's bytes multiples of 16 -- what TMA's tensor maps and the
+    kernels' 16-byte loads need."""
+    es = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * es % 16 == 0
+            and all(st * es % 16 == 0 for st in t.stride()[:-1]))
+
+
+def padded_width(d: int, dtype: torch.dtype) -> int:
+    """``d`` rounded up to whole 16-byte chunks of ``dtype`` (a multiple of
+    8 in bf16, of 4 in f32): the row width of a padded copy."""
+    step = 16 // dtype.itemsize
+    return -(-d // step) * step
+
+
+class HeadDimPlan(NamedTuple):
+    """How an attention kernel runs head dim ``d``: on the compiled width
+    ``w``, in ``passes`` column passes (1 up to 256; past it ceil(width /
+    256) passes of 256 output columns, each computing the scores over the
+    whole row), on dense zero-padded copies of its inputs when
+    ``padded``.  A launcher counts each launch under the plan it ran."""
+    d: int
+    w: int
+    passes: int
+    padded: bool
+
+
+def head_dim_plan(what: str, d: int, dtype: torch.dtype,
+                  instances: tuple[int, ...], padded: bool) -> HeadDimPlan:
+    """The plan of head dim ``d`` (any ``d >= 1``) in ``dtype`` on a kernel
+    compiled at ``instances`` (ascending, the widest 256): the width it
+    runs at is ``d``, or ``padded_width`` when ``padded``; up to 256 the
+    smallest instance at or above it, past 256 the widest in ceil(width /
+    256) column passes.  Zero columns add exact zeros to every product and
+    nothing is stored past ``d``, so the plan changes no result but by
+    the order of its sums.  Raise ``ValueError`` for ``d < 1``."""
+    if d < 1:
+        raise ValueError(f"{what}: head dim {d} < 1")
+    width = padded_width(d, dtype) if padded else d
+    top = instances[-1]
+    if width > top:
+        return HeadDimPlan(d, top, -(-width // top), padded)
+    return HeadDimPlan(d, next(w for w in instances if w >= width), 1, padded)

@@ -20,8 +20,8 @@
 // 0.14 ms in bf16: operations bound.
 //
 // Instances.  Each design is compiled at the widths W 32, 64, 80, 96, 112,
-// 128 and 256, and a head dim D (at most 256, its rows whole 16-byte
-// chunks) runs on the smallest W at or above it, the launcher's caller
+// 128 and 256, and a head dim D up to 256 (its rows whole 16-byte chunks)
+// runs on the smallest W at or above it, the launcher's caller
 // choosing it (ops.py's instance_of) and the kernel taking D at run time:
 // columns D .. W - 1 of every tile load as zeros (TMA's out-of-bounds fill
 // past the tensor maps' D columns, or the CUDA-core loads), every product
@@ -90,6 +90,18 @@
 // shared memory; a thread owns 8 query rows x 4 key columns of the score
 // tile and 8 rows x D/16 columns of the output; every product an f32 FMA.
 // Same masks and tile skipping.
+//
+// Past 256, both dtypes: the CUDA-core design in column passes
+// (flash_fwd_cols).  A block owns a pass of 256 output columns of its
+// query tile, ceil(D / 256) passes in the grid; for each key tile it sums
+// S over the row's chunks of 256 columns (Q's and K's chunk staged as
+// f32), then runs the softmax and accumulates its columns of O from V's
+// chunk.  Each pass computes S, m and l with the same arithmetic, so they
+// are the same bits in every pass and lse (pass 0's) fits each column's
+// normalization; in bf16 o32 takes the output before its rounding.  Rows
+// that are not whole 16-byte chunks, or views off 16-byte boundaries,
+// never reach this file: the launcher's caller (ops.py) runs the kernels
+// on dense zero-padded copies of them.
 //
 // On Hopper the blocks run in no order, so there is no carry between
 // blocks: the TPU kernel's kv grid axis is the loop over key tiles inside
@@ -286,6 +298,181 @@ flash_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
         if (tx + 16 * j < hd)
           ob[qpos * os.s + tx + 16 * j] = acc[i][j] / denom;
       if (lse != nullptr && tx == 0)
+        lse[(static_cast<long long>(b) * H + h) * S + qpos] =
+            m[i] + logf(denom);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA cores, head dims past 256: column passes, f32 and bf16
+// ---------------------------------------------------------------------------
+
+constexpr int kCW = 256;  // columns of a score chunk and of an output pass
+
+// rows [pos0, pos0 + rows) of columns [0, cw) of a (S, .) slice at `src`
+// (row stride `stride`, 16-byte chunks) into `dst` as f32 times `mul`, row
+// pitch `pitch`, kCW columns: rows past S and columns cw .. kCW - 1 zeros
+template <typename T>
+__device__ __forceinline__ void stage_cols(float* dst, int pitch,
+                                           const T* src, long long stride,
+                                           int pos0, int rows, int S, int cw,
+                                           float mul) {
+  constexpr int V = 16 / sizeof(T), C = kCW / V;
+  for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C, pos = pos0 + r;
+    float e[V];
+    if (pos < S && c * V < cw) {
+      load_chunk(src + pos * stride + c * V, e);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) e[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) dst[r * pitch + c * V + i] = e[i] * mul;
+  }
+}
+
+// flash_fwd_cc's design at a head dim hd past 256: one block per (64-query
+// tile, column pass, head, batch).  For each key tile the block sums S =
+// Q K^T over the row's chunks of kCW columns (Q's and K's chunk staged
+// together, then their products), then runs the online softmax and
+// accumulates O over its pass's columns [pass kCW, pass kCW + kCW) of V,
+// staged with the tile's first chunk.  Every pass computes the same
+// scores in the same order, so m and l are the same bits in each, and
+// pass 0 alone writes lse.  In bf16 the output is rounded once at the
+// store, and `o32` (or nullptr) takes it in f32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_cols(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ o32, float* __restrict__ lse, int H,
+               int KH, int S, int hd, int n_pass, Strides qs, Strides ks,
+               Strides vs, Strides os, int causal, int window, float scale) {
+  constexpr int D = kCW, LQ = D + 1, LK = D + 1, LV = D, LP = kBK + 1;
+  constexpr int NJ = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;            // [kBQ][LQ]: a chunk, pre-scaled
+  float* Ks = Qs + kBQ * LQ;   // [kBK][LK]: a chunk
+  float* Vs = Ks + kBK * LK;   // [kBK][LV]: the pass's columns
+  float* Ps = Vs + kBK * LV;   // [kBQ][LP]
+
+  const int pass = static_cast<int>(blockIdx.x) % n_pass;
+  const int q0 = static_cast<int>(blockIdx.x) / n_pass * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / KH);
+  const int nc = (hd + D - 1) / D, c0 = pass * D, pw = min(D, hd - c0);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+
+  float acc[8][NJ], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
+
+  int kt_end = (S + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, (min(q0 + kBQ, S) + kBK - 1) / kBK);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / kBK;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBK;
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    for (int kc = 0; kc < nc; ++kc) {
+      const int cw = min(D, hd - kc * D);
+      __syncthreads();  // the previous chunk's (tile's) tiles are read
+      stage_cols(Qs, LQ, qb + kc * D, qs.s, q0, kBQ, S, cw, scale);
+      stage_cols(Ks, LK, kb + kc * D, ks.s, k0, kBK, S, cw, 1.f);
+      if (kc == 0) stage_cols(Vs, LV, vb + c0, vs.s, k0, kBK, S, pw, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < cw; ++d) {
+        float qv[8], kv[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) qv[i] = Qs[(ty * 8 + i) * LQ + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LK + d];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + ty * 8 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        bool ok = true;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        sc[i][j] = kpos >= S ? -INFINITY : (ok ? sc[i][j] : kNegInf);
+        mx = fmaxf(mx, sc[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        Ps[(ty * 8 + i) * LP + tx + 16 * j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float pv[8], vv[NJ];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pv[i] = Ps[(ty * 8 + i) * LP + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * LV + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+  T* ob = o + b * os.b + h * os.h + c0;
+  float* o32b = o32 == nullptr ? nullptr : o32 + b * os.b + h * os.h + c0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qpos = q0 + ty * 8 + i;
+    if (qpos < S) {
+      const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (tx + 16 * j < pw) {
+          const float x = acc[i][j] / denom;
+          ob[qpos * os.s + tx + 16 * j] = attn::from_f32<T>(x);
+          if (o32b != nullptr) o32b[qpos * os.s + tx + 16 * j] = x;
+        }
+      if (lse != nullptr && tx == 0 && pass == 0)
         lse[(static_cast<long long>(b) * H + h) * S + qpos] =
             m[i] + logf(denom);
     }
@@ -577,6 +764,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// head dims past 256 on the CUDA cores (flash_fwd_cols), in n_pass
+// column passes of kCW columns
+template <typename T>
+int launch_cols(const void* q, const void* k, const void* v, void* o,
+                float* o32, float* lse, int B, int H, int KH, int S, int hd,
+                int n_pass, Strides qs, Strides ks, Strides vs, Strides os,
+                int causal, int window, float scale, cudaStream_t stream) {
+  const size_t bytes = smem_floats<kCW>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_cols<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = static_cast<long long>((S + kBQ - 1) / kBQ) * n_pass;
+  if (tiles >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), H, B);
+  flash_fwd_cols<T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), o32, lse, H, KH, S, hd,
+      n_pass, qs, ks, vs, os, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the instance of width D at head dim hd; *design: 1 for the tensor-core
 // kernel, 0 for the CUDA-core one
 template <int D>
@@ -601,10 +810,12 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // Strides are in elements; the D axis is contiguous and every row starts on
 // a 16-byte boundary.  lse: f32 (B, H, S) contiguous, or nullptr.  o32: in
 // bf16, f32 with out's element strides, or nullptr; ignored in f32.
-// D is the head dim, W the instance it runs on (a width below, D <= W,
-// D's rows whole 16-byte chunks).  *design is set to the design launched:
-// 1 = the tensor-core kernel (bf16 at every W), 0 = the CUDA-core one
-// (f32); *instance to the W it dispatched on.
+// D is the head dim, its rows whole 16-byte chunks, and W the instance it
+// runs on: a compiled width at or above it up to 256, 256 past it.
+// *design is set to the design launched: 1 = the tensor-core kernel (bf16
+// at every W), 0 = the CUDA-core one (f32), 2 = the CUDA-core column
+// passes (D past 256, both dtypes); *instance to the W it dispatched on
+// and *passes to its column passes (ceil(D / 256) past 256, else 1).
 extern "C" int flash_attention_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KH, int S, int D, int W, long long qsb,
@@ -612,16 +823,31 @@ extern "C" int flash_attention_launch(
     long long vsb, long long vss, long long vsh, long long osb, long long oss,
     long long osh,
     int causal, int window, float scale, float* lse, float* o32, int* design,
-    int* instance, cudaStream_t stream) {
+    int* instance, int* passes, cudaStream_t stream) {
   *design = 0;
   *instance = 0;
+  *passes = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (D < 1 || D > W || D * (dtype ? 2 : 4) % 16 != 0)
+  if (D < 1 || (D <= 256 ? D > W : W != 256) ||
+      D * (dtype ? 2 : 4) % 16 != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
+  if (D > 256) {
+    *design = 2;
+    *instance = 256;
+    *passes = (D + kCW - 1) / kCW;
+    return dtype == 0
+               ? launch_cols<float>(q, k, v, o, nullptr, lse, B, H, KH, S, D,
+                                    *passes, qs, ks, vs, os, causal, window,
+                                    scale, stream)
+               : launch_cols<__nv_bfloat16>(q, k, v, o, o32, lse, B, H, KH,
+                                            S, D, *passes, qs, ks, vs, os,
+                                            causal, window, scale, stream);
+  }
+  *passes = 1;
   switch (W) {
 #define FLASH_CASE(WW)                                                      \
   case WW:                                                                  \

@@ -40,11 +40,12 @@
 // 5, which keeps every output owned by one block.
 //
 // Instances: as in the forward, each kernel is compiled at the widths W
-// 32, 64, 80, 96, 112, 128 and 256, and a head dim D runs on the smallest
-// W at or above it with D as a run-time argument: the loads fill columns
-// D .. W - 1 with zeros (TMA's fill past the maps' D columns; the f32
-// staging), the products run at W over them, delta sums D columns, and no
-// gradient column at or past D is stored.  Below, D is the instance's W.
+// 32, 64, 80, 96, 112, 128 and 256, and a head dim D up to 256 runs on
+// the smallest W at or above it with D as a run-time argument: the loads
+// fill columns D .. W - 1 with zeros (TMA's fill past the maps' D columns;
+// the f32 staging), the products run at W over them, delta sums D
+// columns, and no gradient column at or past D is stored.  Below, D is the
+// instance's W.
 //
 // bf16 at every D (32, 64, 80, 96, 112, 128 and 256): tensor cores.  Both
 // passes have the forward's shape: blocks of 384 threads, two consumer
@@ -126,6 +127,16 @@
 // and dP, stores dS in shared memory and accumulates dQ in registers.  At
 // D 256 the query tile is 32 rows and a block 256 threads, so that the
 // staged tiles fit in shared memory and the accumulators in registers.
+//
+// Past 256, both dtypes: the CUDA-core passes in D 256's geometry, in
+// column passes (flash_bwd_dkdv_cols, flash_bwd_dq_cols): a block owns 256
+// columns of its rows' gradients, ceil(D / 256) blocks per rows, and for
+// each tile pair sums S and dP over the row's chunks of 256 columns (the
+// four operands' chunks staged together), then accumulates its columns
+// from the operand chunk of those columns.  Still three launches and no
+// atomics: every gradient element has one block.  Rows that are not
+// whole 16-byte chunks, or views off 16-byte boundaries, reach no kernel
+// here: ops.py runs them on dense zero-padded copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -522,6 +533,301 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         if (tx + 16 * j < hd)
+          dqb[qpos * dqs.s + tx + 16 * j] = from_f32<T>(aq[i][j] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA cores, head dims past 256: column passes, f32 and bf16
+// ---------------------------------------------------------------------------
+
+// The CUDA-core passes at a head dim hd past 256, in Cfg<kCW>'s geometry
+// and shared memory: each block owns a column pass [c0, c0 + kCW) of its
+// rows' gradients.  For each tile pair it sums S (S^T) and dP (dP^T) over
+// the row's chunks of kCW columns, staging the four operands' chunk
+// together, then makes P and dS as the passes above and accumulates its
+// pass's columns from the operand chunk of those columns (restaged unless
+// it is the last chunk, still in place).  No block writes another's
+// columns; the scale is in dK and dQ at the store.
+constexpr int kCW = 256;
+using CW = Cfg<kCW>;
+
+// (b) the column pass of dK and dV of one (64-key tile, kv head, batch)
+template <typename T>
+__global__ void __launch_bounds__(CW::NT)
+flash_bwd_dkdv_cols(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int H, int KH, int B, int S, int hd,
+                    int n_pass, Strides qs, Strides ks, Strides vs,
+                    Strides ds, Strides dks, Strides dvs, int causal,
+                    int window, float scale) {
+  constexpr int D = kCW, L = CW::L, LP = CW::BQ + 1, RK = CW::RK,
+                CQ = CW::CQ, NJ = CW::NJ, BQ = CW::BQ, BK = CW::BK,
+                NT = CW::NT;
+  extern __shared__ float smem[];
+  float* Ks = smem;               // [BK][L]: a chunk
+  float* Vs = Ks + BK * L;        // [BK][L]: a chunk
+  float* Qs = Vs + BK * L;        // [BQ][L]: a chunk
+  float* dOs = Qs + BQ * L;       // [BQ][L]: a chunk
+  float* Ps = dOs + BQ * L;       // [BK][LP]: P^T
+  float* dSs = Ps + BK * LP;      // [BK][LP]: dS^T
+  float* lse_s = dSs + BK * LP;   // [BQ]
+  float* delta_s = lse_s + BQ;    // [BQ]
+
+  const int pass = static_cast<int>(blockIdx.x) % n_pass;
+  const int blk = static_cast<int>(blockIdx.x) / n_pass;
+  const int kt = blk / (KH * B), rem = blk % (KH * B);
+  const int hk = rem % KH, b = rem / KH, g = H / KH;
+  const int k0 = kt * BK;
+  const int nc = (hd + D - 1) / D, c0 = pass * D, pw = min(D, hd - c0);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+
+  const int kmax = min(k0 + BK, S) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(S, kmax + window) : S;
+  const int qt_lo = q_lo / BQ, qt_hi = (q_hi + BQ - 1) / BQ;
+
+  float akk[RK][NJ], avv[RK][NJ];
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) akk[i][j] = avv[i][j] = 0.f;
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int q0 = qt * BQ;
+    for (int hh = 0; hh < g; ++hh) {
+      const int h = hk * g + hh;
+      const long long bh = static_cast<long long>(b) * H + h;
+      const T* qb = q + b * qs.b + h * qs.h;
+      const T* db = dout + b * ds.b + h * ds.h;
+      float st[RK][CQ], dpt[RK][CQ];
+#pragma unroll
+      for (int i = 0; i < RK; ++i)
+#pragma unroll
+        for (int j = 0; j < CQ; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int kc = 0; kc < nc; ++kc) {
+        const int cw = min(D, hd - kc * D);
+        __syncthreads();  // the previous chunk's (tile pair's) tiles are read
+        stage<T, D, NT>(Ks, kb + kc * D, ks.s, k0, BK, S, cw);
+        stage<T, D, NT>(Vs, vb + kc * D, vs.s, k0, BK, S, cw);
+        stage<T, D, NT>(Qs, qb + kc * D, qs.s, q0, BQ, S, cw);
+        stage<T, D, NT>(dOs, db + kc * D, ds.s, q0, BQ, S, cw);
+        if (kc == 0)
+          stage_rows<NT>(lse_s, delta_s, lse + bh * S, delta + bh * S, q0,
+                         BQ, S);
+        __syncthreads();
+#pragma unroll 4
+        for (int d = 0; d < cw; ++d) {
+          float kv[RK], vv[RK], qv[CQ], dov[CQ];
+#pragma unroll
+          for (int i = 0; i < RK; ++i) {
+            kv[i] = Ks[(ty * RK + i) * L + d];
+            vv[i] = Vs[(ty * RK + i) * L + d];
+          }
+#pragma unroll
+          for (int j = 0; j < CQ; ++j) {
+            qv[j] = Qs[(tx + 16 * j) * L + d];
+            dov[j] = dOs[(tx + 16 * j) * L + d];
+          }
+#pragma unroll
+          for (int i = 0; i < RK; ++i)
+#pragma unroll
+            for (int j = 0; j < CQ; ++j) {
+              st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+              dpt[i][j] = fmaf(vv[i], dov[j], dpt[i][j]);
+            }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RK; ++i)
+#pragma unroll
+        for (int j = 0; j < CQ; ++j) {
+          const int kpos = k0 + ty * RK + i, qc = tx + 16 * j;
+          const int at = (ty * RK + i) * LP + qc;
+          const float p = unmasked(q0 + qc, kpos, S, causal, window)
+                              ? expf(st[i][j] * scale - lse_s[qc])
+                              : 0.f;
+          Ps[at] = p;
+          dSs[at] = p * (dpt[i][j] - delta_s[qc]);
+        }
+      __syncthreads();
+      if (pass != nc - 1) {  // the pass's columns of Q and dO
+        stage<T, D, NT>(Qs, qb + c0, qs.s, q0, BQ, S, pw);
+        stage<T, D, NT>(dOs, db + c0, ds.s, q0, BQ, S, pw);
+        __syncthreads();
+      }
+
+      // dV += P^T dO, dK += dS^T Q over the pass's columns
+#pragma unroll 4
+      for (int qq = 0; qq < BQ; ++qq) {
+        float pv[RK], sv[RK], dov[NJ], qv[NJ];
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          pv[i] = Ps[(ty * RK + i) * LP + qq];
+          sv[i] = dSs[(ty * RK + i) * LP + qq];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          dov[j] = dOs[qq * L + tx + 16 * j];
+          qv[j] = Qs[qq * L + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            avv[i][j] = fmaf(pv[i], dov[j], avv[i][j]);
+            akk[i][j] = fmaf(sv[i], qv[j], akk[i][j]);
+          }
+      }
+    }
+  }
+
+  T* dkb = dk + b * dks.b + hk * dks.h + c0;
+  T* dvb = dv + b * dvs.b + hk * dvs.h + c0;
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int kpos = k0 + ty * RK + i;
+    if (kpos < S) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (tx + 16 * j >= pw) continue;
+        dkb[kpos * dks.s + tx + 16 * j] = from_f32<T>(akk[i][j] * scale);
+        dvb[kpos * dvs.s + tx + 16 * j] = from_f32<T>(avv[i][j]);
+      }
+    }
+  }
+}
+
+// (c) the column pass of dQ of one (query tile, head, batch)
+template <typename T>
+__global__ void __launch_bounds__(CW::NT)
+flash_bwd_dq_cols(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int H,
+                  int KH, int B, int S, int hd, int n_pass, Strides qs,
+                  Strides ks, Strides vs, Strides ds, Strides dqs, int causal,
+                  int window, float scale) {
+  constexpr int D = kCW, L = CW::L, LS = CW::BK + 1, RQ = CW::RQ,
+                CK = CW::CK, NJ = CW::NJ, BQ = CW::BQ, BK = CW::BK,
+                NT = CW::NT;
+  extern __shared__ float smem[];
+  float* Qs = smem;               // [BQ][L]: a chunk
+  float* dOs = Qs + BQ * L;       // [BQ][L]: a chunk
+  float* Ks = dOs + BQ * L;       // [BK][L]: a chunk
+  float* Vs = Ks + BK * L;        // [BK][L]: a chunk
+  float* dSs = Vs + BK * L;       // [BQ][LS]
+  float* lse_s = dSs + BQ * LS;   // [BQ]
+  float* delta_s = lse_s + BQ;    // [BQ]
+
+  const int pass = static_cast<int>(blockIdx.x) % n_pass;
+  const int blk = static_cast<int>(blockIdx.x) / n_pass;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - blk / (H * B);
+  const int hb = blk % (H * B);
+  const int h = hb % H, b = hb / H, hk = h / (H / KH);
+  const int q0 = qt * BQ;
+  const int nc = (hd + D - 1) / D, c0 = pass * D, pw = min(D, hd - c0);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* db = dout + b * ds.b + h * ds.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+
+  stage_rows<NT>(lse_s, delta_s, lse + bh * S, delta + bh * S, q0, BQ, S);
+
+  int kt_hi = (S + BK - 1) / BK;
+  if (causal) kt_hi = min(kt_hi, (min(q0 + BQ, S) + BK - 1) / BK);
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+
+  float aq[RQ][NJ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) aq[i][j] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    float p[RQ][CK], dp[RQ][CK];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < CK; ++j) p[i][j] = dp[i][j] = 0.f;
+    for (int kc = 0; kc < nc; ++kc) {
+      const int cw = min(D, hd - kc * D);
+      __syncthreads();  // the previous chunk's (tile's) tiles are read
+      stage<T, D, NT>(Qs, qb + kc * D, qs.s, q0, BQ, S, cw);
+      stage<T, D, NT>(dOs, db + kc * D, ds.s, q0, BQ, S, cw);
+      stage<T, D, NT>(Ks, kb + kc * D, ks.s, k0, BK, S, cw);
+      stage<T, D, NT>(Vs, vb + kc * D, vs.s, k0, BK, S, cw);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < cw; ++d) {
+        float qv[RQ], dov[RQ], kv[CK], vv[CK];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          qv[i] = Qs[(ty * RQ + i) * L + d];
+          dov[i] = dOs[(ty * RQ + i) * L + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CK; ++j) {
+          kv[j] = Ks[(tx + 16 * j) * L + d];
+          vv[j] = Vs[(tx + 16 * j) * L + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int j = 0; j < CK; ++j) {
+            p[i][j] = fmaf(qv[i], kv[j], p[i][j]);
+            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        const int r = ty * RQ + i;
+        const float pr = unmasked(q0 + r, k0 + tx + 16 * j, S, causal, window)
+                             ? expf(p[i][j] * scale - lse_s[r])
+                             : 0.f;
+        dSs[r * LS + tx + 16 * j] = pr * (dp[i][j] - delta_s[r]);
+      }
+    __syncthreads();
+    if (pass != nc - 1) {  // the pass's columns of K
+      stage<T, D, NT>(Ks, kb + c0, ks.s, k0, BK, S, pw);
+      __syncthreads();
+    }
+
+    // dQ += dS K over the pass's columns
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float sv[RQ], kv[NJ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) sv[i] = dSs[(ty * RQ + i) * LS + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * L + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) aq[i][j] = fmaf(sv[i], kv[j], aq[i][j]);
+    }
+  }
+
+  T* dqb = dq + b * dqs.b + h * dqs.h + c0;
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int qpos = q0 + ty * RQ + i;
+    if (qpos < S) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (tx + 16 * j < pw)
           dqb[qpos * dqs.s + tx + 16 * j] = from_f32<T>(aq[i][j] * scale);
     }
   }
@@ -1305,6 +1611,54 @@ int launch_cc(const void* q, const void* k, const void* v, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// head dims past 256 on the CUDA cores, both dtypes: delta, then the dK/dV
+// and dQ passes in n_pass column passes; plan[1] = the dK/dV pass's blocks
+template <typename T>
+int launch_cols(const void* q, const void* k, const void* v, const float* o,
+                const void* dout, const float* lse, float* delta, void* dq,
+                void* dk, void* dv, int B, int H, int KH, int S, int hd,
+                int n_pass, const Views& st, int causal, int window,
+                float scale, int* plan, cudaStream_t stream) {
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const long long n_dkdv =
+      static_cast<long long>((S + CW::BK - 1) / CW::BK) * KH * B * n_pass;
+  const long long n_dq =
+      static_cast<long long>((S + CW::BQ - 1) / CW::BQ) * H * B * n_pass;
+  if (n_dq >= (1ll << 31) || n_dkdv >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = 1;
+  plan[1] = static_cast<int>(n_dkdv);
+
+  int code = launch_delta<T, kCW>(o, dout, delta, B, H, S, hd, st, stream);
+  if (code != 0) return code;
+
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_cols<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      CW::SMEM_DKDV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_cols<T><<<static_cast<unsigned>(n_dkdv), CW::NT,
+                           CW::SMEM_DKDV, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      H, KH, B, S, hd, n_pass, st.q, st.k, st.v, st.dout, st.dk, st.dv,
+      causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(flash_bwd_dq_cols<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CW::SMEM_DQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_cols<T><<<static_cast<unsigned>(n_dq), CW::NT, CW::SMEM_DQ,
+                         stream>>>(tq, tk, tv, tdo, lse, delta,
+                                   static_cast<T*>(dq), H, KH, B, S, hd,
+                                   n_pass, st.q, st.k, st.v, st.dout, st.dq,
+                                   causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bf16 on the tensor cores, the dK/dV pass over n_groups head groups (1
 // but at D 256; more need `part`, n_groups x B x KH x S x hd x 2 f32);
 // plan = {n_groups, the dK/dV pass's blocks}
@@ -1419,13 +1773,16 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // is taken).  Strides are in elements, each view's (batch, position, head);
 // the D axis is contiguous and every row starts on a 16-byte boundary.  lse
 // (the forward's) and delta (scratch) are f32 (B, H, S) contiguous.
-// D is the head dim, W the instances it runs on (a width below, D <= W,
-// D's rows whole 16-byte chunks).  n_groups: the head groups of the dK/dV
-// pass, 1 but in bf16 at W 256, where more need `part`, f32 scratch of
-// n_groups x B x KH x S x D x 2.  *design is set to the design launched:
-// 1 = the tensor-core kernels (bf16 at every W), 0 = the CUDA-core ones
-// (f32); plan[0] to the head groups and plan[1] to the dK/dV pass's
-// blocks; *instance to the W it dispatched on.
+// D is the head dim, its rows whole 16-byte chunks, and W the instances it
+// runs on: a compiled width at or above it up to 256, 256 past it.
+// n_groups: the head groups of the dK/dV pass, 1 but in bf16 at W 256 up
+// to D 256, where more need `part`, f32 scratch of n_groups x B x KH x S x
+// D x 2.  *design is set to the design launched: 1 = the tensor-core
+// kernels (bf16 at every W), 0 = the CUDA-core ones (f32), 2 = the
+// CUDA-core column passes (D past 256, both dtypes); plan[0] to the head
+// groups and plan[1] to the dK/dV pass's blocks; *instance to the W it
+// dispatched on and *passes to its column passes (ceil(D / 256) past 256,
+// else 1).
 extern "C" int flash_attention_bwd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     const float* o, const void* dout, const float* lse, float* delta,
@@ -1436,18 +1793,36 @@ extern "C" int flash_attention_bwd_launch(
     long long dss, long long dsh, long long dqsb, long long dqss,
     long long dqsh, long long dksb, long long dkss, long long dksh,
     long long dvsb, long long dvss, long long dvsh, int causal, int window,
-    float scale, int* design, int* plan, int* instance,
+    float scale, int* design, int* plan, int* instance, int* passes,
     cudaStream_t stream) {
+  *design = 0;
   *instance = 0;
+  *passes = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   plan[0] = plan[1] = 0;
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (D < 1 || D > W || D * (dtype ? 2 : 4) % 16 != 0)
+  if (D < 1 || (D <= 256 ? D > W : W != 256) ||
+      D * (dtype ? 2 : 4) % 16 != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Views st{{qsb, qss, qsh},    {ksb, kss, ksh},    {vsb, vss, vsh},
                  {osb, oss, osh},    {dsb, dss, dsh},    {dqsb, dqss, dqsh},
                  {dksb, dkss, dksh}, {dvsb, dvss, dvsh}};
+  if (D > 256) {
+    if (n_groups != 1) return static_cast<int>(cudaErrorInvalidValue);
+    *design = 2;
+    *instance = 256;
+    *passes = (D + kCW - 1) / kCW;
+    return dtype == 0
+               ? launch_cols<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    B, H, KH, S, D, *passes, st, causal,
+                                    window, scale, plan, stream)
+               : launch_cols<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq,
+                                            dk, dv, B, H, KH, S, D, *passes,
+                                            st, causal, window, scale, plan,
+                                            stream);
+  }
+  *passes = 1;
   switch (W) {
 #define BWD_CASE(WW)                                                        \
   case WW:                                                                  \

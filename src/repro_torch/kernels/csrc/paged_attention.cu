@@ -42,24 +42,31 @@
 //  * Scores: the g dot products of a position split D over 4 lanes of a
 //    warp (16-byte reads of every 4th chunk; K rows padded so that the reads
 //    fall in distinct banks), finished by two shuffles; 8 positions a warp.
-//    The kernel is compiled at the widths W 32, 64, 96, 112, 128 and 256,
-//    and a head dim D (at most 256, its rows whole 16-byte chunks) runs on
-//    the smallest W at or above it (D 80 on W 96, recurrentgemma-9b's
-//    smoke D 16 on W 32), with D as a run-time argument: a block loads and
-//    reads the D / (16 bytes) chunks of a row, and its P.V threads and
-//    stores the D columns, in tiles laid out at W (each width compiled
-//    twice: with D = W a compile-time constant, as every published head
-//    dim runs, and with D read at run time, whose divisions by D made the
-//    published shapes 21-31 % slower on an H100).  A row that is not a
-//    multiple of 4 chunks (D 112 in bf16: 14; D 80: 10; D 16: 2) leaves
-//    some lanes' last round past the row, which they skip: at D 112 lanes 0
-//    and 1 take 4 chunks, lanes 2 and 3 take 3; at D 16 lanes 0 and 1 one
-//    each and lanes 2 and 3 none.
+//    This kernel (paged_split_kernel) is compiled at the widths W 32, 64,
+//    96, 112, 128 and 256 with D = W a compile-time constant, as every
+//    published head dim runs (D read at run time made the published shapes
+//    21-31 % slower on an H100: its loops divide by D).  A row that is not
+//    a multiple of 4 chunks (D 112 in bf16: 14) leaves some lanes' last
+//    round past the row, which they skip: lanes 0 and 1 take 4 chunks,
+//    lanes 2 and 3 take 3.
 //  * Softmax: a warp per query head, a lane per position; P.V by threads
 //    that own (head, column pair).
+//  * Every other head dim and row (paged_cols_kernel): the same design
+//    with D at run time over a row in chunks of W columns, W the smallest
+//    compiled width at or above D (D 80 on 96, recurrentgemma-9b's smoke
+//    D 16 on 32), 256 past it; the pools are never copied.  Each tile of
+//    positions streams as one stage per chunk (K's chunk, the heads' chunk
+//    of q as f32 and, with the first, V's columns of the block's column
+//    pass); a score is the sum of its chunks' dots; past 256 the grid
+//    holds ceil(D / 256) column passes, each block accumulating its 256
+//    output columns.  Rows that are not whole 16-byte chunks, or lie off
+//    16-byte boundaries (base pointer or a stride), are loaded element by
+//    element, each chunk zero-filled to whole chunks; the others with
+//    cp.async.
 // With one split the block writes the output; with more, each writes its
-// heads' partials (acc[gh][D], m, l) in f32 to scratch, laid out (B, KH,
-// n_split, g, D + 2) with the true D whatever the grouping, and
+// heads' partials (acc[gh][D], m, l; a column pass its columns of acc, and
+// pass 0 m and l) in f32 to scratch, laid out (B, KH, n_split, g, D + 2)
+// with the true D whatever the grouping, and
 // paged_merge_kernel (a
 // second launch, one block per (query head, sequence)) combines them by
 // their log-sum-exp weights.
@@ -169,23 +176,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// D: the instance's width, the tiles' row length; the head dim hd <= D
-// is D itself when WHOLE (a compile-time constant), else `hd_arg`
-template <typename T, int D, bool WHOLE>
+// D: the head dim, the tiles' row length
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ lengths, void* __restrict__ o,
                    float* __restrict__ part, float* __restrict__ lse, int H,
-                   int KH, int n_hgroups, int page, int NP, int hd_arg,
-                   int split, int n_split, long long qsb, long long qsh,
-                   Pool ks, Pool vs, long long btsb, long long osb,
-                   long long osh, float scale) {
+                   int KH, int n_hgroups, int page, int NP, int split,
+                   int n_split, long long qsb, long long qsh, Pool ks,
+                   Pool vs, long long btsb, long long osb, long long osh,
+                   float scale) {
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int LK = k_stride<T, D>();
   constexpr int RJ = (D / CH + 3) / 4;  // rounds of 4 chunks, at most
-  const int hd = WHOLE ? D : hd_arg;
-  const int rc = hd / CH;               // chunks per row
+  constexpr int hd = D;
+  constexpr int rc = hd / CH;           // chunks per row
   // this block's kv head hk and its query heads h0 .. h0 + g - 1 (g of the
   // kv head's H / KH)
   const int g = H / KH / n_hgroups;
@@ -398,11 +404,288 @@ paged_merge_kernel(const float* __restrict__ part,
   }
 }
 
-// the instance of width D at head dim hd (WHOLE: hd == D)
-template <typename T, int D, bool WHOLE>
+// Narrow rows and head dims past 256: the split kernel's design over a
+// row in chunks of W columns.  Grid (KH x n_hgroups x n_pass, B, n_split):
+// the block of column pass `pass` computes the scores over every chunk of
+// the row and accumulates the output's columns [pass W, pass W + W) only.
+// Each tile of positions is streamed as its row chunks, one stage each
+// (K's chunk, the query heads' chunk of q staged as f32, and at the
+// tile's first chunk V's columns of the pass), double-buffered; a
+// position's score is the sum of its chunks' dots, the masks applied
+// after the last.  Every pass computes the same scores in the same order,
+// so their softmax statistics are the same bits, and pass 0 alone writes
+// lse and the partials' (m, l).  NARROW loads element by element (a row
+// that is not whole 16-byte chunks, or off 16-byte boundaries), zero-
+// filling each chunk up to whole chunks; else cp.async 16 bytes at a
+// time, as the split kernel.
+template <typename T, int W, bool NARROW>
+__global__ void __launch_bounds__(kThreads)
+paged_cols_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                  const T* __restrict__ vp, const int* __restrict__ bt,
+                  const int* __restrict__ lengths, void* __restrict__ o,
+                  float* __restrict__ part, float* __restrict__ lse, int H,
+                  int KH, int n_hgroups, int n_pass, int page, int NP,
+                  int hd, int split, int n_split, long long qsb,
+                  long long qsh, Pool ks, Pool vs, long long btsb,
+                  long long osb, long long osh, float scale) {
+  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int LK = k_stride<T, W>();
+  constexpr int RJ = (W / CH + 3) / 4;  // rounds of 4 chunks, at most
+  const int g = H / KH / n_hgroups;
+  const int pass = blockIdx.x % n_pass, grp = blockIdx.x / n_pass;
+  const int hk = grp / n_hgroups, b = blockIdx.y, sp = blockIdx.z;
+  const int h0 = hk * (H / KH) + (grp % n_hgroups) * g;
+  const int nc = (hd + W - 1) / W;              // chunks of a row
+  const int c0 = pass * W, pw = min(W, hd - c0);  // this pass's columns
+  const int length = lengths[b];
+  const int span = NP * page;
+  const int n_valid = min(length, span);
+  const bool f32_out = lse != nullptr;
+  const int n_pos = positions(length, span, f32_out);
+  const int p0 = sp * split;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (p0 >= n_pos) {
+    if (n_pos == 0 && sp == 0 && part == nullptr) {
+      for (int idx = tid; idx < g * pw; idx += kThreads)
+        store_out<T>(o, true,
+                     b * osb + (h0 + idx / pw) * osh + c0 + idx % pw, 0.f);
+      if (pass == 0)
+        for (int gi = tid; gi < g; gi += kThreads)
+          lse[static_cast<long long>(b) * H + h0 + gi] = -INFINITY;
+    }
+    return;
+  }
+  const int p1 = min(p0 + split, n_pos);
+  const int n_tiles = (p1 - p0 + kTP - 1) / kTP;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* Kt = reinterpret_cast<T*>(smem);  // [2][kTP][LK]: a chunk, by stage
+  T* Vt = Kt + 2 * kTP * LK;           // [2][kTP][W]: the pass's, by tile
+  float* Qs = reinterpret_cast<float*>(Vt + 2 * kTP * W);  // [2][g][W]
+  float* Ss = Qs + 2 * g * W;  // [g][kTP]
+  float* Acc = Ss + g * kTP;   // [g][W]
+  float* Ms = Acc + g * W;
+  float* Ls = Ms + g;
+  float* As = Ls + g;
+  const int* btb = bt + b * btsb;
+
+  // columns [col0, col0 + cw) of the tile's rows into dst (row pitch
+  // `pitch`), zeros past them to whole chunks and in rows past p1
+  auto load_rows = [&](T* dst, int pitch, const T* base, const Pool& ps,
+                       int t0, int col0, int cw) {
+    if constexpr (NARROW) {
+      const int cwr = (cw + CH - 1) / CH * CH;
+      for (int idx = tid; idx < kTP * cwr; idx += kThreads) {
+        const int r = idx / cwr, c = idx % cwr, t = t0 + r;
+        T x = attn::from_f32<T>(0.f);
+        if (t < p1 && c < cw)
+          x = base[btb[t / page] * ps.p + (t % page) * ps.o + hk * ps.h +
+                   col0 + c];
+        dst[r * pitch + c] = x;
+      }
+    } else {
+      const int rc = cw / CH;
+      for (int idx = tid; idx < kTP * rc; idx += kThreads) {
+        const int r = idx / rc, c = idx % rc, t = t0 + r;
+        const T* src = base;
+        if (t < p1)
+          src = base + btb[t / page] * ps.p + (t % page) * ps.o + hk * ps.h +
+                col0 + c * CH;
+        cp_async16(dst + r * pitch + c * CH, src, t < p1);
+      }
+    }
+  };
+  // chunk kc of the group's query rows, scaled, as f32 into Qs[buf]
+  auto load_q = [&](int buf, int kc) {
+    const int cw = min(W, hd - kc * W), cwr = (cw + CH - 1) / CH * CH;
+    for (int idx = tid; idx < g * cwr; idx += kThreads) {
+      const int gi = idx / cwr, c = idx % cwr;
+      Qs[(buf * g + gi) * W + c] =
+          c < cw ? to_f32(q[b * qsb + (h0 + gi) * qsh + kc * W + c]) * scale
+                 : 0.f;
+    }
+  };
+  auto issue = [&](int st) {
+    const int tile = st / nc, kc = st % nc, t0 = p0 + tile * kTP;
+    load_rows(Kt + (st & 1) * kTP * LK, LK, kp, ks, t0, kc * W,
+              min(W, hd - kc * W));
+    if (kc == 0) load_rows(Vt + (tile & 1) * kTP * W, W, vp, vs, t0, c0, pw);
+    if (nc > 1) load_q(st & 1, kc);
+    cp_async_commit();
+  };
+
+  if (nc == 1) load_q(0, 0);
+  for (int idx = tid; idx < g * W; idx += kThreads) Acc[idx] = 0.f;
+  for (int gi = tid; gi < g; gi += kThreads) {
+    Ms[gi] = kNegInf;
+    Ls[gi] = 0.f;
+  }
+  issue(0);
+
+  const int n_st = n_tiles * nc;
+  for (int st = 0; st < n_st; ++st) {
+    const int tile = st / nc, kc = st % nc, t0 = p0 + tile * kTP;
+    if (st + 1 < n_st) {
+      issue(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this stage (and, at first, Qs/Acc/Ms/Ls) in place
+
+    // this chunk's dots: 4 lanes per position, as the split kernel
+    {
+      const int r = warp * (kTP / kWarps) + lane / 4, qd = lane % 4;
+      const int rc = (min(W, hd - kc * W) + CH - 1) / CH;
+      const T* krow = Kt + ((st & 1) * kTP + r) * LK;
+      const float* qc = Qs + (nc == 1 ? 0 : (st & 1)) * g * W;
+      float kf[RJ][CH];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j)
+        if (4 * j + qd < rc) chunk_f32(krow + (4 * j + qd) * CH, kf[j]);
+      const int t = t0 + r;
+      for (int gi = 0; gi < g; ++gi) {
+        const float* qrow = qc + gi * W;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          if (4 * j + qd >= rc) continue;
+#pragma unroll
+          for (int e = 0; e < CH; e += 2) {
+            s0 = fmaf(qrow[(4 * j + qd) * CH + e], kf[j][e], s0);
+            s1 = fmaf(qrow[(4 * j + qd) * CH + e + 1], kf[j][e + 1], s1);
+          }
+        }
+        float s = s0 + s1;
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (qd == 0) {
+          float* at = Ss + gi * kTP + r;
+          const float sum = kc == 0 ? s : *at + s;
+          *at = kc < nc - 1 ? sum
+                            : (t >= p1 ? -INFINITY
+                                       : (t < n_valid ? sum : kNegInf));
+        }
+      }
+    }
+    __syncthreads();  // the stage's buffers are rewritten next
+    if (kc < nc - 1) continue;
+
+    for (int gi = warp; gi < g; gi += kWarps) {
+      const float s = Ss[gi * kTP + lane];
+      float mx = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = Ms[gi];
+      const float m_new = fmaxf(m_old, mx);
+      const float p = expf(s - m_new);
+      Ss[gi * kTP + lane] = p;
+      float sum = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        Ls[gi] = Ls[gi] * alpha + sum;
+        Ms[gi] = m_new;
+        As[gi] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V over the pass's columns (an odd last column
+    // pairs with a zero)
+    const int np2 = (pw + 1) / 2;
+    for (int idx = tid; idx < g * np2; idx += kThreads) {
+      const int gi = idx / np2, d = 2 * (idx % np2);
+      const float alpha = As[gi];
+      float a0 = Acc[gi * W + d] * alpha, a1 = Acc[gi * W + d + 1] * alpha;
+      const T* vcol = Vt + (tile & 1) * kTP * W + d;
+      const float* prow = Ss + gi * kTP;
+#pragma unroll 8
+      for (int r = 0; r < kTP; ++r) {
+        const float p = prow[r];
+        const float2 v = pair_f32(vcol + r * W);
+        a0 = fmaf(p, v.x, a0);
+        a1 = fmaf(p, v.y, a1);
+      }
+      Acc[gi * W + d] = a0;
+      Acc[gi * W + d + 1] = a1;
+    }
+    __syncthreads();
+  }
+
+  if (part == nullptr) {
+    for (int idx = tid; idx < g * pw; idx += kThreads) {
+      const int gi = idx / pw, d = idx % pw;
+      store_out<T>(o, f32_out, b * osb + (h0 + gi) * osh + c0 + d,
+                   Acc[gi * W + d] / fmaxf(Ls[gi], 1e-30f));
+    }
+    if (lse != nullptr && pass == 0)
+      for (int gi = tid; gi < g; gi += kThreads)
+        lse[static_cast<long long>(b) * H + h0 + gi] =
+            Ms[gi] + logf(fmaxf(Ls[gi], 1e-30f));
+    return;
+  }
+  float* pb = part + (((static_cast<long long>(b) * KH + hk) * n_split + sp) *
+                          (H / KH) + h0 - hk * (H / KH)) * (hd + 2);
+  for (int idx = tid; idx < g * pw; idx += kThreads)
+    pb[(idx / pw) * (hd + 2) + c0 + idx % pw] = Acc[(idx / pw) * W + idx % pw];
+  if (pass == 0)
+    for (int gi = tid; gi < g; gi += kThreads) {
+      pb[gi * (hd + 2) + hd] = Ms[gi];
+      pb[gi * (hd + 2) + hd + 1] = Ls[gi];
+    }
+}
+
+// shared memory of a column-pass block that serves g query heads
+template <typename T, int W>
+size_t cols_smem_bytes(int g) {
+  // K chunks [2][kTP][k_stride], V tiles [2][kTP][W] in T; then f32
+  // Qs[2][g][W], Ss[g][kTP], Acc[g][W], m/l/alpha[g]
+  return sizeof(T) * 2 * kTP * (k_stride<T, W>() + W) +
+         sizeof(float) * (size_t(g) * (3 * W + kTP) + 3 * size_t(g));
+}
+
+// the column-pass instance of width W at head dim hd (n_pass passes)
+template <typename T, int W, bool NARROW>
+int launch_cols(const void* q, const void* kp, const void* vp, const int* bt,
+                const int* lengths, void* o, float* part, float* lse, int B,
+                int H, int KH, int n_hgroups, int page, int NP, int hd,
+                int split, int n_split, long long qsb, long long qsh,
+                Pool ks, Pool vs, long long btsb, long long osb,
+                long long osh, float scale, int* grid, cudaStream_t stream) {
+  if (split % kTP || n_split < 1 || (n_split > 1) != (part != nullptr) ||
+      n_hgroups < 1 || (H / KH) % n_hgroups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_pass = (hd + W - 1) / W;
+  const size_t bytes = cols_smem_bytes<T, W>(H / KH / n_hgroups);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_cols_kernel<T, W, NARROW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks(KH * n_hgroups * n_pass, B, n_split);
+  paged_cols_kernel<T, W, NARROW><<<blocks, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), bt, lengths, o, part, lse, H, KH, n_hgroups,
+      n_pass, page, NP, hd, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh,
+      scale);
+  grid[0] = blocks.x;
+  grid[1] = blocks.y;
+  grid[2] = blocks.z;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  paged_merge_kernel<T, W, false><<<dim3(H, B), kThreads, 0, stream>>>(
+      part, lengths, o, lse, H, KH, page, NP, hd, split, n_split, osb, osh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the split kernel of head dim D
+template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* lengths, void* o, float* part, float* lse, int B,
-           int H, int KH, int n_hgroups, int page, int NP, int hd, int split,
+           int H, int KH, int n_hgroups, int page, int NP, int split,
            int n_split, long long qsb, long long qsh, Pool ks, Pool vs,
            long long btsb, long long osb, long long osh, float scale,
            int* grid, cudaStream_t stream) {
@@ -411,54 +694,84 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = smem_bytes<T, D>(H / KH / n_hgroups);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D, WHOLE>,
+      paged_split_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 blocks(KH * n_hgroups, B, n_split);
-  paged_split_kernel<T, D, WHOLE><<<blocks, kThreads, bytes, stream>>>(
+  paged_split_kernel<T, D><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), bt, lengths, o, part, lse, H, KH, n_hgroups,
-      page, NP, hd, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
+      page, NP, split, n_split, qsb, qsh, ks, vs, btsb, osb, osh, scale);
   grid[0] = blocks.x;
   grid[1] = blocks.y;
   grid[2] = blocks.z;
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  paged_merge_kernel<T, D, WHOLE><<<dim3(H, B), kThreads, 0, stream>>>(
-      part, lengths, o, lse, H, KH, page, NP, hd, split, n_split, osb, osh);
+  paged_merge_kernel<T, D, true><<<dim3(H, B), kThreads, 0, stream>>>(
+      part, lengths, o, lse, H, KH, page, NP, D, split, n_split, osb, osh);
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dim D on the instance of width W
+// whether a pool's rows are whole 16-byte chunks on 16-byte boundaries
+// (base pointer, every stride but the last, and a row of D elements)
+template <typename T>
+bool rows16(const void* p, Pool st, int D) {
+  const long long sz = sizeof(T);
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.p * sz % 16 == 0 &&
+         st.o * sz % 16 == 0 && st.h * sz % 16 == 0 && D * sz % 16 == 0;
+}
+
+// head dim D on the instance of width W: the split kernel where D is a
+// compiled width (D == W) and the pools' rows are whole 16-byte chunks on
+// 16-byte boundaries, else the column-pass kernel (element loads where
+// the rows are not); ran = {W, passes, element loads}
 template <typename T>
 int launch_d(int D, int W, const void* q, const void* kp, const void* vp,
              const int* bt, const int* lengths, void* o, float* part,
              float* lse, int B, int H, int KH, int n_hgroups, int page,
              int NP, int split, int n_split, long long qsb, long long qsh,
              Pool ks, Pool vs, long long btsb, long long osb, long long osh,
-             float scale, int* grid, int* instance, cudaStream_t stream) {
-  if (D < 1 || D > W || D * int(sizeof(T)) % 16 != 0)
+             float scale, int* grid, int* ran, cudaStream_t stream) {
+  if (D < 1 || (D <= 256 ? D > W : W != 256))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (W) {
+  const bool narrow = !rows16<T>(kp, ks, D) || !rows16<T>(vp, vs, D);
+  ran[0] = W;
+  ran[1] = (D + W - 1) / W;
+  ran[2] = narrow;
+  if (!narrow && D == W) {
+    switch (W) {
 #define PAGED_CASE(WW)                                                      \
   case WW:                                                                  \
-    *instance = WW;                                                         \
-    return D == WW                                                          \
-               ? launch<T, WW, true>(q, kp, vp, bt, lengths, o, part, lse,  \
-                                     B, H, KH, n_hgroups, page, NP, D,      \
-                                     split, n_split, qsb, qsh, ks, vs,      \
-                                     btsb, osb, osh, scale, grid, stream)   \
-               : launch<T, WW, false>(q, kp, vp, bt, lengths, o, part, lse, \
-                                      B, H, KH, n_hgroups, page, NP, D,     \
-                                      split, n_split, qsb, qsh, ks, vs,     \
-                                      btsb, osb, osh, scale, grid, stream);
-    PAGED_CASE(32)
-    PAGED_CASE(64)
-    PAGED_CASE(96)
-    PAGED_CASE(112)
-    PAGED_CASE(128)
-    PAGED_CASE(256)
+    return launch<T, WW>(q, kp, vp, bt, lengths, o, part, lse, B, H, KH,     \
+                         n_hgroups, page, NP, split, n_split, qsb, qsh, ks,  \
+                         vs, btsb, osb, osh, scale, grid, stream);
+      PAGED_CASE(32)
+      PAGED_CASE(64)
+      PAGED_CASE(96)
+      PAGED_CASE(112)
+      PAGED_CASE(128)
+      PAGED_CASE(256)
 #undef PAGED_CASE
+    }
+  }
+  switch (W) {
+#define COLS_CASE(WW)                                                       \
+  case WW:                                                                  \
+    return narrow ? launch_cols<T, WW, true>(                                \
+                        q, kp, vp, bt, lengths, o, part, lse, B, H, KH,     \
+                        n_hgroups, page, NP, D, split, n_split, qsb, qsh,   \
+                        ks, vs, btsb, osb, osh, scale, grid, stream)        \
+                  : launch_cols<T, WW, false>(                               \
+                        q, kp, vp, bt, lengths, o, part, lse, B, H, KH,     \
+                        n_hgroups, page, NP, D, split, n_split, qsb, qsh,   \
+                        ks, vs, btsb, osb, osh, scale, grid, stream);
+    COLS_CASE(32)
+    COLS_CASE(64)
+    COLS_CASE(96)
+    COLS_CASE(112)
+    COLS_CASE(128)
+    COLS_CASE(256)
+#undef COLS_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -467,16 +780,17 @@ int launch_d(int D, int W, const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, the pools and out share it).
-// Strides are in elements; the D axis is contiguous and every row starts on
-// a 16-byte boundary; block_table's page axis is contiguous; block_table
-// and lengths are int32.  D is the head dim, W the instance it runs on (a
-// width above, D <= W, D's rows whole 16-byte chunks); *instance is set to
-// the W it dispatched on.  `split` (a multiple of 32) positions per block,
-// n_split blocks per (kv head, sequence) and, across them, n_hgroups
-// blocks per kv head (n_hgroups divides H / KH); with n_split > 1, `part`
-// is f32 scratch of B * KH * n_split * (H / KH) * (D + 2) elements, else
-// null.  grid[0..3) is set to the split launch's grid (KH * n_hgroups, B,
-// n_split).
+// Strides are in elements; the D axis is contiguous; block_table's page
+// axis is contiguous; block_table and lengths are int32.  D is the head
+// dim, W the instance it runs on: the smallest compiled width at or above
+// D up to 256, 256 past it.  ran[0..3) is set to the instance dispatched
+// on, its column passes (ceil(D / W)) and whether rows were loaded element
+// by element (a pool's rows not whole 16-byte chunks on 16-byte
+// boundaries).  `split` (a multiple of 32) positions per block, n_split
+// blocks per (kv head, sequence) and, across them, n_hgroups blocks per kv
+// head (n_hgroups divides H / KH); with n_split > 1, `part` is f32 scratch
+// of B * KH * n_split * (H / KH) * (D + 2) elements, else null.  grid[0..3)
+// is set to the split launch's grid (KH * n_hgroups * passes, B, n_split).
 // lse: f32 (B, H) contiguous, or null; given, the launch is a part of a
 // split sequence: `o` is f32, and a length <= 0 reads nothing (out 0, lse
 // -INFINITY).
@@ -487,9 +801,9 @@ extern "C" int paged_attention_launch(
     int split, int n_split, long long qsb, long long qsh, long long ksp,
     long long kso, long long ksh, long long vsp, long long vso, long long vsh,
     long long btsb, long long osb, long long osh, float scale, int* grid,
-    int* instance, cudaStream_t stream) {
+    int* ran, cudaStream_t stream) {
   grid[0] = grid[1] = grid[2] = 0;
-  *instance = 0;
+  ran[0] = ran[1] = ran[2] = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || H == 0) return 0;
@@ -497,13 +811,12 @@ extern "C" int paged_attention_launch(
   if (dtype == 0)
     return launch_d<float>(D, W, q, kp, vp, bt, lengths, o, part, lse, B, H,
                            KH, n_hgroups, page, NP, split, n_split, qsb, qsh,
-                           ks, vs, btsb, osb, osh, scale, grid, instance,
-                           stream);
+                           ks, vs, btsb, osb, osh, scale, grid, ran, stream);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, W, q, kp, vp, bt, lengths, o, part,
                                    lse, B, H, KH, n_hgroups, page, NP, split,
                                    n_split, qsb, qsh, ks, vs, btsb, osb, osh,
-                                   scale, grid, instance, stream);
+                                   scale, grid, ran, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -25,24 +25,37 @@ and the producer is a warpgroup that hands its registers to the consumers
 (``setmaxnreg``: 240 a consumer thread).  In f32, at every D: one block
 per (64-query tile, head, batch), products as f32 FMAs on the CUDA cores.
 Both skip key tiles their masks cover wholly; any S (rows
-past S read as zeros and are masked), any strides with a contiguous,
-16-byte aligned D axis.  Both directions are compiled at the widths
-``INSTANCES``, and any D up to 256 whose rows are whole 16-byte chunks (a
-multiple of 8 in bf16, of 4 in f32) runs on the smallest at or above it
-(``instance_of``): the kernels take D at run time, load columns D and
-beyond as zeros (TMA's fill past the tensor maps' D columns, or the f32
-loads), run every product at the instance's width over them, and store
-none of them.  Every published head dim is an instance of its own;
-recurrentgemma-9b's smoke D 16 runs on 32, D 48 on 64, D 200 on 256.
+past S read as zeros and are masked), any strides with a contiguous D
+axis.  Both directions are compiled at the widths ``INSTANCES``, and
+every head dim D >= 1 runs by its plan (``plan_of``, a
+``build.HeadDimPlan``): up to 256 on the smallest instance at or above
+it, the kernels taking D at run time, loading columns D and beyond as
+zeros (TMA's fill past the tensor maps' D columns, or the f32 loads),
+running every product at the instance's width over them, and storing
+none of them; past 256 on a CUDA-core kernel in both dtypes
+(``flash_fwd_cols``, ``flash_bwd_*_cols``) whose blocks each own 256 of
+the output's columns (ceil(D / 256) column passes) and compute the
+scores over the whole row in chunks of 256 columns.  Where a row is not
+whole 16-byte chunks (D not a multiple of 8 in bf16, of 4 in f32) or a
+view's rows are off 16-byte boundaries (base pointer or a stride), which
+TMA's tensor maps and the 16-byte loads cannot describe, the wrapper runs
+the kernels on dense copies at ``build.padded_width`` (zero columns past
+D; a view that fits is passed as it is) and copies the outputs' D
+columns out: glue, not attention arithmetic, since zero columns add exact
+zeros and the scale stays D^-1/2.  Every published head dim is an
+instance of its own, unpadded, in one pass; recurrentgemma-9b's smoke D
+16 runs on 32, D 48 on 64, D 200 on 256, D 20 in bf16 on copies 24 wide
+on 32, D 320 in two passes.
 
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.gqa_attention`` sends CPU tensors
 to its plain chunked version instead.  ``counter`` counts one per launch,
 tallied by head dim, ``counter_tc`` the launches the C launcher reports
-it ran on the tensor-core kernel, and ``counter_instance`` the launches by
-(head dim, the instance the launcher reports it dispatched on); a head dim
-no instance takes raises before any launch, and a failed build or launch
-raises, with no other design to fall back to.  With ``return_lse``
+it ran on the tensor-core kernel, ``counter_cols`` those on the
+column-pass kernel, and ``counter_instance`` the launches by their plan
+(head dim, the instance and passes the launcher reports it dispatched
+on, padded); a failed build or launch raises, with no other design to
+fall back to.  With ``return_lse``
 (training) the forward also writes the backward's residuals: each row's
 log-sum-exp of its scaled scores (f32, natural log) and, in bf16, the
 output in f32 before its rounding (in f32 it is the output itself), from
@@ -79,12 +92,16 @@ each writing f32 partial dK and dV to a scratch that a fourth launch sums
 in group order and rounds once.  In f32, at every D: the same three
 launches with f32 FMAs on the CUDA cores.  The dispatch is fixed by dtype
 and D in the C launcher, which reports the design and the dK/dV plan it
-launched; a failure raises.  ``counter_bwd`` counts one per backward
-(three or four kernel launches), tallied by head dim, ``counter_bwd_tc``
-the backwards the launcher ran on the tensor-core kernels, and
+launched; a failure raises.  Past 256, in both dtypes: the same three
+launches on the CUDA cores, each block of the dK/dV and dQ passes owning
+256 columns of its rows' gradients and recomputing S and dP over the
+whole row in chunks of 256 columns; still no atomics.  ``counter_bwd``
+counts one per backward (three or four kernel launches), tallied by head
+dim, ``counter_bwd_tc`` the backwards the launcher ran on the tensor-core
+kernels, ``counter_bwd_cols`` those on the column-pass kernels,
 ``counter_bwd_plan`` the backwards by the dK/dV grid it reported (a
-``BwdPlan``), and ``counter_bwd_instance`` the backwards by (head dim,
-instance).
+``BwdPlan``), and ``counter_bwd_instance`` the backwards by their plan
+(a ``build.HeadDimPlan``).
 """
 from __future__ import annotations
 
@@ -101,16 +118,19 @@ from repro_torch.kernels.paged_attention.ops import (fill_blocks,
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "flash_attention_ref", "flash_attention_bwd_ref", "counter",
-           "counter_tc", "counter_instance", "counter_bwd", "counter_bwd_tc",
-           "counter_bwd_plan", "counter_bwd_instance", "bwd_head_groups",
-           "BwdPlan", "instance_of", "INSTANCES", "FWD_TENSOR_CORE_DIMS",
+           "counter_tc", "counter_cols", "counter_instance", "counter_bwd",
+           "counter_bwd_tc", "counter_bwd_cols", "counter_bwd_plan",
+           "counter_bwd_instance", "bwd_head_groups", "BwdPlan", "plan_of",
+           "instance_of", "INSTANCES", "FWD_TENSOR_CORE_DIMS",
            "BWD_TENSOR_CORE_DIMS", "BWD_GROUPED_DIMS"]
 
 counter = build.LaunchCounter("flash_attention")
 counter_tc = build.LaunchCounter("flash_attention_tc")
+counter_cols = build.LaunchCounter("flash_attention_cols")
 counter_instance = build.LaunchCounter("flash_attention_instance")
 counter_bwd = build.LaunchCounter("flash_attention_bwd")
 counter_bwd_tc = build.LaunchCounter("flash_attention_bwd_tc")
+counter_bwd_cols = build.LaunchCounter("flash_attention_bwd_cols")
 counter_bwd_plan = build.LaunchCounter("flash_attention_bwd_plan")
 counter_bwd_instance = build.LaunchCounter("flash_attention_bwd_instance")
 # the widths both directions are compiled at (the C launchers' instances)
@@ -125,26 +145,48 @@ BWD_TENSOR_CORE_DIMS = (32, 64, 80, 96, 112, 128, 256)
 BWD_GROUPED_DIMS = (256,)
 _BWD_KEY_ROWS = 64      # keys a dK/dV block owns at BWD_GROUPED_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_COLS = 2   # the launchers' design code of the column-pass kernels
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _INT_OUT = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {"flash_attention_launch": (
     ctypes.c_int,
     [_I, _I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
-    + [_I, _I, ctypes.c_float, _P, _P, _INT_OUT, _INT_OUT, _P])}
+    + [_I, _I, ctypes.c_float, _P, _P, _INT_OUT, _INT_OUT, _INT_OUT, _P])}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": (
     ctypes.c_int,
     [_I, _I] + [_P] * 11 + [_I] * 7 + [_L] * 24
     + [_I, _I, ctypes.c_float, _INT_OUT, ctypes.POINTER(ctypes.c_int * 2),
-       _INT_OUT, _P])}
+       _INT_OUT, _INT_OUT, _P])}
+
+
+def plan_of(d: int, dtype: torch.dtype, *views: torch.Tensor
+            ) -> build.HeadDimPlan:
+    """The plan (``build.head_dim_plan``) on which both directions run head
+    dim ``d`` in ``dtype`` with the inputs ``views`` (dense ones when none
+    are given): padded where a row of ``d`` elements is not whole 16-byte
+    chunks or a view's rows are off 16-byte boundaries (``build.rows16``).
+    Every ``d >= 1`` has one."""
+    padded = (d * dtype.itemsize % 16 != 0
+              or not all(build.rows16(t) for t in views))
+    return build.head_dim_plan("flash_attention", d, dtype, INSTANCES, padded)
 
 
 def instance_of(d: int, dtype: torch.dtype) -> int:
     """The instance (of ``INSTANCES``) on which both directions run head
-    dim ``d`` in ``dtype``: the smallest at or above ``d``.  Raises
-    ``ValueError`` past 256, or where a row of ``d`` elements is not whole
-    16-byte chunks (``d`` not a multiple of 8 in bf16, of 4 in f32)."""
-    return build.head_dim_instance("flash_attention", d, dtype, INSTANCES)
+    dim ``d`` in ``dtype`` on dense inputs (``plan_of``'s width)."""
+    return plan_of(d, dtype).w
+
+
+def _fit(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` itself where its rows are ``width`` wide and whole 16-byte
+    chunks on 16-byte boundaries, else a dense copy with zero columns up to
+    ``width``."""
+    if t.shape[-1] == width and build.rows16(t):
+        return t
+    out = t.new_zeros(t.shape[:-1] + (width,))
+    out[..., :t.shape[-1]] = t
+    return out
 
 
 class BwdPlan(NamedTuple):
@@ -168,8 +210,7 @@ def bwd_head_groups(b: int, kh: int, g: int, s: int, fill: int) -> int:
     return groups_to_fill(b * kh * -(-s // _BWD_KEY_ROWS), g, fill)
 
 
-def _check_shapes(what: str, q, k, v, window: int) -> int:
-    """Check the shapes; returns the instance that runs the head dim."""
+def _check_shapes(what: str, q, k, v, window: int) -> None:
     b, h, s, d = q.shape
     kh = k.shape[1]
     if k.shape != v.shape or k.shape != (b, kh, s, d):
@@ -183,7 +224,6 @@ def _check_shapes(what: str, q, k, v, window: int) -> int:
         raise ValueError(f"{what}: grid too large for {q.shape}")
     if window < 0:
         raise ValueError(f"{what}: window {window} < 0")
-    return build.head_dim_instance(what, d, q.dtype, INSTANCES)
 
 
 def _strides(t: torch.Tensor):
@@ -195,19 +235,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
     """q: (B, H, S, D); k/v: (B, KH, S, D), any strides with a contiguous
-    D axis and rows on 16-byte boundaries.  Returns (B, H, S, D) in q's
-    dtype, laid out like q when q is dense (a transposed view of a (B, S,
-    H, D) tensor stays one).  With ``return_lse``: ``(out, lse, out32)``,
-    lse the (B, H, S) f32 log-sum-exp of each row's scaled, masked scores
-    and out32 the output in f32 before its rounding, laid out as out (out
-    itself in f32)."""
+    D axis.  Returns (B, H, S, D) in q's dtype, laid out like q when q is
+    dense (a transposed view of a (B, S, H, D) tensor stays one).  With
+    ``return_lse``: ``(out, lse, out32)``, lse the (B, H, S) f32
+    log-sum-exp of each row's scaled, masked scores and out32 the output in
+    f32 before its rounding, laid out as out (out itself in f32)."""
     build.require_cuda_views(
         "flash_attention", {"q": q, "k": k, "v": v},
         dtypes={"q": tuple(_DTYPES), "k": (q.dtype,), "v": (q.dtype,)},
-        ndims={"q": 4, "k": 4, "v": 4}, rows16=("q", "k", "v"))
-    w = _check_shapes("flash_attention", q, k, v, window)
+        ndims={"q": 4, "k": 4, "v": 4})
+    _check_shapes("flash_attention", q, k, v, window)
     b, h, s, d = q.shape
     kh = k.shape[1]
+    plan = plan_of(d, q.dtype, q, k, v)
+    width = build.padded_width(d, q.dtype) if plan.padded else d
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -219,20 +260,35 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("flash_attention: the f32 output's strides "
                              f"{out32.stride()} differ from the output's "
                              f"{out.stride()}")
+    # the kernels' inputs and outputs: the padded copies' width
+    kq, kk, kv = (_fit(x, width) for x in (q, k, v))
+    kout = out if width == d else kq.new_empty(kq.shape)
+    kout32 = out32 if width == d or out32 is None else (
+        kout if q.dtype == torch.float32 else
+        torch.empty_like(kout, dtype=torch.float32))
     lib = build.library("flash_attention", _SIGNATURES)
-    design, ran = ctypes.c_int(-1), ctypes.c_int(0)
+    design, ran, passes = ctypes.c_int(-1), ctypes.c_int(0), ctypes.c_int(0)
     err = lib.flash_attention_launch(
-        q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), b, h, kh, s, d, w, *_strides(q),
-        *_strides(k), *_strides(v), *_strides(out), int(bool(causal)),
-        int(window), d ** -0.5, None if lse is None else lse.data_ptr(),
-        None if out32 is None or out32 is out else out32.data_ptr(),
-        ctypes.byref(design), ctypes.byref(ran), build.stream_of(q))
+        q.device.index, _DTYPES[q.dtype], kq.data_ptr(), kk.data_ptr(),
+        kv.data_ptr(), kout.data_ptr(), b, h, kh, s, width, plan.w,
+        *_strides(kq), *_strides(kk), *_strides(kv), *_strides(kout),
+        int(bool(causal)), int(window), d ** -0.5,
+        None if lse is None else lse.data_ptr(),
+        None if kout32 is None or kout32 is kout else kout32.data_ptr(),
+        ctypes.byref(design), ctypes.byref(ran), ctypes.byref(passes),
+        build.stream_of(q))
     build.check(lib, err, "flash_attention")
     counter.add(d)
-    counter_instance.add((d, ran.value))
+    counter_instance.add(build.HeadDimPlan(d, ran.value, passes.value,
+                                           plan.padded))
     if design.value == 1:
         counter_tc.add(d)
+    elif design.value == _COLS:
+        counter_cols.add(d)
+    if width != d:
+        out.copy_(kout[..., :d])
+        if out32 is not None and out32 is not out:
+            out32.copy_(kout32[..., :d])
     return (out, lse, out32) if return_lse else out
 
 
@@ -244,18 +300,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     with respect to q, k and v, given its f32 output ``out`` before its
     rounding (the forward's ``out32``, from which delta is taken), the
     output's gradient ``dout`` (both (B, H, S, D); dout in q's dtype) and
-    the forward's ``lse`` ((B, H, S) f32, contiguous).  Views as in the forward.  dq is
-    (B, H, S, D), dk and dv (B, KH, S, D), dense, in q's dtype: the scale
-    D^-1/2 is in dq, and a kv head's dk and dv sum over its query heads."""
+    the forward's ``lse`` ((B, H, S) f32, contiguous).  Views as in the
+    forward (padded copies where the plan pads: q, k, v, out and dout,
+    each unless it fits).  dq is (B, H, S, D), dk and dv (B, KH, S, D),
+    dense, in q's dtype: the scale D^-1/2 is in dq, and a kv head's dk and
+    dv sum over its query heads."""
     build.require_cuda_views(
         "flash_attention_bwd",
         {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse},
         dtypes={"q": tuple(_DTYPES), "k": (q.dtype,), "v": (q.dtype,),
                 "out": (torch.float32,), "dout": (q.dtype,),
                 "lse": (torch.float32,)},
-        ndims={"q": 4, "k": 4, "v": 4, "out": 4, "dout": 4, "lse": 3},
-        rows16=("q", "k", "v", "out", "dout"))
-    w = _check_shapes("flash_attention_bwd", q, k, v, window)
+        ndims={"q": 4, "k": 4, "v": 4, "out": 4, "dout": 4, "lse": 3})
+    _check_shapes("flash_attention_bwd", q, k, v, window)
     b, h, s, d = q.shape
     kh = k.shape[1]
     if out.shape != q.shape or dout.shape != q.shape \
@@ -263,32 +320,41 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
                          f"dout {tuple(dout.shape)} and contiguous lse "
                          f"{tuple(lse.shape)} must fit q {tuple(q.shape)}")
-    dq = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, kh, s, d), dtype=q.dtype, device=q.device)
+    plan = plan_of(d, q.dtype, q, k, v, out, dout)
+    width = build.padded_width(d, q.dtype) if plan.padded else d
+    q, k, v, out, dout = (_fit(x, width) for x in (q, k, v, out, dout))
+    dq = torch.empty((b, h, s, width), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, kh, s, width), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     n_groups = (bwd_head_groups(b, kh, h // kh, s, fill_blocks(q.device))
-                if q.dtype == torch.bfloat16 and w in BWD_GROUPED_DIMS
-                else 1)
+                if q.dtype == torch.bfloat16 and plan.passes == 1
+                and plan.w in BWD_GROUPED_DIMS else 1)
     # the groups' f32 partial dK and dV, which the fourth launch sums
-    part = (torch.empty((2, n_groups, b, kh, s, d), dtype=torch.float32,
+    part = (torch.empty((2, n_groups, b, kh, s, width), dtype=torch.float32,
                         device=q.device) if n_groups > 1 else None)
     lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
-    design, ran = ctypes.c_int(-1), ctypes.c_int(0)
-    plan = (ctypes.c_int * 2)()
+    design, ran, passes = ctypes.c_int(-1), ctypes.c_int(0), ctypes.c_int(0)
+    grid = (ctypes.c_int * 2)()
     err = lib.flash_attention_bwd_launch(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if part is None else part.data_ptr(), b, h, kh, s, d, w,
-        n_groups, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-        *_strides(dout), *_strides(dq), *_strides(dk), *_strides(dv),
-        int(bool(causal)), int(window), d ** -0.5, ctypes.byref(design),
-        ctypes.byref(plan), ctypes.byref(ran), build.stream_of(q))
+        None if part is None else part.data_ptr(), b, h, kh, s, width,
+        plan.w, n_groups, *_strides(q), *_strides(k), *_strides(v),
+        *_strides(out), *_strides(dout), *_strides(dq), *_strides(dk),
+        *_strides(dv), int(bool(causal)), int(window), d ** -0.5,
+        ctypes.byref(design), ctypes.byref(grid), ctypes.byref(ran),
+        ctypes.byref(passes), build.stream_of(q))
     build.check(lib, err, "flash_attention_bwd")
     counter_bwd.add(d)
-    counter_bwd_instance.add((d, ran.value))
+    counter_bwd_instance.add(build.HeadDimPlan(d, ran.value, passes.value,
+                                               plan.padded))
     if design.value == 1:
         counter_bwd_tc.add(d)
-    counter_bwd_plan.add(BwdPlan(plan[0], plan[1]))
+    elif design.value == _COLS:
+        counter_bwd_cols.add(d)
+    counter_bwd_plan.add(BwdPlan(grid[0], grid[1]))
+    if width != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

@@ -25,12 +25,21 @@ has streaming multiprocessors (``fill_blocks``: 132 on an H100 SXM): one
 group, so each K/V row is read once, wherever the grid fills the card
 (decode_32k: 4,096 blocks), and up to g groups of one head at
 recurrentgemma's MQA (KH 1, g 16: at B 1 the 40-row slot would be one
-block).  The kernel is compiled at the widths ``INSTANCES``, and any D up
-to 256 whose rows are whole 16-byte chunks (a multiple of 8 in bf16, of 4
-in f32) runs on the smallest at or above it (``instance_of``: D 80 on 96,
-recurrentgemma-9b's smoke D 16 on 32), with D as a run-time argument: a
-block loads, reads and stores only the D columns of its tiles, which are
-laid out at the instance's width.
+block).  The kernel is compiled at the widths ``INSTANCES``, and every D
+>= 1 runs by its plan (``plan_of``): up to 256 on the smallest width at or
+above it (D 80 on 96, recurrentgemma-9b's smoke D 16 on 32), past 256 on
+256.  Where D is a compiled width and the pools' rows are whole 16-byte
+chunks on 16-byte boundaries (every published head dim), that is the
+split kernel above, D a compile-time constant; any other D or row runs a
+column-pass kernel of the same design with D at run time: a block loads,
+reads and stores only the D columns of its tiles, which are laid out at
+the instance's width; a row's score is summed over chunks of W columns,
+each streamed as a stage of its own; past 256 the grid has ceil(D / 256)
+column passes, each block accumulating 256 of the output's columns; and a
+pool whose rows are not whole 16-byte chunks, or lie off 16-byte
+boundaries, is loaded element by element into tiles zero-filled to whole
+chunks.  The pools, which hold the KV cache, are never copied; q is read
+element by element in every design.
 
 ``paged_attention_cuda`` launches the kernel on CUDA tensors and raises on
 any other; ``repro_torch.models.attention.decode_attention`` sends CPU
@@ -45,9 +54,10 @@ comes in f32, unrounded, so that the merge rounds once; and a length <= 0
 output 0, lse -inf.
 ``counter`` counts one per call that launches the kernel, tallied by head
 dim, ``counter_plan`` the same launches tallied by the grid the C
-launcher reports it ran (a ``Plan``), and ``counter_instance`` by (head
-dim, the instance the launcher reports it dispatched on).  A head dim no
-instance takes raises before any launch.
+launcher reports it ran (a ``Plan``), ``counter_instance`` by their plan
+(``build.HeadDimPlan``: head dim, the instance and column passes the
+launcher reports, never padded), and ``counter_narrow`` the launches
+that loaded rows element by element.
 """
 from __future__ import annotations
 
@@ -61,13 +71,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 __all__ = ["paged_attention_cuda", "paged_attention_ref", "counter",
-           "counter_plan", "counter_instance", "split_plan",
-           "head_group_plan", "groups_to_fill", "fill_blocks", "instance_of",
-           "Plan", "INSTANCES", "SPLIT", "TILE"]
+           "counter_plan", "counter_instance", "counter_narrow", "split_plan",
+           "head_group_plan", "groups_to_fill", "fill_blocks", "plan_of",
+           "instance_of", "Plan", "INSTANCES", "SPLIT", "TILE"]
 
 counter = build.LaunchCounter("paged_attention")
 counter_plan = build.LaunchCounter("paged_attention_plan")
 counter_instance = build.LaunchCounter("paged_attention_instance")
+counter_narrow = build.LaunchCounter("paged_attention_narrow")
 INSTANCES = (32, 64, 96, 112, 128, 256)     # the compiled widths
 TILE = 32           # positions per tile of the kernel
 SPLIT = 512         # positions per block, unless the span needs more
@@ -79,22 +90,28 @@ _SIGNATURES = {"paged_attention_launch": (
     ctypes.c_int,
     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_L] * 11
     + [ctypes.c_float, ctypes.POINTER(ctypes.c_int * 3),
-       ctypes.POINTER(ctypes.c_int), _P])}
+       ctypes.POINTER(ctypes.c_int * 3), _P])}
+
+
+def plan_of(d: int, dtype: torch.dtype) -> build.HeadDimPlan:
+    """The plan (``build.head_dim_plan``) on which the kernel runs head dim
+    ``d`` in ``dtype``, whatever the pools' strides: never padded, the
+    kernel loading a row that is not whole 16-byte chunks, or lies off
+    16-byte boundaries, itself.  Every ``d >= 1`` has one."""
+    return build.head_dim_plan("paged_attention", d, dtype, INSTANCES, False)
 
 
 def instance_of(d: int, dtype: torch.dtype) -> int:
     """The instance (of ``INSTANCES``) on which the kernel runs head dim
-    ``d`` in ``dtype``: the smallest at or above ``d``.  Raises
-    ``ValueError`` past 256, or where a row of ``d`` elements is not whole
-    16-byte chunks (``d`` not a multiple of 8 in bf16, of 4 in f32)."""
-    return build.head_dim_instance("paged_attention", d, dtype, INSTANCES)
+    ``d`` in ``dtype`` (``plan_of``'s width)."""
+    return plan_of(d, dtype).w
 
 
 class Plan(NamedTuple):
     """The grid of one launch, as the C launcher reports it:
-    ``head_groups`` blocks per kv head, ``splits`` per sequence, ``blocks``
-    in all (of the split launch; the merge adds H x B when ``splits >
-    1``)."""
+    ``head_groups`` blocks per kv head (and column pass), ``splits`` per
+    sequence, ``blocks`` in all, column passes included (of the split
+    launch; the merge adds H x B when ``splits > 1``)."""
     head_groups: int
     splits: int
     blocks: int
@@ -142,7 +159,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
                          lengths: torch.Tensor, *, return_lse: bool = False):
     """q: (B, H, D); k/v_pages: (NPOOL, page, KH, D), any strides with a
-    contiguous D axis and rows on 16-byte boundaries; block_table: (B, NP)
+    contiguous D axis; block_table: (B, NP)
     int32 page ids; lengths: (B,) int32.  Returns (B, H, D) in q's dtype;
     a length <= 0 averages every row of the sequence's pages (the
     reference's).  With ``return_lse``: ``(out, lse)``, out (B, H, D) in
@@ -164,8 +181,7 @@ def _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
                 "v_pages": (q.dtype,), "block_table": (torch.int32,),
                 "lengths": (torch.int32,)},
         ndims={"q": 3, "k_pages": 4, "v_pages": 4, "block_table": 2,
-               "lengths": 1},
-        rows16=("q", "k_pages", "v_pages"))
+               "lengths": 1})
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
     np_ = block_table.shape[1]
@@ -181,7 +197,7 @@ def _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
                          "mismatch")
     if page < 1 or np_ < 1 or np_ * page >= 2**31 - 64:
         raise ValueError(f"paged_attention: page {page} x {np_} pages")
-    w = instance_of(d, q.dtype)
+    plan = plan_of(d, q.dtype)
     if kh > 65535 or b > 65535:
         raise ValueError(f"paged_attention: grid too large for {q.shape}")
     split, n_split = split_plan(np_ * page)
@@ -201,13 +217,13 @@ def _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
                            dtype=torch.float32, device=q.device)
     dev = q.device
     lib = build.library("paged_attention", _SIGNATURES)
-    grid, ran = (ctypes.c_int * 3)(), ctypes.c_int(0)
+    grid, ran = (ctypes.c_int * 3)(), (ctypes.c_int * 3)()
     err = lib.paged_attention_launch(
         dev.index, _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if lse is None else lse.data_ptr(), b, h, kh, n_hgroups, page,
-        np_, d, w, split, n_split, q.stride(0), q.stride(1),
+        np_, d, plan.w, split, n_split, q.stride(0), q.stride(1),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
         block_table.stride(0), out.stride(0), out.stride(1),
@@ -215,7 +231,9 @@ def _launch(q, k_pages, v_pages, block_table, lengths, return_lse,
         build.stream_of(q))
     build.check(lib, err, "paged_attention")
     counter.add(d)
-    counter_instance.add((d, ran.value))
-    counter_plan.add(Plan(grid[0] // kh, grid[2],
+    counter_instance.add(build.HeadDimPlan(d, ran[0], ran[1], False))
+    if ran[2]:
+        counter_narrow.add(d)
+    counter_plan.add(Plan(grid[0] // (kh * ran[1]), grid[2],
                           grid[0] * grid[1] * grid[2]))
     return (out, lse) if return_lse else out

@@ -202,9 +202,11 @@ def test_paged_length_zero_averages_pages_like_reference():
 
 
 # head dims between the kernels' compiled instances: recurrentgemma-9b's
-# smoke D 16 (instance 32), 48 (64), 72 (80) and 200 (256); the masks of
-# the smoke config (a 16-token window) and none
-ANY_D = [16, 48, 72, 200]
+# smoke D 16 (instance 32), 48 (64), 72 (80) and 200 (256); rows that are
+# not whole 16-byte chunks, D 6 and 20 (a padded flash copy in bf16, and
+# D 6 in f32 too); past the widest instance, D 264 and 320 (two column
+# passes); the masks of the smoke config (a 16-token window) and none
+ANY_D = [16, 48, 72, 200, 6, 20, 264, 320]
 ANY_D_MASKS = [(True, 0), (False, 0), (True, 16)]
 
 

@@ -661,25 +661,31 @@ def test_paged_attention_mqa_head_groups_on_card(cuda_device, dt, span,
 
 
 def test_attention_wrappers_check_their_inputs_on_card(cuda_device):
+    """The wrappers refuse what no kernel takes (a dtype, a strided last
+    axis, a tensor off the card, a block table's dtype or batch, a head
+    grouping), and return the plain version's result at a head dim past
+    256 (D 264), at one whose rows are not whole 16-byte chunks (D 20 in
+    bf16) and on views whose rows are off 16-byte boundaries: flash on
+    its plan's padded copies, paged loading the rows itself."""
     q = torch.zeros((1, 4, 64, 32), device=cuda_device)
     with pytest.raises(ValueError, match="expected one of"):
         fa.flash_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="contiguous last axis"):
         fa.flash_attention_cuda(q, q, q.transpose(2, 3))
-    with pytest.raises(ValueError, match="head dim 264"):
-        z = torch.zeros((1, 4, 64, 264), device=cuda_device)
-        fa.flash_attention_cuda(z, z, z)
-    with pytest.raises(ValueError, match="head dim 20 in torch.bfloat16"):
-        # rows on 16-byte boundaries, but a row of 40 bytes, not whole
-        # 16-byte chunks
-        z = torch.zeros((1, 4, 64, 24), device=cuda_device,
-                        dtype=torch.bfloat16)[..., :20]
-        fa.flash_attention_cuda(z, z, z)
     with pytest.raises(ValueError, match="cpu"):
         fa.flash_attention_cuda(q, q.cpu(), q)
-    pad = torch.zeros((1, 4, 64, 33), device=cuda_device)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention_cuda(q, pad[..., 1:], q)
+    gen = torch.Generator().manual_seed(0)
+    for shape, dtype, sl, plan in (
+            ((1, 4, 64, 264), torch.float32, slice(None), (264, 256, 2, False)),
+            ((1, 4, 64, 24), torch.bfloat16, slice(0, 20), (20, 32, 1, True)),
+            ((1, 4, 64, 33), torch.float32, slice(1, None), (32, 32, 1, True))):
+        z = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)[..., sl]
+        i0 = dict(fa.counter_instance.by_size)
+        got = fa.flash_attention_cuda(z, z, z)
+        assert _new_instances(fa.counter_instance, i0) == {plan: 1}
+        _assert_close(got, fa.flash_attention_ref(z, z, z),
+                      ATT_DTYPES["bf16" if dtype == torch.bfloat16
+                                 else "f32"][1])
     qd = torch.zeros((2, 4, 32), device=cuda_device)
     pool = torch.zeros((4, 16, 2, 32), device=cuda_device)
     bt = torch.zeros((2, 2), dtype=torch.int32, device=cuda_device)
@@ -688,15 +694,16 @@ def test_attention_wrappers_check_their_inputs_on_card(cuda_device):
         pa.paged_attention_cuda(qd, pool, pool, bt.long(), ln)
     with pytest.raises(ValueError, match="batch mismatch"):
         pa.paged_attention_cuda(qd, pool, pool, bt[:1], ln)
-    pad = torch.zeros((4, 16, 2, 33), device=cuda_device)
-    with pytest.raises(ValueError, match="16-byte"):
-        pa.paged_attention_cuda(qd, pool, pad[..., 1:], bt, ln)
     with pytest.raises(ValueError, match="head groups"):
         pa._launch(qd, pool, pool, bt, ln, False, 3)
-    with pytest.raises(ValueError, match="head dim 264"):
-        big = torch.zeros((4, 16, 2, 264), device=cuda_device)
-        pa.paged_attention_cuda(torch.zeros((2, 4, 264), device=cuda_device),
-                                big, big, bt, ln)
+    for d, sl in ((32, slice(1, None)), (264, slice(None)), (20, slice(None))):
+        width = d + 1 if sl.start else d
+        qd = torch.randn((2, 4, d), generator=gen).to(cuda_device)
+        big = torch.randn((4, 16, 2, width), generator=gen).to(
+            cuda_device)[..., sl]
+        got = pa.paged_attention_cuda(qd, big, big, bt, ln)
+        _assert_close(got, pa.paged_attention_ref(qd, big, big, bt, ln),
+                      ATT_DTYPES["f32"][1])
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-32b"])
@@ -1285,7 +1292,7 @@ def test_flash_attention_lse_f32_output_on_card(cuda_device, d):
 # zero-filled columns: recurrentgemma-9b's smoke D 16 (instance 32), 48
 # (64), 72 (80), 136 (256: a whole 64-column box past the row) and 200
 # (256); paged also D 80 (96)
-ANY_D = [16, 48, 72, 136, 200]
+ANY_D = [16, 48, 72, 136, 200, 6, 20, 264, 320]
 
 
 def _padded(x: torch.Tensor) -> torch.Tensor:
@@ -1299,8 +1306,8 @@ def _padded(x: torch.Tensor) -> torch.Tensor:
 
 
 def _new_instances(counter, before: dict) -> dict:
-    """The (head dim, instance) tallies ``counter`` gained since
-    ``before`` (a copy of its ``by_size``)."""
+    """The plan tallies (head dim, instance, passes, padded) ``counter``
+    gained since ``before`` (a copy of its ``by_size``)."""
     return {k: n - before.get(k, 0) for k, n in counter.by_size.items()
             if n > before.get(k, 0)}
 
@@ -1310,14 +1317,15 @@ def _new_instances(counter, before: dict) -> dict:
 @pytest.mark.parametrize("d", ANY_D)
 def test_flash_attention_any_head_dim_on_its_instance_on_card(
         cuda_device, d, dt, causal, window):
-    """The forward at a head dim between the instances, recurrentgemma's
-    MQA and a GQA shape, ragged S: against the plain version; the
-    launcher reports the instance ``instance_of`` plans and, in bf16, the
-    tensor cores; inputs whose rows run on past column D (NaN there) give
-    the same output, and so do (B, S, H, D) views; with ``return_lse`` the
-    f32 output rounds to the output and lse holds 1e-5."""
+    """The forward at a head dim between the instances (or whose rows are
+    not whole 16-byte chunks, or past 256), recurrentgemma's MQA and a GQA
+    shape, ragged S: against the plain version; the launcher reports the
+    plan ``plan_of`` gives and, in bf16 up to 256, the tensor cores;
+    inputs whose rows run on past column D (NaN there) give the same
+    output, and so do (B, S, H, D) views; with ``return_lse`` the f32
+    output rounds to the output and lse holds 1e-5."""
     dtype, tol = ATT_DTYPES[dt]
-    w = fa.instance_of(d, dtype)
+    plan = fa.plan_of(d, dtype)
     kw = dict(causal=causal, window=window)
     for b, h, kh, s in ((1, 4, 1, 300), (2, 8, 2, 129)):
         q = _randn((b, h, s, d), dtype, cuda_device, d + s)
@@ -1327,8 +1335,9 @@ def test_flash_attention_any_head_dim_on_its_instance_on_card(
         got = fa.flash_attention_cuda(q, k, v, **kw)
         want = fa.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
-        assert _new_instances(fa.counter_instance, i0) == {(d, w): 1}
-        assert fa.counter_tc.count - t0 == (dtype == torch.bfloat16)
+        assert _new_instances(fa.counter_instance, i0) == {plan: 1}
+        assert fa.counter_tc.count - t0 == (dtype == torch.bfloat16
+                                             and plan.passes == 1)
         assert got.dtype == dtype and got.shape == q.shape
         _assert_close(got, want, tol)
         padded = [_padded(x) for x in (q, k, v)]
@@ -1351,39 +1360,43 @@ def test_flash_attention_bwd_any_head_dim_on_its_instance_on_card(
     """The backward at those head dims against its plain version
     (``BWD_TOL``; dense, through views and the same bits again), causal
     with recurrentgemma's smoke window, MQA, ragged S, and non-causal GQA;
-    the launcher reports the planned instance, and at the W-256 instance
-    in bf16 the dK/dV plan ``bwd_head_groups`` gives on this card."""
+    the launcher reports the plan, and at the W-256 instance in bf16 in
+    one pass the dK/dV plan ``bwd_head_groups`` gives on this card."""
     dtype = ATT_DTYPES[dt][0]
-    w = fa.instance_of(d, dtype)
+    plan = fa.plan_of(d, dtype)
+    w = plan.w
     for b, h, kh, s, causal, window in ((1, 4, 1, 300, True, 16),
                                         (2, 8, 2, 129, False, 0)):
         i0 = dict(fa.counter_bwd_instance.by_size)
         p0 = dict(fa.counter_bwd_plan.by_size)
         _check_bwd_on_card(cuda_device, dtype, b, h, kh, s, d, causal,
                            window)
-        assert _new_instances(fa.counter_bwd_instance, i0) == {(d, w): 3}
+        assert _new_instances(fa.counter_bwd_instance, i0) == {plan: 3}
         groups = (fa.bwd_head_groups(b, kh, h // kh, s,
                                      pa.fill_blocks(cuda_device))
                   if dtype == torch.bfloat16 and w in fa.BWD_GROUPED_DIMS
-                  else 1)
+                  and plan.passes == 1 else 1)
         assert {p.head_groups for p in _new_instances(
             fa.counter_bwd_plan, p0)} == {groups}
 
 
 @pytest.mark.parametrize("dt", list(ATT_DTYPES))
 @pytest.mark.parametrize("h,kh,d", [(4, 1, 16), (8, 2, 48), (4, 1, 72),
-                                    (16, 16, 80), (8, 1, 136), (16, 1, 200)])
+                                    (16, 16, 80), (8, 1, 136), (16, 1, 200),
+                                    (8, 2, 6), (8, 2, 20), (4, 1, 264),
+                                    (8, 2, 512)])
 def test_paged_attention_any_head_dim_on_its_instance_on_card(cuda_device,
                                                               dt, h, kh, d):
     """Decode at head dims between the paged instances (recurrentgemma's
     smoke D 16 with its 4 query heads on one kv head; D 80, which paged
-    runs on 96): the serve shape at every length 1-40, a permuted table
-    whose span takes three splits and the merge, and the split decode's
-    f32 output and lse; pools whose rows run on past column D (NaN there)
-    give the same output; the launcher reports the planned instance."""
+    runs on 96), whose rows are not whole 16-byte chunks (D 6, D 20 in
+    bf16) or past 256: the serve shape at every length 1-40, a permuted
+    table whose span takes three splits and the merge, and the split
+    decode's f32 output and lse; pools whose rows run on past column D
+    (NaN there) give the same output; the launcher reports the plan."""
     dtype, tol = ATT_DTYPES[dt]
     tol = 3e-2 if dt == "bf16" else tol
-    w = pa.instance_of(d, dtype)
+    plan = pa.plan_of(d, dtype)
     q = _randn((1, h, d), dtype, cuda_device, d)
     kp = _randn((1, 40, kh, d), dtype, cuda_device, d + 1)
     vp = _randn((1, 40, kh, d), dtype, cuda_device, d + 2)
@@ -1393,7 +1406,7 @@ def test_paged_attention_any_head_dim_on_its_instance_on_card(cuda_device,
         ln = torch.full((1,), n, dtype=torch.int32, device=cuda_device)
         _assert_close(pa.paged_attention_cuda(q, kp, vp, ident, ln),
                       pa.paged_attention_ref(q, kp, vp, ident, ln), tol)
-    assert _new_instances(pa.counter_instance, i0) == {(d, w): 40}
+    assert _new_instances(pa.counter_instance, i0) == {plan: 40}
     q, kp, vp, bt, ln = _pages(3, h, kh, d, 16, 80, 5, dtype, cuda_device, d)
     args = (q, kp, vp, torch.from_numpy(bt).to(cuda_device),
             torch.from_numpy(ln).to(cuda_device))

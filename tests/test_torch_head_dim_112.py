@@ -294,10 +294,13 @@ def test_registered_head_dims_have_kernels(arch, smoke):
     published and smoke, has its head dim on an instance of
     ``flash_attention`` in bf16 and f32, forward and backward on the tensor
     cores in bf16, and every one with a decode step on an instance of
-    ``paged_attention``; a published head dim is an instance of its own
-    (no published path runs zero columns), recurrentgemma-9b's smoke D 16
-    runs on the 32-column instances.  D 264 (past the widest) and D 20 in
-    bf16 (a row of 40 bytes, not whole 16-byte chunks) raise."""
+    ``paged_attention``; a published head dim is an instance of its own,
+    unpadded, in one pass (no published path runs zero columns or a
+    padded copy), recurrentgemma-9b's smoke D 16 runs on the 32-column
+    instances.  Head dims no config has get plans too: D 264 two column
+    passes of the 256 instances, D 20 in bf16 (a row of 40 bytes, not
+    whole 16-byte chunks) a padded flash copy 24 wide on 32, and paged's
+    own loads on 32."""
     cfg = get_config(arch, smoke=smoke)
     blocks = Model(cfg, device="cpu").init_abstract()["blocks"]
     if cfg.family == "ssm":     # no attention layer
@@ -309,9 +312,11 @@ def test_registered_head_dims_have_kernels(arch, smoke):
         assert w == min(x for x in fa.INSTANCES if x >= cfg.hd)
         assert w in fa.FWD_TENSOR_CORE_DIMS, (arch, cfg.hd)
         assert w in fa.BWD_TENSOR_CORE_DIMS, (arch, cfg.hd)
+        assert fa.plan_of(cfg.hd, dtype) == (cfg.hd, w, 1, False)
         if cfg.has_decode:
             wp = pa.instance_of(cfg.hd, dtype)
             assert wp in pa.INSTANCES and wp >= cfg.hd, (arch, cfg.hd, wp)
+            assert pa.plan_of(cfg.hd, dtype) == (cfg.hd, wp, 1, False)
         if not smoke:
             assert w == cfg.hd, (arch, cfg.hd, w)
             if cfg.has_decode:
@@ -320,11 +325,10 @@ def test_registered_head_dims_have_kernels(arch, smoke):
         assert cfg.hd == 16 and fa.instance_of(16, torch.bfloat16) == 32
         assert pa.instance_of(16, torch.bfloat16) == 32
     for ops in (fa, pa):
-        with pytest.raises(ValueError, match="head dim 264"):
-            ops.instance_of(264, torch.bfloat16)
-        with pytest.raises(ValueError, match="16-byte"):
-            ops.instance_of(20, torch.bfloat16)
+        assert ops.plan_of(264, torch.bfloat16) == (264, 256, 2, False)
         assert ops.instance_of(20, torch.float32) == 32
+    assert fa.plan_of(20, torch.bfloat16) == (20, 32, 1, True)
+    assert pa.plan_of(20, torch.bfloat16) == (20, 32, 1, False)
     assert cfg.n_heads % cfg.n_kv == 0
 
 

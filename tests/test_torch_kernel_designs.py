@@ -40,6 +40,14 @@ JAX reference, so that it is held to the reference before it runs on a card.
   kernel's blocks with a kv head's query heads split into groups (each
   block's partials written where the kernel writes them, then merged as
   the merge launch does).
+* every head dim (``plan_of``): the plan of each D 1-1,024; past 256 the
+  column-pass forward and backward (scores summed over 256-column chunks,
+  each pass recomputing them and accumulating its own output columns)
+  within two bf16 ulps / ``BWD_TOL`` of both references and the bits of
+  one pass over the whole row; D 20 in bf16 on its padded copies (the
+  32-column tensor-core tiles) the bits of the true width; paged's
+  column-pass blocks at D 264 against the references and the Pallas
+  kernel in interpret mode.
 * the launcher's plans: ``split_plan`` sizes the split from the block
   table's span, and one split (the serve's shape) means one launch;
   ``head_group_plan`` splits the query heads of a kv head only while the
@@ -1141,7 +1149,8 @@ def _switch_cases(src: str, macro: str) -> tuple[int, ...]:
 def test_instances_match_the_launchers():
     """``INSTANCES`` of each ``ops.py`` are the widths its C launcher
     dispatches on and answers shared memory for (the forward and the
-    backward share theirs)."""
+    backward share theirs; paged dispatches on them twice: its split
+    kernel at a compiled head dim, its column-pass kernel at any other)."""
     fwd = (build.CSRC / "flash_attention.cu").read_text()
     bwd = (build.CSRC / "flash_attention_bwd.cu").read_text()
     paged = (build.CSRC / "paged_attention.cu").read_text()
@@ -1150,6 +1159,7 @@ def test_instances_match_the_launchers():
     assert _switch_cases(bwd, "BWD_CASE") == fa.INSTANCES
     assert _switch_cases(bwd, "BWD_SMEM") == fa.INSTANCES
     assert _switch_cases(paged, "PAGED_CASE") == pa.INSTANCES
+    assert _switch_cases(paged, "COLS_CASE") == pa.INSTANCES
     assert _switch_cases(paged, "PAGED_SMEM") == pa.INSTANCES
     assert set(fa.INSTANCES) == set(fa.FWD_TENSOR_CORE_DIMS)
 
@@ -1157,20 +1167,29 @@ def test_instances_match_the_launchers():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ops", [fa, pa], ids=["flash", "paged"])
 def test_instance_of_every_head_dim(ops, dtype):
-    """Every head dim 1-300: the smallest instance at or above it where a
-    row is whole 16-byte chunks and it is at most 256 (the widest), a
-    ``ValueError`` before any launch otherwise; each instance is its own."""
+    """Every head dim 1-1,024 has a plan: the width it runs at is D, or in
+    flash D rounded up to whole 16-byte chunks where a row is not whole
+    chunks (padded: a multiple of 8 in bf16, of 4 in f32; paged loads
+    such rows itself, never padded); up to 256 the smallest instance at or
+    above that width in one pass, past it the 256 instance in ceil(width /
+    256) column passes.  Each instance, and so every published head dim,
+    is its own plan: unpadded, one pass."""
     chunk = 16 // dtype.itemsize
-    for d in range(1, 301):
-        if d % chunk or d > 256:
-            with pytest.raises(ValueError, match=f"head dim {d}"):
-                ops.instance_of(d, dtype)
-            continue
-        w = ops.instance_of(d, dtype)
-        assert w == min(x for x in ops.INSTANCES if x >= d), d
+    for d in range(1, 1025):
+        plan = ops.plan_of(d, dtype)
+        padded = ops is fa and d % chunk != 0
+        width = -(-d // chunk) * chunk if padded else d
+        if width <= 256:
+            want = (d, min(x for x in ops.INSTANCES if x >= width), 1, padded)
+        else:
+            want = (d, 256, -(-width // 256), padded)
+        assert plan == want, (d, plan, want)
+        assert ops.instance_of(d, dtype) == plan.w
     for w in ops.INSTANCES:
-        assert ops.instance_of(w, dtype) == w
+        assert ops.plan_of(w, dtype) == (w, w, 1, False)
     assert ops.instance_of(80, dtype) == (80 if ops is fa else 96)
+    with pytest.raises(ValueError, match="head dim 0"):
+        ops.plan_of(0, dtype)
 
 
 # head dims between the instances (B, H, KH, S, D, causal, window):
@@ -1278,3 +1297,330 @@ def test_sweep_tile_constants_match_the_sources(name, mod):
             spr.FLAG_AGGREGATE
         assert int(re.search(r"kFlagPrefix = (\d+);", src)[1]) == \
             spr.FLAG_PREFIX
+
+
+# ---------------------------------------------------------------------------
+# head dims past 256 (column passes) and rows not whole 16-byte chunks
+# ---------------------------------------------------------------------------
+
+COLS = 256      # the column-pass kernels' score chunk and output pass
+
+
+def _over_chunks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b^T summed over the shared axis in chunks of ``COLS`` columns, in
+    order: the column-pass kernels' S and dP, each chunk staged and its
+    products added to the running sums in registers."""
+    out = torch.zeros(a.shape[:-1] + (b.shape[-2],))
+    for c0 in range(0, a.shape[-1], COLS):
+        out = out + a[..., c0:c0 + COLS] @ b[..., c0:c0 + COLS].transpose(
+            -1, -2)
+    return out
+
+
+def _passes(d: int, passes: int) -> list[slice]:
+    """The output columns of each of ``passes`` column passes (one pass:
+    every column, the arithmetic at the true width)."""
+    return ([slice(0, d)] if passes == 1 else
+            [slice(c0, min(c0 + COLS, d)) for c0 in range(0, d, COLS)])
+
+
+def _mask(s: int, causal: bool, window: int) -> torch.Tensor:
+    pos = torch.arange(s)
+    ok = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window:
+        ok &= pos[None, :] > pos[:, None] - window
+    return ok
+
+
+def flash_cols_emulation(q, k, v, *, causal, window, passes, block_k=64):
+    """The column-pass forward (``flash_fwd_cols``: f32 on the CUDA cores,
+    either dtype) in plain PyTorch: q pre-scaled by D^-1/2; S = Q K^T over
+    chunks of 256 columns (``_over_chunks``); the reference's masks; (m,
+    l, acc) over 64-key tiles with exp; each of ``passes`` passes
+    recomputes S, m and l and accumulates its own output columns.  Returns
+    (out in q's dtype, the f32 output, lse of pass 0, each pass's (m,
+    l))."""
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    qf = q.float() * d ** -0.5
+    kf, vf = (x.repeat_interleave(g, 1).float() for x in (k, v))
+    ok = _mask(s, causal, window)
+    outs, stats = [], []
+    for cols in _passes(d, passes):
+        m = torch.full((b, h, s), NEG_INF)
+        l_ = torch.zeros((b, h, s))
+        acc = torch.zeros((b, h, s, cols.stop - cols.start))
+        for k0 in range(0, s, block_k):
+            ks = slice(k0, min(k0 + block_k, s))
+            sc = torch.where(ok[:, ks], _over_chunks(qf, kf[:, :, ks]),
+                             NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l_ = l_ * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vf[:, :, ks, cols]
+            m = m_new
+        outs.append(acc / l_.clamp(min=1e-30)[..., None])
+        stats.append((m, l_))
+    out32 = torch.cat(outs, -1)
+    lse = stats[0][0] + torch.log(stats[0][1].clamp(min=1e-30))
+    return out32.to(q.dtype), out32, lse, stats
+
+
+def flash_bwd_cols_emulation(q, k, v, out, dout, lse, *, causal, window,
+                             passes):
+    """The column-pass backward (``flash_bwd_dkdv_cols``,
+    ``flash_bwd_dq_cols``) in plain PyTorch: delta = rowsum(dout * out)
+    over the D columns; S and dP over chunks of 256 columns; P = exp(S
+    scale - lse) under the masks, dS = P (dP - delta), in f32; each pass
+    accumulates its own columns -- dK and dV of a kv head over 32-row
+    query tiles and, inside each, its g query heads; dQ over 64-key tiles
+    -- and recomputes S and dP for them; dK and dQ scaled at the store,
+    every gradient rounded once to q's dtype."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    scale = d ** -0.5
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    delta = (dof * out.float()).sum(-1)
+    ok = _mask(s, causal, window)
+
+    def p_ds(hh, qs, ks):
+        sc = _over_chunks(qf[:, hh, qs], kf[:, hh // g, ks])
+        p = torch.where(ok[qs, ks], torch.exp(sc * scale - lse[:, hh, qs,
+                                                                None]), 0.0)
+        dp = _over_chunks(dof[:, hh, qs], vf[:, hh // g, ks])
+        return p, p * (dp - delta[:, hh, qs, None])
+
+    dq = torch.zeros((b, h, s, d))
+    dk = torch.zeros((b, kh, s, d))
+    dv = torch.zeros((b, kh, s, d))
+    for cols in _passes(d, passes):
+        for q0 in range(0, s, 32):
+            qs = slice(q0, min(q0 + 32, s))
+            for hh in range(h):
+                p, ds = p_ds(hh, qs, slice(0, s))
+                dv[:, hh // g, :, cols] += p.transpose(-1, -2) @ \
+                    dof[:, hh, qs, cols]
+                dk[:, hh // g, :, cols] += ds.transpose(-1, -2) @ \
+                    qf[:, hh, qs, cols]
+        for k0 in range(0, s, 64):
+            ks = slice(k0, min(k0 + 64, s))
+            for hh in range(h):
+                _, ds = p_ds(hh, slice(0, s), ks)
+                dq[:, hh, :, cols] += ds @ kf[:, hh // g, ks, cols]
+    return tuple(x.to(q.dtype) for x in (dq * scale, dk * scale, dv))
+
+
+# (B, H, KH, S, D, causal, window, dtype): D 264 (a 256-column pass and an
+# 8-column one) and 512 (two whole passes), in both dtypes
+COLS_CASES = [
+    (1, 4, 2, 160, 264, True, 64, torch.bfloat16),
+    (1, 4, 1, 130, 264, False, 0, torch.float32),
+    (1, 2, 2, 128, 512, True, 0, torch.float32),
+    (1, 4, 2, 96, 512, False, 48, torch.bfloat16),
+]
+
+
+def _inputs(rng, dtype, *shapes):
+    """Seeded normal values in ``dtype``, as JAX f32 arrays and CPU
+    tensors with the same values."""
+    out = []
+    for shape in shapes:
+        t = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+        out.append((jnp.asarray(t.float().numpy()), t))
+    return out
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window,dtype", COLS_CASES)
+def test_flash_column_passes_within_two_ulps(b, h, kh, s, d, causal, window,
+                                             dtype):
+    """The forward past 256: the column passes' output within two bf16
+    ulps (f32: 2e-5) of the port's and the JAX package's references, lse
+    within 1e-5; every pass's m and l the same bits (each recomputes S in
+    the same chunks and order, so the output's columns share one
+    normalization and lse is written once); and the passes' columns the
+    bits of the same arithmetic in one pass over the whole row."""
+    rng = np.random.default_rng(d + s)
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        rng, dtype, (b, h, s, d), (b, kh, s, d), (b, kh, s, d))
+    kw = dict(causal=causal, window=window)
+    passes = fa.plan_of(d, dtype).passes
+    assert passes == -(-d // 256) >= 2
+    got, out32, lse, stats = flash_cols_emulation(qt, kt, vt, passes=passes,
+                                                  **kw)
+    for m, l_ in stats[1:]:
+        assert torch.equal(m, stats[0][0]) and torch.equal(l_, stats[0][1])
+    whole = flash_cols_emulation(qt, kt, vt, passes=1, **kw)
+    assert torch.equal(out32, whole[1])
+    want, want_lse, _ = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
+    want_j = torch.from_numpy(np.array(j_flash_ref(qj, kj, vj, **kw)))
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    for w in (want, want_j):
+        if dtype == torch.bfloat16:
+            assert _beyond_two_ulps(got, w) == 0
+        else:
+            torch.testing.assert_close(got, w.float(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window,dtype", COLS_CASES)
+def test_flash_bwd_column_passes_within_tolerance(b, h, kh, s, d, causal,
+                                                  window, dtype):
+    """The backward past 256: the column passes' dq, dk, dv have no
+    element beyond ``BWD_TOL`` (f32: 1e-4) of the port's plain backward
+    fed the same f32 output and of ``jax.vjp`` of the reference's
+    ``gqa_attention``, and are the bits of the same arithmetic in one pass
+    (each pass recomputes S and dP over the whole row in the same chunks,
+    and no block sums another's columns: no atomics)."""
+    rng = np.random.default_rng(d + s + 1)
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(
+        rng, dtype, (b, h, s, d), (b, kh, s, d), (b, kh, s, d), (b, h, s, d))
+    kw = dict(causal=causal, window=window)
+    passes = fa.plan_of(d, dtype).passes
+    _, out32, lse, _ = flash_cols_emulation(qt, kt, vt, passes=passes, **kw)
+    got = flash_bwd_cols_emulation(qt, kt, vt, out32, dot, lse,
+                                   passes=passes, **kw)
+    whole = flash_bwd_cols_emulation(qt, kt, vt, out32, dot, lse, passes=1,
+                                     **kw)
+    for x, y in zip(got, whole):
+        assert torch.equal(x, y)
+    want_t = flash_attention_bwd_ref(qt, kt, vt, out32, dot, lse, **kw)
+    j32 = [x.transpose(0, 2, 1, 3) for x in (qj, kj, vj, doj)]
+    _, vjp = jax.vjp(lambda q_, k_, v_: jatt.gqa_attention(
+        q_, k_, v_, chunk=s, **kw), *j32[:3])
+    want_j = [torch.from_numpy(np.array(x)).transpose(1, 2)
+              for x in vjp(j32[3])]
+    for x, wt, wj in zip(got, want_t, want_j):
+        assert x.dtype == dtype and x.shape == wt.shape
+        for w in (wt, wj):
+            if dtype == torch.bfloat16:
+                assert _beyond_bwd_tol(x, w) == 0
+            else:
+                torch.testing.assert_close(x, w.float(), rtol=1e-4,
+                                           atol=1e-4)
+
+
+def test_flash_padded_copy_plan_at_d20():
+    """D 20 in bf16 (a 40-byte row, which no tensor map describes): the
+    plan runs both directions on dense copies 24 columns wide (zeros past
+    column 19) on the 32-column tensor-core instances, TMA filling
+    columns 24-31 with zeros too.  Emulated on the instance's tiles, the
+    forward stays within two bf16 ulps of both references and the
+    backward within ``BWD_TOL``, and both are the bits of the same
+    arithmetic at the true width: the zero columns add exact zeros and the
+    scale stays 20^-1/2."""
+    b, h, kh, s, d = 1, 4, 2, 192, 20
+    plan = fa.plan_of(d, torch.bfloat16)
+    assert plan == (20, 32, 1, True)
+    assert build.padded_width(d, torch.bfloat16) == 24
+    rng = np.random.default_rng(20)
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (_bf16(rng, x) for x in (
+        (b, h, s, d), (b, kh, s, d), (b, kh, s, d), (b, h, s, d)))
+    kw = dict(causal=True, window=48)
+    got = flash_tensor_core_emulation(qt, kt, vt, split_p=True,
+                                      width=plan.w, **kw)
+    assert torch.equal(got, flash_tensor_core_emulation(
+        qt, kt, vt, split_p=True, **kw))
+    assert _beyond_two_ulps(got, flash_attention_ref(qt, kt, vt, **kw)) == 0
+    assert _beyond_two_ulps(got, torch.from_numpy(np.array(j_flash_ref(
+        qj, kj, vj, **kw).astype(jnp.float32)))) == 0
+    _, lse, out32 = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
+    out = flash_tensor_core_emulation(qt, kt, vt, split_p=True, f32_out=True,
+                                      width=plan.w, **kw)
+    grads = flash_bwd_tensor_core_emulation(
+        qt, kt, vt, out, dot, lse, split_p=True, split_ds=True, width=plan.w,
+        **kw)
+    true_width = flash_bwd_tensor_core_emulation(
+        qt, kt, vt, out, dot, lse, split_p=True, split_ds=True, **kw)
+    want_t = flash_attention_bwd_ref(qt, kt, vt, out32, dot, lse, **kw)
+    j32 = [x.astype(jnp.float32).transpose(0, 2, 1, 3)
+           for x in (qj, kj, vj, doj)]
+    _, vjp = jax.vjp(lambda q_, k_, v_: jatt.gqa_attention(
+        q_, k_, v_, chunk=s, **kw), *j32[:3])
+    want_j = [torch.from_numpy(np.array(x)).transpose(1, 2)
+              for x in vjp(j32[3])]
+    for x, y, wt, wj in zip(grads, true_width, want_t, want_j):
+        assert torch.equal(x, y)
+        assert _beyond_bwd_tol(x, wt) == 0 and _beyond_bwd_tol(x, wj) == 0
+
+
+def paged_cols_emulation(q, k_pages, v_pages, block_table, lengths, split):
+    """The column-pass paged kernel (``paged_cols_kernel``, one head
+    group) in plain PyTorch, f32: a block per (kv head, column pass,
+    sequence, split) scores its positions over chunks of 256 columns
+    (``_over_chunks``), keeps (m, l) and its pass's columns of acc; with
+    one split it writes them, with more pass 0 writes each split's (m, l)
+    and every pass its columns into the (.., D + 2) partials, merged by
+    exp(m - max m) as the merge launch does."""
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    g, span = h // kh, block_table.shape[1] * page
+    n_split = -(-span // split)
+    bt = block_table.long()
+    kd = k_pages[bt].reshape(b, span, kh, d).float()
+    vd = v_pages[bt].reshape(b, span, kh, d).float()
+    qf = q.float() * d ** -0.5
+    out = torch.full((b, h, d), float("nan"))
+    part = torch.full((b, kh, n_split, g, d + 2), float("nan"))
+    for cols in _passes(d, -(-d // COLS)):
+        for hk in range(kh):
+            for bi in range(b):
+                ln = int(lengths[bi])
+                n_pos = min(ln, span) if ln >= 1 else span
+                for sp in range(n_split):
+                    if sp * split >= n_pos:
+                        continue
+                    pos = torch.arange(sp * split, min(sp * split + split,
+                                                       n_pos))
+                    sc = _over_chunks(qf[bi, hk * g:(hk + 1) * g],
+                                      kd[bi, pos, hk])
+                    sc = torch.where(pos < ln, sc, NEG_INF)
+                    m = sc.amax(-1)
+                    p = torch.exp(sc - m[:, None])
+                    acc = p @ vd[bi, pos, hk, cols]
+                    if n_split == 1:
+                        out[bi, hk * g:(hk + 1) * g, cols] = \
+                            acc / p.sum(-1).clamp(min=1e-30)[:, None]
+                        continue
+                    part[bi, hk, sp, :, cols] = acc
+                    if cols.start == 0:
+                        part[bi, hk, sp, :, d] = m
+                        part[bi, hk, sp, :, d + 1] = p.sum(-1)
+    if n_split > 1:
+        for bi in range(b):
+            ln = int(lengths[bi])
+            n_pos = min(ln, span) if ln >= 1 else span
+            pb = part[bi, :, :-(-n_pos // split)]
+            w = torch.exp(pb[..., d] - pb[..., d].amax(1, keepdim=True))
+            den = (pb[..., d + 1] * w).sum(1).clamp(min=1e-30)
+            out[bi] = ((pb[..., :d] * w[..., None]).sum(1)
+                       / den[..., None]).reshape(h, d)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("split", [512, 64])
+def test_paged_chunked_score_at_d264(split):
+    """``paged_attention`` at D 264 (a 256-column chunk and an 8-column
+    one, two column passes), f32: the column-pass blocks' chunked scores,
+    one launch (split 512 over the 96-row span) and the split-and-merge
+    (split 64), against ``paged_attention_ref``, the JAX reference and
+    the Pallas kernel in interpret mode, at lengths 0, 1, on a split
+    boundary and the full span."""
+    assert pa.plan_of(264, torch.float32) == (264, 256, 2, False)
+    rng = np.random.default_rng(264 + split)
+    (qj, kj, vj), (qt, kt, vt), bt = _paged_case(rng, 4, 4, 2, 264, 16, 6,
+                                                 torch.float32)
+    ln = np.array([0, 1, 64, 96], np.int32)
+    args = (qt, kt, vt, torch.from_numpy(bt), torch.from_numpy(ln))
+    got = paged_cols_emulation(*args, split)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, paged_attention_ref(*args), rtol=2e-5,
+                               atol=2e-5)
+    for want in (paged_attention_op(qj, kj, vj, jnp.asarray(bt),
+                                    jnp.asarray(ln), interpret=True),
+                 j_paged_ref(qj, kj, vj, jnp.asarray(bt), jnp.asarray(ln))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-5, atol=2e-5)
